@@ -1,0 +1,98 @@
+"""Graph-walking detection model (counterpart of ``bsyolo_tpu/nn/model.py``).
+
+``DetectionGraph`` runs a parsed ``ModelSpec`` layer by layer, keeping the
+outputs the save-list names for later layers. Its layers live in
+``self.model``, an ``nn.ModuleList``, so parameter keys read
+``model.{i}.…`` like the reference torch graph.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+import torch.nn as nn
+
+from bsyolo_tpu_torch.nn import modules as M
+from bsyolo_tpu_torch.nn.heads import Detect
+from bsyolo_tpu_torch.nn.parser import LayerSpec, ModelSpec
+
+
+def _build_layer(spec: LayerSpec, strides) -> nn.Module:
+    m, a, c1 = spec.module, spec.args, spec.c1
+
+    def opt(i, default):
+        return a[i] if len(a) > i else default
+
+    if m == "Conv":
+        return M.Conv(c1, a[0], opt(1, 1), opt(2, 1), opt(3, None), opt(4, 1), opt(5, 1), opt(6, True))
+    if m == "DWConv":
+        return M.DWConv(c1, a[0], opt(1, 1), opt(2, 1), opt(3, 1), opt(4, True))
+    if m in ("C3k2", "C3k2_gai"):
+        cls = M.C3k2 if m == "C3k2" else M.C3k2_gai
+        return cls(c1, a[0], a[1], c3k=opt(2, False), e=opt(3, 0.5), g=opt(4, 1), shortcut=opt(5, True))
+    if m == "C2f":
+        return M.C2f(c1, a[0], a[1], opt(2, False), opt(3, 1))
+    if m == "C3":
+        return M.C3(c1, a[0], a[1], opt(2, True))
+    if m == "Bottleneck":
+        return M.Bottleneck(c1, a[0], opt(1, True))
+    if m == "SPPF":
+        return M.SPPF(c1, a[0], opt(1, 5))
+    if m == "C2PSA":
+        return M.C2PSA(c1, a[0], a[1], opt(2, 0.5))
+    if m == "SCDown":
+        return M.SCDown(c1, a[0], a[1], a[2])
+    if m == "MSCAAttention":
+        return M.MSCAAttention(a[0])
+    if m == "ELA":
+        return M.ELA(a[0])
+    if m == "Upsample":
+        return nn.Upsample(scale_factor=opt(1, 2), mode=opt(2, "nearest"))
+    if m == "Concat":
+        return M.Concat(opt(0, 1))
+    if m == "Detect":
+        return Detect(a[0], a[1], strides)
+    raise NotImplementedError(f"module {m} has no layer constructor in DetectionGraph")
+
+
+class DetectionGraph(nn.Module):
+    """Executes a ModelSpec; the output is the head's list of raw per-level maps."""
+
+    def __init__(self, spec: ModelSpec):
+        super().__init__()
+        self.spec = spec
+        layers = []
+        for layer in spec.layers:
+            if layer.n > 1:  # plain repeated modules become a Sequential, children 0..n-1
+                layers.append(nn.Sequential(*(_build_layer(layer, spec.head_strides) for _ in range(layer.n))))
+            else:
+                layers.append(_build_layer(layer, spec.head_strides))
+        self.model = nn.ModuleList(layers)
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        saved: Dict[int, torch.Tensor] = {}
+        save = set(self.spec.save)
+        for layer, m in zip(self.spec.layers, self.model):
+            if len(layer.f) > 1:
+                x = m([x if j == -1 else saved[j] for j in layer.f])
+            else:
+                x = m(x if layer.f[0] == -1 else saved[layer.f[0]])
+            if layer.i in save:
+                saved[layer.i] = x
+        return x
+
+
+def build_model(spec: ModelSpec, device, seed: int = 0) -> DetectionGraph:
+    """Build the graph with weights drawn from a seeded ``torch.Generator`` on the
+    host, then move it to ``device`` in eval mode: the same seed gives the same
+    weights on every device."""
+    model = DetectionGraph(spec)
+    g = torch.Generator().manual_seed(seed)
+    M.reset_parameters(model, g)
+    model.model[-1].bias_init()
+    return model.to(device).eval()
+
+
+def count_params(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())
