@@ -5,21 +5,30 @@ letterbox on the model's device -> uint8 batches of ``batch`` frames (the
 last one padded by repeating its last frame, so every batch has one shape)
 -> /255, graph, fused decode and NMS on the device -> boxes scaled back to
 each original frame -> ``Results``.
+
+With ``augment=True`` (test-time augmentation) the graph runs three passes
+per batch, identity, 0.83x with a left-right flip and 0.67x; each is decoded
+by ``decode_detections``, mapped back to the input's pixels and tail-clipped,
+and the merged passes go through one ``non_max_suppression``.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from bsyolo_tpu_torch.engine.results import Results
 from bsyolo_tpu_torch.kernels.postprocess import detect_postprocess
+from bsyolo_tpu_torch.nn.heads import decode_detections
 from bsyolo_tpu_torch.ops.boxes import scale_boxes
 from bsyolo_tpu_torch.ops.letterbox import letterbox
+from bsyolo_tpu_torch.ops.nms import non_max_suppression
 
 IMG_SUFFIXES = {".bmp", ".jpeg", ".jpg", ".png", ".tif", ".tiff", ".webp"}
 VID_SUFFIXES = {".mp4", ".avi", ".mov", ".mkv", ".m4v", ".mpg", ".mpeg", ".wmv", ".webm"}
@@ -62,6 +71,22 @@ def iter_source(source) -> Iterator[tuple]:
     yield im, s
 
 
+# TTA passes (scale, left-right flip), as the reference's _predict_augment
+TTA_PASSES = ((1.0, False), (0.83, True), (0.67, False))
+
+
+def scale_img(x: torch.Tensor, ratio: float, gs: int) -> torch.Tensor:
+    """(B, C, H, W) float image scaled by ``ratio`` (bilinear, antialiased when it
+    shrinks, as ``jax.image.resize``) and padded at the bottom and right with
+    0.447 up to the multiple of ``gs`` above ``H * ratio`` and ``W * ratio``."""
+    ih, iw = x.shape[2:]
+    nh, nw = int(ih * ratio), int(iw * ratio)
+    x = F.interpolate(x, size=(nh, nw), mode="bilinear", align_corners=False, antialias=True)
+    ph = math.ceil(ih * ratio / gs) * gs - nh
+    pw = math.ceil(iw * ratio / gs) * gs - nw
+    return F.pad(x, (0, pw, 0, ph), value=0.447)  # the reference's imagenet-mean pad value
+
+
 class DetectionPredictor:
     def __init__(
         self,
@@ -76,6 +101,7 @@ class DetectionPredictor:
         agnostic_nms: bool = False,
         names: Optional[Dict[int, str]] = None,
         batch: int = 1,
+        augment: bool = False,
     ):
         self.model = model
         self.spec = spec
@@ -88,14 +114,42 @@ class DetectionPredictor:
         self.agnostic_nms = agnostic_nms
         self.names = names or {i: n for i, n in enumerate(spec.names)}
         self.batch = max(int(batch), 1)
+        self.augment = augment  # the port has only the plain Detect head, the one head that takes TTA
 
     @torch.inference_mode()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, 3, S, S) uint8 RGB on the device -> (B, max_det, 6) detections on the device."""
-        feats = self.model(x.float() / 255.0)
+        x = x.float() / 255.0
+        if self.augment:
+            return self._forward_augment(x)
         return detect_postprocess(
-            feats, self.spec.head_strides, self.spec.nc, conf_thres=self.conf, iou_thres=self.iou,
+            self.model(x), self.spec.head_strides, self.spec.nc, conf_thres=self.conf, iou_thres=self.iou,
             max_det=self.max_det, agnostic=self.agnostic_nms, reg_max=self.spec.reg_max,
+        )
+
+    def _forward_augment(self, x: torch.Tensor) -> torch.Tensor:
+        """TTA: each pass decoded to xywh in the input's pixels (de-scaled, de-flipped);
+        the unscaled pass drops its last-level anchors and the most downscaled pass its
+        first-level anchors; one NMS over the rest."""
+        strides, nc = self.spec.head_strides, self.spec.nc
+        iw = x.shape[3]
+        outs = []
+        for si, flip in TTA_PASSES:
+            xi = x.flip(3) if flip else x
+            if si != 1.0:
+                xi = scale_img(xi, si, max(strides))  # pad to the largest stride: every level keeps its 4^i share
+            p = decode_detections(self.model(xi), strides, nc, reg_max=self.spec.reg_max)
+            xy, wh = p[..., :2] / si, p[..., 2:4] / si
+            if flip:
+                xy = torch.cat([iw - xy[..., :1], xy[..., 1:]], -1)
+            outs.append(torch.cat([xy, wh, p[..., 4:]], -1))
+        nl = len(strides)
+        g = sum(4**i for i in range(nl))
+        outs[0] = outs[0][:, : -(outs[0].shape[1] // g)]
+        outs[-1] = outs[-1][:, (outs[-1].shape[1] // g) * 4 ** (nl - 1) :]
+        return non_max_suppression(
+            torch.cat(outs, 1), conf_thres=self.conf, iou_thres=self.iou, max_det=self.max_det, nc=nc,
+            agnostic=self.agnostic_nms,
         )
 
     def _batches(self, source):

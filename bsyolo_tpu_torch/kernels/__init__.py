@@ -11,7 +11,10 @@ from typing import Dict
 from bsyolo_tpu_torch.kernels import decode
 
 # kernel name -> (wrapper with a launch count, CUDA source stem)
-KERNELS = {"decode_box_best": (decode.box_best_cuda, "decode_box")}
+KERNELS = {
+    "decode_box_best": (decode.box_best_cuda, "decode_box"),
+    "decode_xywh": (decode.decode_xywh_cuda, "decode_xywh"),
+}
 
 
 def launch_counts() -> Dict[str, int]:

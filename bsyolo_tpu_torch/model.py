@@ -4,6 +4,7 @@
     m = YOLO("yolo11n.yaml")                  # BS-YOLO graph on cuda:0, seeded init
     m = YOLO("yolo11n.yaml").load("w.pt")     # reference torch state_dict
     results = m.predict(frames, imgsz=640, batch=8, conf=0.25)
+    results = m.predict(frames, augment=True)  # test-time augmentation
 """
 
 from __future__ import annotations
@@ -20,10 +21,10 @@ from bsyolo_tpu_torch.nn.model import build_model
 from bsyolo_tpu_torch.nn.parser import load_model_yaml, parse_model_yaml
 from bsyolo_tpu_torch.utils.weights import load_reference_state_dict
 
-_PREDICT_ARGS = {"conf", "iou", "imgsz", "batch", "max_det", "classes", "agnostic_nms", "verbose"}
+_PREDICT_ARGS = {"conf", "iou", "imgsz", "batch", "max_det", "classes", "agnostic_nms", "augment", "verbose"}
 # predict options of the JAX package that the port does not have yet -> the ROADMAP item that brings them
 _NOT_PORTED = {
-    **dict.fromkeys(("half", "augment", "vid_stride", "stream_buffer", "save", "save_txt", "save_conf",
+    **dict.fromkeys(("half", "vid_stride", "stream_buffer", "save", "save_txt", "save_conf",
                      "save_crop", "show", "visualize", "embed"), "queue 1, item 17"),
     "retina_masks": "queue 1, item 12",
 }
@@ -83,6 +84,7 @@ class YOLO:
             agnostic_nms=kwargs.get("agnostic_nms", False),
             names=self.names,
             batch=int(kwargs.get("batch") or 1),
+            augment=bool(kwargs.get("augment", False)),
         )
         gen = predictor.stream(source, verbose=kwargs.get("verbose", False))
         return gen if stream else list(gen)

@@ -13,8 +13,9 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from bsyolo_tpu_torch.nn.modules import Conv, DWConv, dfl_decode
-from bsyolo_tpu_torch.ops.anchors import dist2bbox, make_anchors
+from bsyolo_tpu_torch.kernels.decode import REG_MAX, decode_xywh, decode_xywh_reference
+from bsyolo_tpu_torch.nn.modules import Conv, DWConv
+from bsyolo_tpu_torch.ops.anchors import make_anchors
 
 
 class Detect(nn.Module):
@@ -56,9 +57,15 @@ def flatten_levels(feats: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 def decode_detections(feats: Sequence[torch.Tensor], strides: Sequence[int], nc: int, reg_max: int = 16) -> torch.Tensor:
-    """Raw Detect maps -> (B, A, 4 + nc): xywh pixels + sigmoid scores."""
+    """Raw Detect maps -> (B, A, 4 + nc): xywh pixels + sigmoid scores.
+
+    The decode is the CUDA kernel (kernels/decode.py ``decode_xywh``) for a
+    CUDA tensor and its plain version for a CPU tensor. The kernel is
+    specialised to 16 DFL bins, so ``reg_max != 16`` decodes with the plain
+    version on either device. Channels past ``4 * reg_max + nc`` are ignored.
+    """
     anchors, stride_t = make_anchors([f.shape[2:] for f in feats], strides, 0.5, device=feats[0].device)
-    flat = flatten_levels(feats).transpose(1, 2)  # (B, A, no)
-    dist = dfl_decode(flat[..., : 4 * reg_max], reg_max)
-    dbox = dist2bbox(dist, anchors[None], xywh=True) * stride_t[None]
-    return torch.cat([dbox, torch.sigmoid(flat[..., 4 * reg_max : 4 * reg_max + nc].float())], -1)
+    flat = flatten_levels(feats).float()  # (B, no, A), contiguous
+    if reg_max == REG_MAX:
+        return decode_xywh(flat, anchors, stride_t, nc)
+    return decode_xywh_reference(flat, anchors, stride_t, nc, reg_max)

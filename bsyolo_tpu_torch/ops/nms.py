@@ -1,9 +1,10 @@
-"""Logit-domain non-max suppression (counterpart of ``bsyolo_tpu/ops/nms.py``).
+"""Non-max suppression (counterpart of ``bsyolo_tpu/ops/nms.py``).
 
 Fixed-shape outputs like the JAX package: (B, max_det, 6) rows of x1, y1, x2,
-y2, conf, cls, padded with conf 0 and cls -1. Candidates are chosen on raw
-logits (sigmoid is monotonic) and only the chosen ones are sigmoided. Greedy
-suppression is the fixed-point iteration
+y2, conf, cls, padded with conf 0 and cls -1. ``nms_from_logits`` chooses
+candidates on raw logits (sigmoid is monotonic) and sigmoids only the chosen
+ones; ``non_max_suppression`` takes decoded xywh boxes and sigmoid scores.
+Greedy suppression is the fixed-point iteration
 
     K_{t+1}[j] = valid[j] and not exists i < j with K_t[i] and IoU(i, j) > thresh
 
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from bsyolo_tpu_torch.ops.boxes import box_iou_pairwise
+from bsyolo_tpu_torch.ops.boxes import box_iou_pairwise, xywh2xyxy
 
 
 def _top_k(x: torch.Tensor, k: int):
@@ -44,36 +45,38 @@ def _greedy_keep(iou: torch.Tensor, valid: torch.Tensor, iou_thres: float):
     return keep
 
 
-def nms_from_logits(
+def _nms(
     boxes: torch.Tensor,  # (B, A, 4) xyxy pixels
-    cls_logits: torch.Tensor,  # (B, A, nc) raw class logits
-    best_logit: torch.Tensor,  # (B, A) max class logit per anchor
-    conf_thres: float = 0.25,
-    iou_thres: float = 0.7,
-    max_det: int = 300,
-    pre_k: int = 1024,
-    multi_label: bool = True,
-    agnostic: bool = False,
-    max_wh: float = 7680.0,
-    return_idx: bool = False,
+    cls_values: torch.Tensor,  # (B, A, nc) class logits or scores
+    best: torch.Tensor,  # (B, A) max of cls_values per anchor
+    to_score,  # cls_values -> scores in (0, 1): sigmoid for logits, None for scores
+    conf_thres: float,
+    iou_thres: float,
+    max_det: int,
+    pre_k: int,
+    multi_label: bool,
+    agnostic: bool,
+    max_wh: float,
+    return_idx: bool,
 ):
-    """Batched logit-domain NMS -> (B, max_det, 6) [+ (B, max_det) source anchors, -1 for padding]."""
-    B, A, nc = cls_logits.shape
+    """Batched NMS shared by both entries: candidates ranked on ``cls_values``
+    (two-stage multi-label top-k), greedy suppression, top ``max_det`` kept."""
+    B, A, nc = cls_values.shape
     boxes = boxes.float()
     ka = min(pre_k, A)
-    _, top_anchors = _top_k(best_logit, ka)  # (B, ka)
-    sub = torch.gather(cls_logits, 1, top_anchors[..., None].expand(B, ka, nc)).float()  # (B, ka, nc)
+    _, top_anchors = _top_k(best, ka)  # (B, ka)
+    sub = torch.gather(cls_values, 1, top_anchors[..., None].expand(B, ka, nc)).float()  # (B, ka, nc)
     if multi_label and nc > 1:
         k = min(pre_k, ka * nc)
-        cand_logits, flat_idx = _top_k(sub.reshape(B, ka * nc), k)
+        cand_values, flat_idx = _top_k(sub.reshape(B, ka * nc), k)
         rel = flat_idx // nc
         cls_idx = (flat_idx % nc).float()
     else:
         k = ka
-        cand_logits = sub.amax(-1)
+        cand_values = sub.amax(-1)
         rel = torch.arange(ka, device=sub.device).expand(B, ka)
         cls_idx = sub.argmax(-1).float()
-    cand_scores = torch.sigmoid(cand_logits)
+    cand_scores = cand_values if to_score is None else to_score(cand_values)
     anchor_idx = torch.gather(top_anchors, 1, rel)
     cand_boxes = torch.gather(boxes, 1, anchor_idx[..., None].expand(B, k, 4))
 
@@ -102,3 +105,47 @@ def nms_from_logits(
         out = torch.cat([out, pad], 1)
         sel_anchor = torch.cat([sel_anchor, sel_anchor.new_full((B, max_det - k), -1)], 1)
     return (out, sel_anchor) if return_idx else out
+
+
+def nms_from_logits(
+    boxes: torch.Tensor,  # (B, A, 4) xyxy pixels
+    cls_logits: torch.Tensor,  # (B, A, nc) raw class logits
+    best_logit: torch.Tensor,  # (B, A) max class logit per anchor
+    conf_thres: float = 0.25,
+    iou_thres: float = 0.7,
+    max_det: int = 300,
+    pre_k: int = 1024,
+    multi_label: bool = True,
+    agnostic: bool = False,
+    max_wh: float = 7680.0,
+    return_idx: bool = False,
+):
+    """Batched logit-domain NMS -> (B, max_det, 6) [+ (B, max_det) source anchors, -1 for padding]."""
+    return _nms(boxes, cls_logits, best_logit, torch.sigmoid, conf_thres, iou_thres, max_det, pre_k, multi_label,
+                agnostic, max_wh, return_idx)
+
+
+def non_max_suppression(
+    prediction: torch.Tensor,  # (B, A, 4 + nc) xywh pixels + sigmoid class scores
+    conf_thres: float = 0.25,
+    iou_thres: float = 0.7,
+    max_det: int = 300,
+    pre_k: int = 1024,
+    nc: int = 0,
+    multi_label: bool = True,
+    agnostic: bool = False,
+    max_wh: float = 7680.0,
+    return_idx: bool = False,
+):
+    """Batched NMS on decoded predictions (``decode_detections``' layout) ->
+    (B, max_det, 6) [+ (B, max_det) source anchors, -1 for padding].
+
+    Ranks the sigmoid scores themselves, so saturated scores tie and the
+    lower anchor comes first. ``nc`` is inferred from the width when 0.
+    """
+    if nc <= 0:
+        nc = prediction.shape[-1] - 4
+    prediction = prediction.float()
+    scores = prediction[..., 4 : 4 + nc]
+    return _nms(xywh2xyxy(prediction[..., :4]), scores, scores.amax(-1), None, conf_thres, iou_thres, max_det, pre_k,
+                multi_label, agnostic, max_wh, return_idx)

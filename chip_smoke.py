@@ -8,14 +8,24 @@ non-zero without them. Phases, each of which fails the run on its own:
 
 1. the card's name and power limit; every kernel of the port built with
    nvcc from ``bsyolo_tpu_torch/kernels/csrc``, one nvcc per source, all at once;
-2. each kernel against its plain PyTorch version on the card, at the predict
-   path's shapes and at a ragged one, with its time, the plain version's time
-   and the least time the card could take (bytes or operations over the
+2. each kernel against its plain PyTorch version on the card, at the shapes
+   its paths give it and at a ragged one, with its time, the plain version's
+   time and the least time the card could take (bytes or operations over the
    card's published peak);
 3. the predict path at full yolo11n width (nc 12, imgsz 640), seeded random
    weights, 8 seeded synthetic frames (480x640 and 720x1280), batch 1 and
-   batch 4, conf 0.001: every kernel of the path launched, throughput,
-   and detections held against the same port on the CPU.
+   batch 4, conf 0.001: the box-best decode kernel launched once per batch,
+   throughput, and detections held against the same port on the CPU;
+4. the test-time-augmented predict path (``predict(augment=True)``) on the
+   same frames at batch 4: the xywh decode kernel launched three times per
+   batch, throughput, and detections held against the CPU;
+5. the tiled (SAHI-style) path, ``predict_tiled`` with 640-px tiles on a
+   seeded 1080x1920 frame (8 tiles) and a 720x1280 frame (6 tiles): the xywh
+   decode kernel launched once per call, time per frame, and detections held
+   against the CPU.
+
+Every launch counter is set to 0 just before a path is driven and read just
+after, so each path shows the kernels it went through.
 
 TF32 is off for convolutions and matrix products throughout, so the card and
 the CPU compute the same float32 function (cuDNN would otherwise run float32
@@ -39,6 +49,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 
 BOX_ATOL_PX = 2e-3  # kernel vs plain: float32 softmax sums in another order, times strides up to 32
+SCORE_RTOL = 1e-5  # kernel vs plain sigmoid: the kernel's expf against torch.sigmoid's own exp
 SEED = 0
 IMGSZ = 640
 CONF = 0.001
@@ -106,21 +117,57 @@ def cuda_time_ms(fn, inputs, reps: int):
     return event_ms, device_ms
 
 
+def time_against_plain(label, kernel, plain, inputs, bytes_moved, ops):
+    """Time ``kernel`` and ``plain`` on copies of ``inputs`` that together exceed the
+    50 MB L2, so each launch reads its head from HBM; returns the kernels-line fields."""
+    import torch
+
+    head = inputs[0]
+    copies = [(head.clone(), *inputs[1:]) for _ in range(max(2, math.ceil(120e6 / head.nbytes)))]
+    call_ms, dev_ms = cuda_time_ms(kernel, copies, 200)
+    plain_call_ms, plain_dev_ms = cuda_time_ms(plain, copies, 50)
+    del copies
+    torch.cuda.empty_cache()
+    # device time where the profiler sees the kernels, else the events' per-call time
+    ms, plain_ms = dev_ms or call_ms, plain_dev_ms or plain_call_ms
+    bound_ms = max(bytes_moved / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S) * 1e3
+    bound_by = "bytes" if bytes_moved / PEAK_BYTES_PER_S >= ops / PEAK_F32_OPS_PER_S else "operations"
+    print(f"  kernel {dev_ms * 1e3:.2f} us on the device, {call_ms * 1e3:.2f} us per call (events); "
+          f"plain {plain_dev_ms * 1e3:.2f} us on the device, {plain_call_ms * 1e3:.2f} us per call; "
+          f"bound {bound_ms * 1e3:.2f} us ({bound_by}: {bytes_moved / 1e6:.2f} MB, {ops / 1e6:.1f} Mop)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, call_ms=call_ms,
+                plain_call_ms=plain_call_ms, shape=label)
+
+
+def seeded_head(g, dev, b, side, nc):
+    """(B, 64 + nc, A) head at ``side`` px (or A = -side random anchors), image 0's side 1 far below the others."""
+    import torch
+
+    from bsyolo_tpu_torch.kernels.decode import REG_MAX
+    from bsyolo_tpu_torch.ops.anchors import make_anchors
+
+    if side > 0:
+        shapes = [(side // s, side // s) for s in (8, 16, 32)]
+        anchors, strides = make_anchors(shapes, (8, 16, 32), 0.5, device=dev)
+    else:
+        anchors = torch.rand((-side, 2), generator=g, device=dev) * 80
+        strides = torch.tensor([8.0, 16.0, 32.0], device=dev)[torch.randint(0, 3, (-side, 1), generator=g, device=dev)]
+    head = torch.randn((b, 4 * REG_MAX + nc, anchors.shape[0]), generator=g, device=dev) * 2.0
+    head[0, REG_MAX : 2 * REG_MAX] -= 120.0  # one side far below the others (NaN for a single row max)
+    return head, anchors, strides
+
+
 def check_decode_kernel(dev):
     """box_best_cuda against box_best_reference on the card; returns the kernels-line fields."""
     import torch
 
     from bsyolo_tpu_torch.kernels.decode import REG_MAX, box_best_cuda, box_best_reference
-    from bsyolo_tpu_torch.ops.anchors import make_anchors
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     worst, rows = 0.0, {}
     for b, side, nc in ((1, IMGSZ, 12), (4, IMGSZ, 12), (8, IMGSZ, 12), (2, 224, 80)):
-        shapes = [(side // s, side // s) for s in (8, 16, 32)]
-        anchors, strides = make_anchors(shapes, (8, 16, 32), 0.5, device=dev)
-        a, no = anchors.shape[0], 4 * REG_MAX + nc
-        head = torch.randn((b, no, a), generator=g, device=dev) * 2.0
-        head[0, REG_MAX : 2 * REG_MAX] -= 120.0  # one side far below the others (NaN for a single row max)
+        head, anchors, strides = seeded_head(g, dev, b, side, nc)
+        a = anchors.shape[0]
         boxes, best = box_best_cuda(head, anchors, strides, nc)
         want_boxes, want_best = box_best_reference(head, anchors, strides, nc)
         torch.cuda.synchronize()
@@ -128,28 +175,50 @@ def check_decode_kernel(dev):
         best_err = (best - want_best).abs().max().item()
         finite = bool(torch.isfinite(boxes).all())
         ok = finite and err <= BOX_ATOL_PX and best_err == 0.0
-        # time on copies that together exceed the 50 MB L2, so each launch reads its head from HBM
-        copies = [(head.clone(), anchors, strides, nc) for _ in range(max(2, math.ceil(120e6 / head.nbytes)))]
-        call_ms, dev_ms = cuda_time_ms(box_best_cuda, copies, 200)
-        plain_call_ms, plain_dev_ms = cuda_time_ms(box_best_reference, copies, 50)
-        # device time where the profiler sees the kernels, else the events' per-call time
-        ms, plain_ms = dev_ms or call_ms, plain_dev_ms or plain_call_ms
-        bytes_moved = head.nbytes + anchors.nbytes + strides.nbytes + b * a * (4 + 1) * 4
-        ops = b * a * (4 * (6 * REG_MAX + 1) + nc + 8)  # per side: max, sub, exp, add, fma (2); one divide
-        bound_ms = max(bytes_moved / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S) * 1e3
-        bound_by = "bytes" if bytes_moved / PEAK_BYTES_PER_S >= ops / PEAK_F32_OPS_PER_S else "operations"
         print(f"decode_box_best B={b} A={a} nc={nc}: max|box err| {err:.3g} px (tol {BOX_ATOL_PX}), "
-              f"max|best err| {best_err:.3g} (tol 0), finite {finite}; {'OK' if ok else 'FAIL'}\n"
-              f"  kernel {dev_ms * 1e3:.2f} us on the device, {call_ms * 1e3:.2f} us per call (events); "
-              f"plain {plain_dev_ms * 1e3:.2f} us on the device, {plain_call_ms * 1e3:.2f} us per call; "
-              f"bound {bound_ms * 1e3:.2f} us ({bound_by}: {bytes_moved / 1e6:.2f} MB, {ops / 1e6:.1f} Mop)")
+              f"max|best err| {best_err:.3g} (tol 0), finite {finite}; {'OK' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"decode_box_best disagrees with its plain version at B={b} A={a} nc={nc}")
         worst = max(worst, err)
-        rows[(b, nc)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, call_ms=call_ms,
-                             plain_call_ms=plain_call_ms, shape=f"B{b} A{a} nc{nc}")
+        bytes_moved = head.nbytes + anchors.nbytes + strides.nbytes + b * a * (4 + 1) * 4
+        ops = b * a * (4 * (6 * REG_MAX + 1) + nc + 8)  # per side: max, sub, exp, add, fma (2); one divide
+        rows[(b, nc)] = time_against_plain(f"B{b} A{a} nc{nc}", box_best_cuda, box_best_reference,
+                                           (head, anchors, strides, nc), bytes_moved, ops)
     # the kernels line reports the largest batch the predict phase runs
     return dict(max_abs_err=worst, **rows[(4, 12)])
+
+
+def check_decode_xywh_kernel(dev):
+    """decode_xywh_cuda against decode_xywh_reference on the card, at the TTA passes'
+    shapes (B=4 at 640, 544 and 448 px), eight 640-px tiles and a ragged nc=80 case;
+    returns the kernels-line fields."""
+    import torch
+
+    from bsyolo_tpu_torch.kernels.decode import REG_MAX, decode_xywh_cuda, decode_xywh_reference
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    worst, rows = 0.0, {}
+    for b, side, nc in ((4, IMGSZ, 12), (4, 544, 12), (4, 448, 12), (8, IMGSZ, 12), (2, -700, 80)):
+        head, anchors, strides = seeded_head(g, dev, b, side, nc)
+        a = anchors.shape[0]
+        got = decode_xywh_cuda(head, anchors, strides, nc)
+        want = decode_xywh_reference(head, anchors, strides, nc)
+        torch.cuda.synchronize()
+        err = (got[..., :4] - want[..., :4]).abs().max().item()
+        score_rel = ((got[..., 4:] - want[..., 4:]).abs() / want[..., 4:].abs()).max().item()
+        finite = bool(torch.isfinite(got).all())
+        ok = finite and tuple(got.shape) == (b, a, 4 + nc) and err <= BOX_ATOL_PX and score_rel <= SCORE_RTOL
+        print(f"decode_xywh B={b} A={a} nc={nc}: max|box err| {err:.3g} px (tol {BOX_ATOL_PX}), "
+              f"max score rel err {score_rel:.3g} (tol {SCORE_RTOL}), finite {finite}; {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"decode_xywh disagrees with its plain version at B={b} A={a} nc={nc}")
+        worst = max(worst, err)
+        bytes_moved = head.nbytes + anchors.nbytes + strides.nbytes + b * a * (4 + nc) * 4
+        ops = b * a * (4 * (6 * REG_MAX + 1) + 10 + 4 * nc)  # the sides as above; box 10; sigmoid 4 per class
+        rows[(b, a)] = time_against_plain(f"B{b} A{a} nc{nc}", decode_xywh_cuda, decode_xywh_reference,
+                                          (head, anchors, strides, nc), bytes_moved, ops)
+    # the kernels line reports the TTA path's unscaled pass, B=4 at 640 px
+    return dict(max_abs_err=worst, **rows[(4, 8400)])
 
 
 def draw_weights(model, seed: int) -> None:
@@ -196,12 +265,9 @@ def match_detections(got: np.ndarray, want: np.ndarray):
     return errs
 
 
-def predict_path(dev):
-    import torch
-
-    from bsyolo_tpu_torch import YOLO, kernels
-    from bsyolo_tpu_torch.nn.heads import flatten_levels
-    from bsyolo_tpu_torch.ops.letterbox import letterbox
+def make_models(dev):
+    """The same seeded yolo11n on the CPU and, through YOLO()'s default device, on the card; the seeded frames."""
+    from bsyolo_tpu_torch import YOLO
 
     host = YOLO("yolo11n.yaml", device="cpu", seed=SEED)
     draw_weights(host.model, SEED)
@@ -214,6 +280,72 @@ def predict_path(dev):
               for i in range(N_FRAMES)]
     print(f"yolo11n: {sum(p.numel() for p in model.model.parameters())} params, nc={len(model.names)}, "
           f"{N_FRAMES} frames 480x640 / 720x1280, imgsz {IMGSZ}, conf {CONF}")
+    return host, model, frames
+
+
+def expect_launches(path: str, expected: dict) -> dict:
+    """Read the launch counters after a path's run; fail unless they are ``expected``."""
+    from bsyolo_tpu_torch import kernels
+
+    launches = kernels.launch_counts()
+    print(f"kernel launches in the {path} runs: {launches} (expected {expected})")
+    if launches != expected:
+        raise SystemExit(f"the {path} path launched {launches}, expected {expected}")
+    return launches
+
+
+def profile_once(label: str, run, unprofiled_ms: float) -> None:
+    """One call of ``run`` under torch.profiler: device work, busy share, largest device items."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = sorted(device_kernels(prof), key=lambda k: -k[1])
+    busy_ms = sum(us for _, us, _ in kern) / 1e3
+    print(f"{label} under torch.profiler: {wall_ms:.1f} ms wall, {busy_ms:.2f} ms of device work; device busy "
+          f"{busy_ms / wall_ms:.3f} of the profiled wall time, {busy_ms / unprofiled_ms:.3f} of the unprofiled "
+          f"{unprofiled_ms:.1f} ms; largest device items:")
+    for name, us, n in kern[:10]:
+        print(f"  {us / 1e3:8.3f} ms  {n:5d} x  {name[:100]}")
+
+
+def check_finite(label: str, dets) -> None:
+    for i, d in enumerate(dets):
+        if not (d.ndim == 2 and d.shape[1] == 6 and len(d) > 0 and np.isfinite(d).all()):
+            raise SystemExit(f"{label}, frame {i}: detections are not finite (n, 6) rows: {d.shape}")
+
+
+def compare_with_cpu(label: str, got, want) -> None:
+    """Card detections against the CPU's, frame by frame, with match_detections; fails below MATCH_MIN_FRACTION."""
+    n_want = n_got = same_frames = 0
+    errs = []
+    for g_, w in zip(got, want):
+        e = match_detections(g_, w)
+        n_want, n_got, errs = n_want + len(w), n_got + len(g_), errs + e
+        same_frames += len(e) == len(w) == len(g_)
+    frac = len(errs) / max(n_want, n_got)
+    box_q = np.quantile([e[0] for e in errs], [0.5, 0.99, 1.0])
+    score_q = np.quantile([e[1] for e in errs], [0.5, 0.99, 1.0])
+    print(f"detections card ({label}) vs CPU: {n_got} vs {n_want} rows, {len(errs)} matched ({frac:.4f}; "
+          f"same class, |box| <= {MATCH_BOX_PX} px, |score| <= {MATCH_SCORE}); {same_frames} of {len(got)} "
+          f"frames match in every row; matched |box err| px p50/p99/max {box_q[0]:.3g}/{box_q[1]:.3g}/"
+          f"{box_q[2]:.3g}, |score err| {score_q[0]:.3g}/{score_q[1]:.3g}/{score_q[2]:.3g}")
+    if frac < MATCH_MIN_FRACTION:
+        raise SystemExit(f"card detections ({label}) match the CPU's in {frac:.4f} of rows, below {MATCH_MIN_FRACTION}")
+
+
+def predict_path(dev, host, model, frames):
+    """Phase 3: plain predict at batch 1 and 4; the box-best kernel once per batch."""
+    import torch
+
+    from bsyolo_tpu_torch import kernels
+    from bsyolo_tpu_torch.kernels.postprocess import detect_postprocess
+    from bsyolo_tpu_torch.nn.heads import flatten_levels
+    from bsyolo_tpu_torch.ops.letterbox import letterbox
 
     for batch in (1, 4):  # warm-up at both batch sizes: cuDNN plans, allocator, first-use kernel loads
         model.predict(frames[:4], imgsz=IMGSZ, batch=batch, conf=CONF)
@@ -233,31 +365,13 @@ def predict_path(dev):
               f"(host clock, letterbox to Results), detections per frame {[len(r) for r in res]}")
         speed = {k: sum(r.speed[k] for r in res) / len(res) for k in res[0].speed}
         print("  Results.speed, ms per frame: " + ", ".join(f"{k} {v:.2f}" for k, v in speed.items()))
-    launches = kernels.launch_counts()
-    expected = sum(math.ceil(N_FRAMES / b) for b in runs)
-    print(f"kernel launches in the predict runs: {launches} (batches: {expected})")
-    for name, n in launches.items():
-        if n != expected:
-            raise SystemExit(f"kernel {name} launched {n} times on the predict path, expected {expected}")
+    batches = sum(math.ceil(N_FRAMES / b) for b in runs)
+    launches = expect_launches("predict", {"decode_box_best": batches, "decode_xywh": 0})
 
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model.predict(frames[:4], imgsz=IMGSZ, batch=4, conf=CONF)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = sorted(device_kernels(prof), key=lambda k: -k[1])
-    busy_ms = sum(us for _, us, _ in kern) / 1e3
-    print(f"one batch of 4 under torch.profiler: {wall_ms:.1f} ms wall, {busy_ms:.2f} ms of device work; device busy "
-          f"{busy_ms / wall_ms:.3f} of the profiled wall time, {busy_ms / batch_ms[4]:.3f} of the unprofiled "
-          f"{batch_ms[4]:.1f} ms per batch; largest device items:")
-    for name, us, n in kern[:10]:
-        print(f"  {us / 1e3:8.3f} ms  {n:5d} x  {name[:100]}")
+    profile_once("predict, one batch of 4", lambda: model.predict(frames[:4], imgsz=IMGSZ, batch=4, conf=CONF),
+                 batch_ms[4])
 
     # host-clock split of one batch of 4, synchronised after each stage; median of 5
-    from bsyolo_tpu_torch.kernels.postprocess import detect_postprocess
-
     split = []
     for _ in range(5):
         t = [time.perf_counter()]
@@ -279,9 +393,7 @@ def predict_path(dev):
         f"{k} {v:.2f}" for k, v in zip(("letterbox", "graph", "decode + NMS", "copy back"), med)))
 
     for batch, dets in runs.items():
-        for i, d in enumerate(dets):
-            if not (d.ndim == 2 and d.shape[1] == 6 and len(d) > 0 and np.isfinite(d).all()):
-                raise SystemExit(f"batch {batch}, frame {i}: detections are not finite (n, 6) rows: {d.shape}")
+        check_finite(f"predict batch {batch}", dets)
     # card vs CPU, same weights: head maps on one letterboxed batch, then detections
     x = torch.stack([letterbox(f, (IMGSZ, IMGSZ), "cpu") for f in frames[:4]])
     with torch.inference_mode():
@@ -292,26 +404,89 @@ def predict_path(dev):
     print(f"head maps card vs CPU (batch of 4): max|err| {head_err:.3g} at max|value| {head_scale:.3g}")
     if not head_err <= 1e-4 * head_scale:
         raise SystemExit("head maps on the card disagree with the CPU beyond rtol 1e-4 of their scale")
-    cpu_res = host.predict(frames, imgsz=IMGSZ, batch=4, conf=CONF)
-    for label, dets in (("batch 1", runs[1]), ("batch 4", runs[4])):
-        n_want = n_got = same_frames = 0
-        errs = []
-        for g_, r in zip(dets, cpu_res):
-            w = r.boxes.data
-            e = match_detections(g_, w)
-            n_want, n_got, errs = n_want + len(w), n_got + len(g_), errs + e
-            same_frames += len(e) == len(w) == len(g_)
-        frac = len(errs) / max(n_want, n_got)
-        box_q = np.quantile([e[0] for e in errs], [0.5, 0.99, 1.0])
-        score_q = np.quantile([e[1] for e in errs], [0.5, 0.99, 1.0])
-        print(f"detections card ({label}) vs CPU: {n_got} vs {n_want} rows, {len(errs)} matched ({frac:.4f}; "
-              f"same class, |box| <= {MATCH_BOX_PX} px, |score| <= {MATCH_SCORE}); {same_frames} of {N_FRAMES} "
-              f"frames match in every row; matched |box err| px p50/p99/max {box_q[0]:.3g}/{box_q[1]:.3g}/"
-              f"{box_q[2]:.3g}, |score err| {score_q[0]:.3g}/{score_q[1]:.3g}/{score_q[2]:.3g}")
-        if frac < MATCH_MIN_FRACTION:
-            raise SystemExit(f"card detections ({label}) match the CPU's in {frac:.4f} of rows, "
-                             f"below {MATCH_MIN_FRACTION}")
+    cpu_res = [r.boxes.data for r in host.predict(frames, imgsz=IMGSZ, batch=4, conf=CONF)]
+    for batch, dets in runs.items():
+        compare_with_cpu(f"predict batch {batch}", dets, cpu_res)
     return launches
+
+
+def tta_path(host, model, frames):
+    """Phase 4: predict(augment=True) at batch 4; the xywh kernel three times per batch, box-best never."""
+    import torch
+
+    from bsyolo_tpu_torch import kernels
+
+    model.predict(frames[:4], imgsz=IMGSZ, batch=4, conf=CONF, augment=True)  # warm-up: the 544 and 448 px plans
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = model.predict(frames, imgsz=IMGSZ, batch=4, conf=CONF, augment=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_batches = math.ceil(N_FRAMES / 4)
+    batch_ms = wall * 1e3 / n_batches
+    launches = expect_launches("TTA predict", {"decode_box_best": 0, "decode_xywh": 3 * n_batches})
+    print(f"TTA predict batch 4: {N_FRAMES / wall:.1f} img/s, {batch_ms:.1f} ms per batch "
+          f"(host clock, letterbox to Results), detections per frame {[len(r) for r in res]}")
+    speed = {k: sum(r.speed[k] for r in res) / len(res) for k in res[0].speed}
+    print("  Results.speed, ms per frame: " + ", ".join(f"{k} {v:.2f}" for k, v in speed.items()))
+    profile_once("TTA predict, one batch of 4",
+                 lambda: model.predict(frames[:4], imgsz=IMGSZ, batch=4, conf=CONF, augment=True), batch_ms)
+
+    got = [r.boxes.data for r in res]
+    check_finite("TTA predict", got)
+    want = [r.boxes.data for r in host.predict(frames[:4], imgsz=IMGSZ, batch=4, conf=CONF, augment=True)]
+    compare_with_cpu("TTA predict, 4 frames", got[:4], want)
+    return launches
+
+
+def tiled_path(host, model):
+    """Phase 5: predict_tiled with 640-px tiles on a 1080x1920 and a 720x1280 frame; the xywh kernel once per call."""
+    import torch
+
+    from bsyolo_tpu_torch import kernels
+    from bsyolo_tpu_torch.engine.tiled import predict_tiled, tile_grid
+
+    rng = np.random.default_rng(SEED + 1)
+    big = {f"{h}x{w}": rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w in ((1080, 1920), (720, 1280))}
+    reps = 5
+
+    def run(m, frame):
+        return predict_tiled(m.model, m.spec, frame, tile=IMGSZ, conf=CONF)
+
+    for frame in big.values():  # warm-up: the batch-8 and batch-6 plans
+        run(model, frame)
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    got, frame_ms = {}, {}
+    for label, frame in big.items():
+        times = []
+        for _ in range(reps):
+            before = kernels.launch_counts()["decode_xywh"]
+            t0 = time.perf_counter()
+            got[label] = run(model, frame)  # ends in a copy to the host, which waits for the card
+            times.append((time.perf_counter() - t0) * 1e3)
+            if kernels.launch_counts()["decode_xywh"] != before + 1:
+                raise SystemExit(f"predict_tiled on the {label} frame did not launch decode_xywh exactly once")
+        frame_ms[label] = float(np.median(times))
+        print(f"tiled {label}: {len(tile_grid(*frame.shape[:2], IMGSZ))} tiles of {IMGSZ}, {frame_ms[label]:.1f} ms "
+              f"per frame (host clock, frame to rows, median of {reps}; min {min(times):.1f}, max {max(times):.1f}), "
+              f"{len(got[label])} detections")
+    launches = expect_launches("tiled", {"decode_box_best": 0, "decode_xywh": reps * len(big)})
+    profile_once("tiled, one 1080x1920 frame", lambda: run(model, big["1080x1920"]), frame_ms["1080x1920"])
+
+    check_finite("tiled", list(got.values()))
+    compare_with_cpu("tiled, 2 frames", list(got.values()), [run(host, f) for f in big.values()])
+    return launches
+
+
+def kernel_entry(name, source, replaces, launches, row):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
+            "shape": row["shape"], "call_ms": row["call_ms"], "plain_call_ms": row["plain_call_ms"]}
 
 
 def main() -> int:
@@ -328,16 +503,22 @@ def main() -> int:
     card = card_line()
     print(card)
     print(f"torch {torch.__version__} CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}, TF32 off")
+    t0 = time.perf_counter()
     build_kernels()
-    decode_row = check_decode_kernel(dev)
-    launches = predict_path(dev)
-    kernels_line = {"kernels": [{
-        "name": "decode_box_best", "route": "cuda", "source": "bsyolo_tpu_torch/kernels/csrc/decode_box.cu",
-        "replaces": "bsyolo_tpu/kernels/decode.py:124", "launches": launches["decode_box_best"],
-        "max_abs_err": decode_row["max_abs_err"], "ms": decode_row["ms"], "plain_ms": decode_row["plain_ms"],
-        "bound_ms": decode_row["bound_ms"], "bound_by": decode_row["bound_by"], "library_ms": None,
-        "shape": decode_row["shape"], "call_ms": decode_row["call_ms"], "plain_call_ms": decode_row["plain_call_ms"],
-    }]}
+    box_row = check_decode_kernel(dev)
+    xywh_row = check_decode_xywh_kernel(dev)
+    host, model, frames = make_models(dev)
+    predict_launches = predict_path(dev, host, model, frames)
+    tta_launches = tta_path(host, model, frames)
+    tiled_launches = tiled_path(host, model)
+    kernels_line = {"kernels": [
+        kernel_entry("decode_box_best", "bsyolo_tpu_torch/kernels/csrc/decode_box.cu",
+                     "bsyolo_tpu/kernels/decode.py:124", predict_launches["decode_box_best"], box_row),
+        kernel_entry("decode_xywh", "bsyolo_tpu_torch/kernels/csrc/decode_xywh.cu",
+                     "bsyolo_tpu/kernels/decode.py:34",
+                     tta_launches["decode_xywh"] + tiled_launches["decode_xywh"], xywh_row),
+    ]}
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,8 @@ machine that has only the port's dependencies:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: boxes within rtol 1e-5, atol 2e-3 px (float32 softmax sums in
-another order, times strides up to 32); best logits equal (a max is exact).
+another order, times strides up to 32); best logits equal (a max is exact);
+sigmoid scores within rtol 1e-5 (the kernel's expf against torch's exp).
 TF32 is turned off, so the card and the CPU compute the same float32 function.
 """
 
@@ -77,3 +78,70 @@ def test_postprocess_on_the_card_goes_through_the_kernel(cuda_device):
     assert box_best_cuda.launches == before + 1
     np.testing.assert_array_equal(got_idx.cpu().numpy(), want_idx.numpy())
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5, atol=2e-3)
+
+
+# the TTA passes at 640 (A = 8400, 6069, 4116), a batch of 8 tiles, and a ragged nc=80 case
+@pytest.mark.parametrize("b,a,nc", [(4, 8400, 12), (4, 6069, 12), (4, 4116, 12), (8, 8400, 12), (2, 700, 80)])
+def test_decode_xywh_kernel_matches_plain_version(cuda_device, b, a, nc):
+    from bsyolo_tpu_torch.kernels.decode import decode_xywh_cuda, decode_xywh_reference
+
+    head, anchors, strides = _head(np.random.default_rng(a + nc), b, a, nc)
+    before = decode_xywh_cuda.launches
+    got = decode_xywh_cuda(*(t.to(cuda_device) for t in (head, anchors, strides)), nc)
+    torch.cuda.synchronize()
+    assert decode_xywh_cuda.launches == before + 1
+    want = decode_xywh_reference(head, anchors, strides, nc).numpy()
+    got = got.cpu().numpy()
+    assert got.shape == (b, a, 4 + nc) and np.isfinite(got).all()
+    np.testing.assert_allclose(got[..., :4], want[..., :4], rtol=1e-5, atol=2e-3)
+    np.testing.assert_allclose(got[..., 4:], want[..., 4:], rtol=1e-5, atol=0)
+
+
+def test_decode_xywh_kernel_refuses_what_it_does_not_take(cuda_device):
+    from bsyolo_tpu_torch.kernels.decode import DECODE_XYWH_MAX_NC, decode_xywh_cuda
+
+    head, anchors, strides = (t.to(cuda_device) for t in _head(np.random.default_rng(0), 1, 64, 12))
+    with pytest.raises(TypeError, match="float32"):
+        decode_xywh_cuda(head.half(), anchors, strides, 12)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_xywh_cuda(head.transpose(1, 2), anchors, strides, 12)
+    with pytest.raises(ValueError, match="anchors"):
+        decode_xywh_cuda(head, anchors.cpu(), strides, 12)
+    wide = torch.zeros((1, 64 + DECODE_XYWH_MAX_NC + 1, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="classes"):
+        decode_xywh_cuda(wide, anchors, strides, DECODE_XYWH_MAX_NC + 1)
+
+
+def test_decode_detections_on_the_card_goes_through_the_kernel(cuda_device):
+    """decode_detections on CUDA maps launches the xywh kernel once and agrees with the CPU."""
+    from bsyolo_tpu_torch.kernels.decode import decode_xywh_cuda
+    from bsyolo_tpu_torch.nn.heads import decode_detections
+
+    rng = np.random.default_rng(6)
+    feats = [torch.from_numpy(rng.normal(0, 2, (2, 76 + 3, s, s)).astype(np.float32)) for s in (16, 8, 4)]
+    want = decode_detections(feats, (8, 16, 32), 12).numpy()
+    before = decode_xywh_cuda.launches
+    got = decode_detections([f.to(cuda_device) for f in feats], (8, 16, 32), 12)
+    assert decode_xywh_cuda.launches == before + 1
+    np.testing.assert_allclose(got[..., :4].cpu().numpy(), want[..., :4], rtol=1e-5, atol=2e-3)
+    np.testing.assert_allclose(got[..., 4:].cpu().numpy(), want[..., 4:], rtol=1e-5, atol=0)
+
+
+def test_tta_and_tiled_predict_on_the_card_launch_the_xywh_kernel(cuda_device):
+    """predict(augment=True): 3 launches per batch and none of the box-best kernel;
+    predict_tiled: 1 launch per call. Both give finite (n, 6) rows."""
+    from bsyolo_tpu_torch import YOLO, kernels
+    from bsyolo_tpu_torch.engine.tiled import predict_tiled
+
+    model = YOLO("yolo11n.yaml", device=cuda_device)
+    rng = np.random.default_rng(9)
+    frames = [rng.integers(0, 256, (96, 128, 3), dtype=np.uint8) for _ in range(3)]
+    kernels.reset_launch_counts()
+    res = model.predict(frames, imgsz=128, conf=0.001, batch=2, augment=True)
+    assert kernels.launch_counts() == {"decode_box_best": 0, "decode_xywh": 3 * 2}
+    assert all(r.boxes.data.shape[1] == 6 and np.isfinite(r.boxes.data).all() for r in res)
+    kernels.reset_launch_counts()
+    dets = predict_tiled(model.model, model.spec, rng.integers(0, 256, (200, 300, 3), dtype=np.uint8), tile=128,
+                         conf=0.001)
+    assert kernels.launch_counts() == {"decode_box_best": 0, "decode_xywh": 1}
+    assert dets.ndim == 2 and dets.shape[1] == 6 and np.isfinite(dets).all()

@@ -149,7 +149,7 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
 def test_options_not_ported_raise(pair, frames):
     port = pair[3]
-    for kw in ({"half": True}, {"augment": True}, {"save": True}):
+    for kw in ({"half": True}, {"visualize": True}, {"save": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port.predict(frames[0], imgsz=IMG, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
