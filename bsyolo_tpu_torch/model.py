@@ -5,6 +5,17 @@
     m = YOLO("yolo11n.yaml").load("w.pt")     # reference torch state_dict
     results = m.predict(frames, imgsz=640, batch=8, conf=0.25)
     results = m.predict(frames, augment=True)  # test-time augmentation
+
+Int8 inference is a mode of the graph, not a predict argument: calibrate
+static activation scales on a few float NCHW batches (letterboxed, /255),
+turn the mode on, and every predict path runs its convolutions in int8:
+
+    from bsyolo_tpu_torch.nn.modules import set_int8_inference
+    from bsyolo_tpu_torch.nn.quant import calibrate_int8
+    scales = calibrate_int8(m.model, batches)
+    set_int8_inference(m.model, True, scales)    # scales=None: dynamic, per batch
+    results = m.predict(frames)
+    set_int8_inference(m.model, False)           # float again
 """
 
 from __future__ import annotations

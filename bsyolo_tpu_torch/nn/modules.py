@@ -15,9 +15,13 @@ from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 BN_MOMENTUM = 0.03
 BN_EPS = 1e-3
+# float32 1/127: the JAX graph's "/ 127.0" runs jitted, and XLA compiles a division by a constant into a
+# product with its float32 reciprocal, which differs from the division in the last bit for some inputs
+INV_127 = float(torch.tensor(1.0) / 127.0)
 
 
 def autopad(k: int, p: Optional[int] = None, d: int = 1) -> int:
@@ -47,7 +51,15 @@ def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
 
 
 class Conv(nn.Module):
-    """Conv2d + BatchNorm + SiLU (reference ``Conv``)."""
+    """Conv2d + BatchNorm + SiLU (reference ``Conv``).
+
+    In int8 inference mode (``set_int8_inference``), in eval mode and with
+    ``groups == 1``, the convolution runs as the int8 branch of the JAX
+    ``_RawConv`` (``bsyolo_tpu/nn/modules.py:150-171``): the input quantized per
+    tensor (static scale from calibration, else the batch's abs-max), the
+    weight per output channel, int8 x int8 summed in int32 by the int8 matmul
+    kernel, dequantized by ``sx * sw`` into the same BN + SiLU tail.
+    """
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: Optional[int] = None, g: int = 1, d: int = 1,
                  act: bool = True):
@@ -55,9 +67,114 @@ class Conv(nn.Module):
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), dilation=d, groups=g, bias=False)
         self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = nn.SiLU() if act else nn.Identity()
+        self.int8 = False  # int8 inference mode, set by set_int8_inference
+        self.act_absmax: Optional[float] = None  # static activation abs-max from calibration; None: dynamic
+        self._int8_cache = None  # (weight key, (N, K) int8 codes, (N,) weight scales, static sx, 1 / sx)
+        self._calib_hook = None  # forward pre-hook on self.conv while calibrating
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.int8 and not self.training and self.conv.groups == 1:
+            return self.act(self.bn(self._int8_conv(x)))
         return self.act(self.bn(self.conv(x)))
+
+    def _int8_codes(self):
+        """Weight codes (N, Cin * kh * kw), per-channel scales (N,), and the static
+        activation scale and its float32 reciprocal (None, None when dynamic),
+        cached until the weight's version, storage or device changes."""
+        w = self.conv.weight
+        key = (w._version, w.data_ptr(), w.device)
+        if self._int8_cache is None or self._int8_cache[0] != key:
+            with torch.no_grad():
+                wf = w.detach().float()
+                sw = wf.abs().amax((1, 2, 3)).clamp_min(1e-12) * INV_127
+                wq = torch.round(wf / sw[:, None, None, None]).clamp_(-127, 127).to(torch.int8)
+                sx = inv_sx = None
+                if self.act_absmax is not None:  # divided in double, then rounded to float32, as JAX's static scale
+                    sx = torch.tensor(max(self.act_absmax, 1e-8) / 127.0, dtype=torch.float32, device=w.device)
+                    inv_sx = torch.reciprocal(sx)
+            self._int8_cache = (key, wq.reshape(wq.shape[0], -1).contiguous(), sw, sx, inv_sx)
+        return self._int8_cache[1:]
+
+    def _int8_conv(self, x: torch.Tensor) -> torch.Tensor:
+        from bsyolo_tpu_torch.kernels.int8_matmul import int8_matmul  # here: kernels imports this module
+
+        conv = self.conv
+        if conv.dilation != (1, 1):
+            raise NotImplementedError(f"int8 conv takes no dilation, got {conv}")
+        (k, _), (s, _), (p, _) = conv.kernel_size, conv.stride, conv.padding
+        wt, sw, sx, inv_sx = self._int8_codes()
+        xf = x.float()
+        if sx is None:  # dynamic: one abs-max over the whole batch, x / sx
+            sx = xf.abs().amax().clamp_min(1e-8) * INV_127
+            q = xf / sx
+        else:  # static: x times the float32 reciprocal, which is what XLA compiles JAX's x / constant into
+            q = xf * inv_sx
+        xq = torch.round(q).clamp_(-127, 127).to(torch.int8)
+        B, C, H, W = xq.shape
+        if k == 1 and s == 1 and p == 0:
+            oh, ow = H, W
+            cols = xq.permute(0, 2, 3, 1).reshape(B * H * W, C)
+        else:  # im2col: K ordered (cin, kh, kw), as weight.reshape(Cout, -1)
+            patches = F.pad(xq, (p, p, p, p)).unfold(2, k, s).unfold(3, k, s)  # (B, C, OH, OW, k, k)
+            oh, ow = patches.shape[2:4]
+            cols = patches.permute(0, 2, 3, 1, 4, 5).reshape(B * oh * ow, C * k * k)
+        y = int8_matmul(cols, wt.t(), sw, sx, torch.float32)  # (B * OH * OW, Cout), channels last
+        return y.view(B, oh, ow, -1).permute(0, 3, 1, 2).contiguous()
+
+
+def quantizable_convs(model: nn.Module):
+    """(name, Conv) of every Conv that int8 mode runs in int8: those with groups == 1."""
+    return [(n, m) for n, m in model.named_modules() if isinstance(m, Conv) and m.conv.groups == 1]
+
+
+def scale_key(name: str) -> str:
+    """Calibration key of the Conv named ``name``: the name of its ``nn.Conv2d``."""
+    return f"{name}.conv" if name else "conv"
+
+
+def set_int8_inference(model: nn.Module, enabled: bool, scales: Optional[dict] = None) -> None:
+    """Turn int8 conv inference on or off for every Conv of ``model``.
+
+    ``scales``: ``{conv name: activation abs-max}`` from ``nn.quant.calibrate_int8``
+    (or ``utils.weights.scales_from_jax``) gives static activation scales; a conv
+    missing from it, or every conv when it is empty or None, scales dynamically.
+    The mode is read at call time; each call drops the cached weight codes.
+    """
+    for name, m in model.named_modules():
+        if isinstance(m, Conv):
+            amax = scales.get(scale_key(name)) if scales else None
+            m.int8 = bool(enabled)
+            m.act_absmax = None if amax is None else float(amax)
+            m._int8_cache = None
+
+
+def int8_inference(model: nn.Module) -> bool:
+    """Whether int8 inference is on for ``model``."""
+    return any(m.int8 for m in model.modules() if isinstance(m, Conv))
+
+
+def _record_absmax(conv: nn.Conv2d, args) -> None:
+    amax = args[0].detach().float().abs().amax()
+    conv.calib_absmax = amax if conv.calib_absmax is None else torch.maximum(conv.calib_absmax, amax)
+
+
+def set_int8_calibration(model: nn.Module, enabled: bool) -> None:
+    """Start or stop recording each quantizable conv's input abs-max.
+
+    Starting turns int8 inference off (calibration runs the float graph) and
+    puts a forward pre-hook on every quantizable ``Conv.conv`` that keeps the
+    running max of |input| in its ``calib_absmax``; stopping removes the hooks
+    and leaves the maxima for ``calibrate_int8`` to read.
+    """
+    if enabled:
+        set_int8_inference(model, False)
+    for _, m in quantizable_convs(model):
+        if m._calib_hook is not None:
+            m._calib_hook.remove()
+            m._calib_hook = None
+        if enabled:
+            m.conv.calib_absmax = None
+            m._calib_hook = m.conv.register_forward_pre_hook(_record_absmax)
 
 
 class DWConv(Conv):

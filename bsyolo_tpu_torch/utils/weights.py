@@ -86,6 +86,14 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def scales_from_jax(scales: Mapping[str, float]) -> Dict[str, float]:
+    """Int8 calibration scales keyed as the JAX package keys them (``"m0/conv"``,
+    ``"m2/m_0/cv1/conv"``) -> keyed by the port's conv names (``"model.0.conv"``,
+    ``"model.2.m.0.cv1.conv"``), for ``set_int8_inference``."""
+    return {".".join(t for c in key.split("/") for t in _translate_component(c)): float(v)
+            for key, v in scales.items()}
+
+
 def load_reference_state_dict(path) -> Dict[str, torch.Tensor]:
     """A ``.pt`` state_dict (or ``{'model'|'ema': state_dict}``), loaded with
     ``weights_only=True``; ``dfl.*`` (the fixed DFL projection, a pure function

@@ -22,7 +22,14 @@ non-zero without them. Phases, each of which fails the run on its own:
 5. the tiled (SAHI-style) path, ``predict_tiled`` with 640-px tiles on a
    seeded 1080x1920 frame (8 tiles) and a 720x1280 frame (6 tiles): the xywh
    decode kernel launched once per call, time per frame, and detections held
-   against the CPU.
+   against the CPU;
+6. int8 predict on the same frames at batch 4: ``calibrate_int8`` on the card,
+   static int8 (the int8 matmul kernel launched once per quantizable conv,
+   74 times per batch), throughput, float and int8 in turns, head maps against
+   float, every int8 conv held against its CPU twin on the same input, and
+   detections held against the port's int8 on the CPU with the same scales;
+   one batch in dynamic int8 and one in float; then the kernel, its plain
+   version and ``torch._int_mm`` timed over the 74 products of one forward.
 
 Every launch counter is set to 0 just before a path is driven and read just
 after, so each path shows the kernels it went through.
@@ -47,6 +54,7 @@ import numpy as np
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_INT8_OPS_PER_S = 1.979e15  # dense int8 tensor-core rate
 
 BOX_ATOL_PX = 2e-3  # kernel vs plain: float32 softmax sums in another order, times strides up to 32
 SCORE_RTOL = 1e-5  # kernel vs plain sigmoid: the kernel's expf against torch.sigmoid's own exp
@@ -58,6 +66,16 @@ HEAD_GAIN = 25.0  # scales the head's last convs so random weights give spread l
 # card vs CPU detections: near-tied scores may swap rows or cross the max_det/NMS boundaries under float
 # rounding of other convolution algorithms, so rows are matched, not compared in order
 MATCH_BOX_PX, MATCH_SCORE, MATCH_MIN_FRACTION = 0.05, 1e-4, 0.98
+# int8 card vs CPU: float layers before a quantize (cuDNN against the CPU's convolutions, BatchNorm in another
+# order) differ in their last bits, and where one lands on a rounding boundary a code flips; the flip moves the
+# codes after it, so scores differ by int8 noise (1e-4, not 1e-7), which reorders the dense near-tied scores of
+# random weights and changes NMS and max_det decisions. Measured on an NVIDIA H100 80GB HBM3 at 700 W: 0.233 of
+# the rows matched within 1 px and 1e-2 (0.024 at the float tolerances). The per-conv check holds the int8 path
+# itself to float rounding.
+INT8_MATCH_BOX_PX, INT8_MATCH_SCORE, INT8_MATCH_MIN_FRACTION = 1.0, 1e-2, 0.15
+INT8_CONV_RTOL = 1e-5  # one int8 Conv, card vs CPU, fed the same input: the same codes, BatchNorm's order differs
+# int8 matmul shapes: stem, model.3 and model.28.cv2.1.0 of yolo11n at batch 4, 640 px; the Pallas test's; a ragged one
+INT8_SHAPES = ((409600, 27, 16), (25600, 576, 64), (6400, 1152, 64), (512, 128, 128), (1000, 27, 20))
 
 
 def card_line() -> str:
@@ -117,26 +135,39 @@ def cuda_time_ms(fn, inputs, reps: int):
     return event_ms, device_ms
 
 
-def time_against_plain(label, kernel, plain, inputs, bytes_moved, ops):
-    """Time ``kernel`` and ``plain`` on copies of ``inputs`` that together exceed the
-    50 MB L2, so each launch reads its head from HBM; returns the kernels-line fields."""
+def bound(bytes_moved: float, ops: float, peak_ops: float):
+    """(least ms the card could take, "bytes" or "operations"): the larger of bytes over
+    the memory rate and operations over the peak rate for their type."""
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, ops / peak_ops
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_against_plain(label, kernel, plain, inputs, bytes_moved, ops, peak_ops=PEAK_F32_OPS_PER_S,
+                       library=None, prepare=None):
+    """Time ``kernel`` and ``plain`` (and ``library`` on ``prepare``d inputs) on copies
+    of ``inputs`` that together exceed the 50 MB L2, so each launch reads its first
+    input from HBM; returns the kernels-line fields."""
     import torch
 
     head = inputs[0]
     copies = [(head.clone(), *inputs[1:]) for _ in range(max(2, math.ceil(120e6 / head.nbytes)))]
     call_ms, dev_ms = cuda_time_ms(kernel, copies, 200)
     plain_call_ms, plain_dev_ms = cuda_time_ms(plain, copies, 50)
+    lib_call_ms = lib_dev_ms = None
+    if library is not None:
+        lib_call_ms, lib_dev_ms = cuda_time_ms(library, [prepare(*c) for c in copies], 200)
     del copies
     torch.cuda.empty_cache()
     # device time where the profiler sees the kernels, else the events' per-call time
     ms, plain_ms = dev_ms or call_ms, plain_dev_ms or plain_call_ms
-    bound_ms = max(bytes_moved / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S) * 1e3
-    bound_by = "bytes" if bytes_moved / PEAK_BYTES_PER_S >= ops / PEAK_F32_OPS_PER_S else "operations"
+    bound_ms, bound_by = bound(bytes_moved, ops, peak_ops)
+    lib_text = "" if library is None else f"library {lib_dev_ms * 1e3:.2f} us on the device, {lib_call_ms * 1e3:.2f} us per call; "
     print(f"  kernel {dev_ms * 1e3:.2f} us on the device, {call_ms * 1e3:.2f} us per call (events); "
-          f"plain {plain_dev_ms * 1e3:.2f} us on the device, {plain_call_ms * 1e3:.2f} us per call; "
+          f"plain {plain_dev_ms * 1e3:.2f} us on the device, {plain_call_ms * 1e3:.2f} us per call; {lib_text}"
           f"bound {bound_ms * 1e3:.2f} us ({bound_by}: {bytes_moved / 1e6:.2f} MB, {ops / 1e6:.1f} Mop)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, call_ms=call_ms,
-                plain_call_ms=plain_call_ms, shape=label)
+                plain_call_ms=plain_call_ms, shape=label,
+                library_ms=None if library is None else (lib_dev_ms or lib_call_ms))
 
 
 def seeded_head(g, dev, b, side, nc):
@@ -221,6 +252,69 @@ def check_decode_xywh_kernel(dev):
     return dict(max_abs_err=worst, **rows[(4, 8400)])
 
 
+def int8_operands(g, dev, m, k, n):
+    """Seeded int8 codes x (m, k) and w (k, n), weight scales (n,) and an activation scale;
+    w is the transpose of an (n, k) tensor, as the conv path holds it."""
+    import torch
+
+    x = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=dev, generator=g)
+    w = torch.randint(-127, 128, (n, k), dtype=torch.int8, device=dev, generator=g).t()
+    sw = torch.rand(n, device=dev, generator=g) * 0.02 + 1e-3
+    return x, w, sw, torch.tensor(0.013, device=dev)
+
+
+def int8_library_inputs(x, w, sw, sx):
+    """The operands as torch._int_mm takes them: K and N zero-padded to multiples of 8,
+    the weight column-major (the transpose of an (N, K) tensor)."""
+    import torch.nn.functional as F
+
+    k, n = w.shape
+    kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
+    wt = F.pad(w.t(), (0, kp - k, 0, np_ - n)).contiguous()
+    return F.pad(x, (0, kp - k)).contiguous(), wt.t(), F.pad(sw, (0, np_ - n)), sx
+
+
+def int8_library(x, w, sw, sx):
+    """The library yardstick: one int8 matrix product (cuBLASLt) and the dequantization."""
+    import torch
+
+    return torch._int_mm(x, w).float() * (sx * sw)
+
+
+def int8_bytes_ops(m, k, n):
+    """Bytes the product must move (each input once, the float32 output once) and its operations."""
+    return m * k + k * n + 4 * n + 4 + 4 * m * n, 2 * m * n * k
+
+
+def check_int8_kernel(dev):
+    """int8_matmul_cuda against int8_matmul_reference on the card, exactly, float32 and
+    bfloat16 out, at INT8_SHAPES; each timed against its plain version and torch._int_mm."""
+    import torch
+
+    from bsyolo_tpu_torch.kernels.int8_matmul import int8_matmul_cuda, int8_matmul_reference
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    worst = 0.0
+    for m, k, n in INT8_SHAPES:
+        x, w, sw, sx = int8_operands(g, dev, m, k, n)
+        errs = []
+        for dtype in (torch.float32, torch.bfloat16):
+            got = int8_matmul_cuda(x, w, sw, sx, dtype)
+            want = int8_matmul_reference(x, w, sw, sx, dtype)
+            torch.cuda.synchronize()
+            errs.append((got.float() - want.float()).abs().max().item())
+        ok = errs == [0.0, 0.0]
+        print(f"int8_matmul M={m} K={k} N={n}: max|err| {errs[0]:.3g} (float32 out), {errs[1]:.3g} (bfloat16 out), "
+              f"tol 0; {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"int8_matmul disagrees with its plain version at M={m} K={k} N={n}")
+        worst = max(worst, *errs)
+        bytes_moved, ops = int8_bytes_ops(m, k, n)
+        time_against_plain(f"M{m} K{k} N{n}", int8_matmul_cuda, int8_matmul_reference, (x, w, sw, sx), bytes_moved,
+                           ops, PEAK_INT8_OPS_PER_S, int8_library, int8_library_inputs)
+    return worst
+
+
 def draw_weights(model, seed: int) -> None:
     """Seeded random weights that keep the signal through the graph's depth:
     convs at U(+-sqrt(3 / fan_in)), BatchNorm statistics away from the
@@ -245,9 +339,9 @@ def draw_weights(model, seed: int) -> None:
             branch[-1].weight.mul_(HEAD_GAIN)
 
 
-def match_detections(got: np.ndarray, want: np.ndarray):
+def match_detections(got: np.ndarray, want: np.ndarray, box_px: float = MATCH_BOX_PX, score_tol: float = MATCH_SCORE):
     """Greedy match of each ``want`` row to the nearest unused ``got`` row of the
-    same class, distance max(|box diff| / MATCH_BOX_PX, |score diff| / MATCH_SCORE),
+    same class, distance max(|box diff| / box_px, |score diff| / score_tol),
     accepted at distance <= 1; returns the (box err, score err) of every matched pair."""
     used = np.zeros(len(got), bool)
     errs = []
@@ -257,7 +351,7 @@ def match_detections(got: np.ndarray, want: np.ndarray):
             continue
         box = np.abs(got[cand, :4] - row[:4]).max(1)
         score = np.abs(got[cand, 4] - row[4])
-        dist = np.maximum(box / MATCH_BOX_PX, score / MATCH_SCORE)
+        dist = np.maximum(box / box_px, score / score_tol)
         k = int(np.argmin(dist))
         if dist[k] <= 1.0:
             used[cand[k]] = True
@@ -294,8 +388,9 @@ def expect_launches(path: str, expected: dict) -> dict:
     return launches
 
 
-def profile_once(label: str, run, unprofiled_ms: float) -> None:
-    """One call of ``run`` under torch.profiler: device work, busy share, largest device items."""
+def profile_once(label: str, run, unprofiled_ms: float):
+    """One call of ``run`` under torch.profiler: device work, busy share, largest device
+    items; returns (name, device us, count) of every device item."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -311,6 +406,7 @@ def profile_once(label: str, run, unprofiled_ms: float) -> None:
           f"{unprofiled_ms:.1f} ms; largest device items:")
     for name, us, n in kern[:10]:
         print(f"  {us / 1e3:8.3f} ms  {n:5d} x  {name[:100]}")
+    return kern
 
 
 def check_finite(label: str, dets) -> None:
@@ -319,23 +415,28 @@ def check_finite(label: str, dets) -> None:
             raise SystemExit(f"{label}, frame {i}: detections are not finite (n, 6) rows: {d.shape}")
 
 
-def compare_with_cpu(label: str, got, want) -> None:
-    """Card detections against the CPU's, frame by frame, with match_detections; fails below MATCH_MIN_FRACTION."""
+def compare_with_cpu(label: str, got, want, box_px: float = MATCH_BOX_PX, score_tol: float = MATCH_SCORE,
+                     min_fraction: float = MATCH_MIN_FRACTION) -> float:
+    """Card detections against the CPU's, frame by frame, with match_detections; fails below
+    ``min_fraction`` of the rows matched; returns the fraction."""
     n_want = n_got = same_frames = 0
     errs = []
     for g_, w in zip(got, want):
-        e = match_detections(g_, w)
+        e = match_detections(g_, w, box_px, score_tol)
         n_want, n_got, errs = n_want + len(w), n_got + len(g_), errs + e
         same_frames += len(e) == len(w) == len(g_)
     frac = len(errs) / max(n_want, n_got)
+    if not errs:
+        errs = [(math.nan, math.nan)]
     box_q = np.quantile([e[0] for e in errs], [0.5, 0.99, 1.0])
     score_q = np.quantile([e[1] for e in errs], [0.5, 0.99, 1.0])
     print(f"detections card ({label}) vs CPU: {n_got} vs {n_want} rows, {len(errs)} matched ({frac:.4f}; "
-          f"same class, |box| <= {MATCH_BOX_PX} px, |score| <= {MATCH_SCORE}); {same_frames} of {len(got)} "
+          f"same class, |box| <= {box_px} px, |score| <= {score_tol}); {same_frames} of {len(got)} "
           f"frames match in every row; matched |box err| px p50/p99/max {box_q[0]:.3g}/{box_q[1]:.3g}/"
           f"{box_q[2]:.3g}, |score err| {score_q[0]:.3g}/{score_q[1]:.3g}/{score_q[2]:.3g}")
-    if frac < MATCH_MIN_FRACTION:
-        raise SystemExit(f"card detections ({label}) match the CPU's in {frac:.4f} of rows, below {MATCH_MIN_FRACTION}")
+    if frac < min_fraction:
+        raise SystemExit(f"card detections ({label}) match the CPU's in {frac:.4f} of rows, below {min_fraction}")
+    return frac
 
 
 def predict_path(dev, host, model, frames):
@@ -366,7 +467,7 @@ def predict_path(dev, host, model, frames):
         speed = {k: sum(r.speed[k] for r in res) / len(res) for k in res[0].speed}
         print("  Results.speed, ms per frame: " + ", ".join(f"{k} {v:.2f}" for k, v in speed.items()))
     batches = sum(math.ceil(N_FRAMES / b) for b in runs)
-    launches = expect_launches("predict", {"decode_box_best": batches, "decode_xywh": 0})
+    launches = expect_launches("predict", {"decode_box_best": batches, "decode_xywh": 0, "int8_matmul": 0})
 
     profile_once("predict, one batch of 4", lambda: model.predict(frames[:4], imgsz=IMGSZ, batch=4, conf=CONF),
                  batch_ms[4])
@@ -426,7 +527,7 @@ def tta_path(host, model, frames):
     wall = time.perf_counter() - t0
     n_batches = math.ceil(N_FRAMES / 4)
     batch_ms = wall * 1e3 / n_batches
-    launches = expect_launches("TTA predict", {"decode_box_best": 0, "decode_xywh": 3 * n_batches})
+    launches = expect_launches("TTA predict", {"decode_box_best": 0, "decode_xywh": 3 * n_batches, "int8_matmul": 0})
     print(f"TTA predict batch 4: {N_FRAMES / wall:.1f} img/s, {batch_ms:.1f} ms per batch "
           f"(host clock, letterbox to Results), detections per frame {[len(r) for r in res]}")
     speed = {k: sum(r.speed[k] for r in res) / len(res) for k in res[0].speed}
@@ -474,7 +575,7 @@ def tiled_path(host, model):
         print(f"tiled {label}: {len(tile_grid(*frame.shape[:2], IMGSZ))} tiles of {IMGSZ}, {frame_ms[label]:.1f} ms "
               f"per frame (host clock, frame to rows, median of {reps}; min {min(times):.1f}, max {max(times):.1f}), "
               f"{len(got[label])} detections")
-    launches = expect_launches("tiled", {"decode_box_best": 0, "decode_xywh": reps * len(big)})
+    launches = expect_launches("tiled", {"decode_box_best": 0, "decode_xywh": reps * len(big), "int8_matmul": 0})
     profile_once("tiled, one 1080x1920 frame", lambda: run(model, big["1080x1920"]), frame_ms["1080x1920"])
 
     check_finite("tiled", list(got.values()))
@@ -482,10 +583,238 @@ def tiled_path(host, model):
     return launches
 
 
+def path_products(model, dev):
+    """(M, K, N) of the int8 matmul of every quantizable conv in one forward of a batch of 4 at IMGSZ."""
+    import torch
+
+    from bsyolo_tpu_torch.nn.modules import quantizable_convs
+
+    shapes, hooks = [], []
+
+    def record(m, args):
+        b, c, h, w = args[0].shape
+        (k, _), (s, _), (p, _) = m.conv.kernel_size, m.conv.stride, m.conv.padding
+        oh, ow = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+        shapes.append((b * oh * ow, c * k * k, m.conv.out_channels))
+
+    for _, m in quantizable_convs(model.model):
+        hooks.append(m.register_forward_pre_hook(record))
+    try:
+        with torch.inference_mode():
+            model.model(torch.zeros((4, 3, IMGSZ, IMGSZ), device=dev))
+    finally:
+        for h in hooks:
+            h.remove()
+    return shapes
+
+
+def print_largest_products(prof, shapes) -> None:
+    """Device time of the kernel per product of the forward, from the profiled launches in
+    order (the i-th launch is product i mod len(shapes)); the five largest beside their bound."""
+    from torch.autograd import DeviceType
+
+    launches = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA and "int8_matmul_kernel" in e.name),
+                      key=lambda e: e.time_range.start)
+    if not launches or len(launches) % len(shapes):
+        print(f"  per-product times not read: {len(launches)} kernel events for {len(shapes)} products")
+        return
+    us = np.zeros(len(shapes))
+    for i, e in enumerate(launches):
+        us[i % len(shapes)] += e.time_range.end - e.time_range.start
+    us /= len(launches) // len(shapes)
+    print("  largest products (M, K, N): kernel us / bound us: " + "; ".join(
+        f"{shapes[i]} {us[i]:.2f} / {bound(*int8_bytes_ops(*shapes[i]), PEAK_INT8_OPS_PER_S)[0] * 1e3:.2f}"
+        for i in np.argsort(-us)[:5]))
+
+
+def time_path_products(dev, shapes):
+    """The kernel, its plain version and torch._int_mm over every product of one forward,
+    each product's operands drawn anew (their sum far exceeds the L2): device ms per
+    forward from torch.profiler; the kernel held exactly to the plain version at each."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bsyolo_tpu_torch.kernels.int8_matmul import int8_matmul_cuda, int8_matmul_reference
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    operands = [int8_operands(g, dev, *shape) for shape in shapes]
+    for (m, k, n), ops in zip(shapes, operands):
+        if not torch.equal(int8_matmul_cuda(*ops), int8_matmul_reference(*ops)):
+            raise SystemExit(f"int8_matmul disagrees with its plain version at the path shape M={m} K={k} N={n}")
+    library_ops = [int8_library_inputs(*ops) for ops in operands]
+
+    def per_forward(fn, inputs, reps):
+        for args in inputs:  # warm-up
+            fn(*args)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            for args in inputs:
+                fn(*args)
+        end.record()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for args in inputs:
+                    fn(*args)
+            torch.cuda.synchronize()
+        kern = device_kernels(prof)
+        return start.elapsed_time(end) / reps, sum(us for _, us, _ in kern) / reps / 1e3, kern, prof
+
+    call_ms, ms, kern, prof = per_forward(int8_matmul_cuda, operands, 5)
+    plain_call_ms, plain_ms, _, _ = per_forward(int8_matmul_reference, operands, 2)
+    lib_call_ms, lib_ms, _, _ = per_forward(int8_library, library_ops, 5)
+    kernel_only = sum(us for name, us, _ in kern if "int8_matmul_kernel" in name) / 5 / 1e3
+    print_largest_products(prof, shapes)
+    bytes_moved = sum(int8_bytes_ops(*shape)[0] for shape in shapes)
+    n_ops = sum(int8_bytes_ops(*shape)[1] for shape in shapes)
+    bound_ms, bound_by = bound(bytes_moved, n_ops, PEAK_INT8_OPS_PER_S)
+    print(f"int8_matmul over the {len(shapes)} products of one forward (batch 4, {IMGSZ} px; exact at each): kernel "
+          f"{ms:.4f} ms on the device per forward ({kernel_only:.4f} ms in the kernel itself, the rest the wrapper's "
+          f"K padding), {call_ms:.3f} ms host to host (events); plain {plain_ms:.4f} ms on the device, "
+          f"{plain_call_ms:.3f} ms host to host; torch._int_mm + dequantization {lib_ms:.4f} ms on the device, "
+          f"{lib_call_ms:.3f} ms host to host; bound {bound_ms:.4f} ms ({bound_by}: {bytes_moved / 1e6:.1f} MB, "
+          f"{n_ops / 1e9:.2f} Gop)")
+    del operands, library_ops
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by, call_ms=call_ms,
+                plain_call_ms=plain_call_ms, shape=f"the {len(shapes)} products of one forward, batch 4, {IMGSZ} px")
+
+
+def check_int8_convs_against_cpu(dev, host, model, frames):
+    """Every quantizable conv on the card, in int8 with the same scales, fed the input its
+    CPU twin saw in a CPU int8 forward of ``frames``, gives the CPU twin's output within
+    INT8_CONV_RTOL of its scale (a whole-graph comparison would show the code flips that
+    float rounding sets off and later layers spread)."""
+    import torch
+
+    from bsyolo_tpu_torch.nn.modules import quantizable_convs
+    from bsyolo_tpu_torch.ops.letterbox import letterbox
+
+    seen, hooks = {}, []
+    for name, m in quantizable_convs(host.model):
+        hooks.append(m.register_forward_hook(lambda mod, args, out, name=name: seen.__setitem__(name, (args[0], out))))
+    try:
+        with torch.inference_mode():
+            host.model(torch.stack([letterbox(f, (IMGSZ, IMGSZ), "cpu") for f in frames]).float() / 255.0)
+    finally:
+        for h in hooks:
+            h.remove()
+    worst, convs = 0.0, quantizable_convs(model.model)
+    with torch.inference_mode():
+        for name, m in convs:
+            x, want = seen[name]
+            got = m(x.to(dev)).cpu()
+            err = ((got - want).abs().max() / want.abs().max()).item()
+            if err > INT8_CONV_RTOL:
+                raise SystemExit(f"int8 conv {name} on the card differs from the CPU by {err:.3g} of its scale")
+            worst = max(worst, err)
+    print(f"int8 convs card vs CPU, each fed the CPU's input: {len(convs)} convs, max|diff| / max|CPU| {worst:.3g} "
+          f"(tol {INT8_CONV_RTOL})")
+
+
+def int8_path(dev, host, model, frames):
+    """Phase 6: calibration on the card, static int8 predict at batch 4 (the int8 matmul kernel
+    once per quantizable conv per batch), int8 against float and against the CPU; one
+    batch in dynamic int8, one in float; the kernel over the path's products."""
+    import torch
+
+    from bsyolo_tpu_torch import kernels
+    from bsyolo_tpu_torch.nn.heads import flatten_levels
+    from bsyolo_tpu_torch.nn.modules import quantizable_convs, set_int8_inference
+    from bsyolo_tpu_torch.nn.quant import calibrate_int8
+    from bsyolo_tpu_torch.ops.letterbox import letterbox
+
+    n_convs = len(quantizable_convs(model.model))
+    if n_convs != 74:
+        raise SystemExit(f"yolo11n has {n_convs} quantizable convs, expected 74")
+    batches = [torch.stack([letterbox(f, (IMGSZ, IMGSZ), dev) for f in frames[i : i + 4]]).float() / 255.0
+               for i in range(0, N_FRAMES, 4)]
+    t0 = time.perf_counter()
+    scales = calibrate_int8(model.model, batches)  # returns floats: the card has finished
+    print(f"calibrate_int8 on the card over {N_FRAMES} letterboxed frames: {len(scales)} scales in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms; abs-max from {min(scales.values()):.3g} to "
+          f"{max(scales.values()):.3g}")
+    if len(scales) != n_convs:
+        raise SystemExit(f"calibration returned {len(scales)} scales for {n_convs} quantizable convs")
+    set_int8_inference(model.model, True, scales)
+    model.predict(frames[:4], imgsz=IMGSZ, batch=4, conf=CONF)  # warm-up: weight codes, first launches
+    torch.cuda.synchronize()
+
+    n_batches = math.ceil(N_FRAMES / 4)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = model.predict(frames, imgsz=IMGSZ, batch=4, conf=CONF)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = expect_launches("int8 predict",
+                               {"decode_box_best": n_batches, "decode_xywh": 0, "int8_matmul": n_convs * n_batches})
+    batch_ms = wall * 1e3 / n_batches
+    print(f"int8 predict batch 4 (static scales): {N_FRAMES / wall:.1f} img/s, {batch_ms:.1f} ms per batch "
+          f"(host clock, letterbox to Results), detections per frame {[len(r) for r in res]}")
+    speed = {k: sum(r.speed[k] for r in res) / len(res) for k in res[0].speed}
+    print("  Results.speed, ms per frame: " + ", ".join(f"{k} {v:.2f}" for k, v in speed.items()))
+    kern = profile_once("int8 predict, one batch of 4",
+                        lambda: model.predict(frames[:4], imgsz=IMGSZ, batch=4, conf=CONF), batch_ms)
+    int8_us = sum(us for name, us, _ in kern if "int8_matmul_kernel" in name)
+    print(f"  int8_matmul kernels in that batch: {int8_us / 1e3:.3f} ms of device time over "
+          f"{sum(n for name, _, n in kern if 'int8_matmul_kernel' in name)} launches")
+
+    got = [r.boxes.data for r in res]
+    check_finite("int8 predict", got)
+
+    # float and int8 predict in turns (float, int8, int8, float), host clock, 8 frames at batch 4 each
+    turns = []
+    for int8 in (False, True, True, False):
+        set_int8_inference(model.model, int8, scales)
+        model.predict(frames[:4], imgsz=IMGSZ, batch=4, conf=CONF)  # warm-up after the switch: weight codes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.predict(frames, imgsz=IMGSZ, batch=4, conf=CONF)
+        torch.cuda.synchronize()
+        turns.append((time.perf_counter() - t0) * 1e3 / n_batches)
+    print(f"float and int8 predict in turns, ms per batch of 4 (host clock): float {turns[0]:.1f}, int8 {turns[1]:.1f}, "
+          f"int8 {turns[2]:.1f}, float {turns[3]:.1f}")
+
+    with torch.inference_mode():
+        set_int8_inference(model.model, True, scales)
+        heads8 = flatten_levels(model.model(batches[0]))
+        set_int8_inference(model.model, False)
+        heads = flatten_levels(model.model(batches[0]))
+    rel = ((heads8 - heads).abs().max() / heads.abs().max()).item()
+    print(f"head maps int8 vs float on the card (batch of 4): max|diff| / max|float| {rel:.3g} (bounds 1e-6, 0.1)")
+    if not 1e-6 < rel < 0.1:
+        raise SystemExit(f"int8 head maps differ from float by {rel:.3g} of their scale, outside (1e-6, 0.1)")
+
+    set_int8_inference(model.model, True, scales)
+    set_int8_inference(host.model, True, scales)
+    try:
+        check_int8_convs_against_cpu(dev, host, model, frames[:4])
+        want = [r.boxes.data for r in host.predict(frames, imgsz=IMGSZ, batch=4, conf=CONF)]
+    finally:
+        set_int8_inference(host.model, False)
+    compare_with_cpu("int8 predict, at the float tolerances", got, want, min_fraction=0.0)
+    compare_with_cpu("int8 predict", got, want, INT8_MATCH_BOX_PX, INT8_MATCH_SCORE, INT8_MATCH_MIN_FRACTION)
+
+    set_int8_inference(model.model, True)  # dynamic: each conv's scale from its batch
+    kernels.reset_launch_counts()
+    dyn = model.predict(frames[:4], imgsz=IMGSZ, batch=4, conf=CONF)
+    expect_launches("dynamic int8 predict, one batch", {"decode_box_best": 1, "decode_xywh": 0, "int8_matmul": n_convs})
+    check_finite("dynamic int8 predict", [r.boxes.data for r in dyn])
+    set_int8_inference(model.model, False)
+    kernels.reset_launch_counts()
+    model.predict(frames[:4], imgsz=IMGSZ, batch=4, conf=CONF)
+    expect_launches("float predict after int8, one batch", {"decode_box_best": 1, "decode_xywh": 0, "int8_matmul": 0})
+
+    row = time_path_products(dev, path_products(model, dev))
+    return launches, row
+
+
 def kernel_entry(name, source, replaces, launches, row):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
             "shape": row["shape"], "call_ms": row["call_ms"], "plain_call_ms": row["plain_call_ms"]}
 
 
@@ -507,16 +836,21 @@ def main() -> int:
     build_kernels()
     box_row = check_decode_kernel(dev)
     xywh_row = check_decode_xywh_kernel(dev)
+    int8_err = check_int8_kernel(dev)
     host, model, frames = make_models(dev)
     predict_launches = predict_path(dev, host, model, frames)
     tta_launches = tta_path(host, model, frames)
     tiled_launches = tiled_path(host, model)
+    int8_launches, int8_row = int8_path(dev, host, model, frames)
     kernels_line = {"kernels": [
         kernel_entry("decode_box_best", "bsyolo_tpu_torch/kernels/csrc/decode_box.cu",
                      "bsyolo_tpu/kernels/decode.py:124", predict_launches["decode_box_best"], box_row),
         kernel_entry("decode_xywh", "bsyolo_tpu_torch/kernels/csrc/decode_xywh.cu",
                      "bsyolo_tpu/kernels/decode.py:34",
                      tta_launches["decode_xywh"] + tiled_launches["decode_xywh"], xywh_row),
+        kernel_entry("int8_matmul", "bsyolo_tpu_torch/kernels/csrc/int8_matmul.cu",
+                     "bsyolo_tpu/kernels/int8_matmul.py:38", int8_launches["int8_matmul"],
+                     dict(max_abs_err=int8_err, **int8_row)),
     ]}
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(card)

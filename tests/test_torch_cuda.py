@@ -8,7 +8,10 @@ machine that has only the port's dependencies:
 
 Tolerances: boxes within rtol 1e-5, atol 2e-3 px (float32 softmax sums in
 another order, times strides up to 32); best logits equal (a max is exact);
-sigmoid scores within rtol 1e-5 (the kernel's expf against torch's exp).
+sigmoid scores within rtol 1e-5 (the kernel's expf against torch's exp);
+the int8 matmul exactly equal (int32 sums, the same float32 dequantization);
+an int8 Conv within rtol 1e-5, atol 1e-6 (the same codes; BatchNorm on the
+card sums in another order).
 TF32 is turned off, so the card and the CPU compute the same float32 function.
 """
 
@@ -138,10 +141,105 @@ def test_tta_and_tiled_predict_on_the_card_launch_the_xywh_kernel(cuda_device):
     frames = [rng.integers(0, 256, (96, 128, 3), dtype=np.uint8) for _ in range(3)]
     kernels.reset_launch_counts()
     res = model.predict(frames, imgsz=128, conf=0.001, batch=2, augment=True)
-    assert kernels.launch_counts() == {"decode_box_best": 0, "decode_xywh": 3 * 2}
+    assert kernels.launch_counts() == {"decode_box_best": 0, "decode_xywh": 3 * 2, "int8_matmul": 0}
     assert all(r.boxes.data.shape[1] == 6 and np.isfinite(r.boxes.data).all() for r in res)
     kernels.reset_launch_counts()
     dets = predict_tiled(model.model, model.spec, rng.integers(0, 256, (200, 300, 3), dtype=np.uint8), tile=128,
                          conf=0.001)
-    assert kernels.launch_counts() == {"decode_box_best": 0, "decode_xywh": 1}
+    assert kernels.launch_counts() == {"decode_box_best": 0, "decode_xywh": 1, "int8_matmul": 0}
     assert dets.ndim == 2 and dets.shape[1] == 6 and np.isfinite(dets).all()
+
+
+# the yolo11n path at batch 4, 640 px: stem, model.3, model.28.cv2.1.0; the Pallas test's shape; ragged ones
+INT8_SHAPES = [(409600, 27, 16), (25600, 576, 64), (6400, 1152, 64), (512, 128, 128), (1000, 27, 20), (1, 1, 1),
+               (77, 48, 200)]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("m,k,n", INT8_SHAPES)
+def test_int8_matmul_kernel_equals_plain_version(cuda_device, m, k, n, out_dtype):
+    from bsyolo_tpu_torch.kernels.int8_matmul import int8_matmul_cuda, int8_matmul_reference
+
+    g = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=cuda_device, generator=g)
+    w = torch.randint(-128, 128, (k, n), dtype=torch.int8, device=cuda_device, generator=g)
+    sw = torch.rand(n, device=cuda_device, generator=g) * 0.02 + 1e-3
+    sx = torch.tensor(0.013, device=cuda_device)
+    before = int8_matmul_cuda.launches
+    got = int8_matmul_cuda(x, w, sw, sx, out_dtype)
+    torch.cuda.synchronize()
+    assert int8_matmul_cuda.launches == before + 1
+    want = int8_matmul_reference(x, w, sw, sx, out_dtype)
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    assert torch.equal(got, want)
+    # the weight as the conv path holds it, the transpose of an (N, K) tensor: read in place
+    assert torch.equal(int8_matmul_cuda(x, w.t().contiguous().t(), sw, sx, out_dtype), want)
+
+
+def test_int8_matmul_kernel_refuses_what_it_does_not_take(cuda_device):
+    from bsyolo_tpu_torch.kernels.int8_matmul import int8_matmul_cuda
+
+    x = torch.zeros((64, 32), dtype=torch.int8, device=cuda_device)
+    w = torch.zeros((32, 16), dtype=torch.int8, device=cuda_device)
+    sw, sx = torch.ones(16, device=cuda_device), torch.tensor(1.0, device=cuda_device)
+    with pytest.raises(TypeError, match="int8"):
+        int8_matmul_cuda(x.float(), w, sw, sx)
+    with pytest.raises(ValueError, match="x"):
+        int8_matmul_cuda(x, w[:16], sw, sx)
+    with pytest.raises(ValueError, match="sw"):
+        int8_matmul_cuda(x, w, sw[:8], sx)
+    with pytest.raises(ValueError, match="sx"):
+        int8_matmul_cuda(x, w, sw, sx.cpu())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        int8_matmul_cuda(x, w, sw, sx, torch.float16)
+
+
+@pytest.mark.parametrize("k,s,static", [(1, 1, False), (3, 1, True), (3, 2, False)])
+def test_int8_conv_on_the_card_equals_the_cpu(cuda_device, k, s, static):
+    """One int8 Conv on the card against the same Conv on the CPU; one launch each call."""
+    from bsyolo_tpu_torch.kernels.int8_matmul import int8_matmul_cuda
+    from bsyolo_tpu_torch.nn.modules import Conv, set_int8_inference
+
+    rng = np.random.default_rng(k * 10 + s)
+    torch.manual_seed(k * 10 + s)
+    host = Conv(48, 64, k, s).eval()
+    with torch.no_grad():
+        host.bn.running_mean.uniform_(-0.1, 0.1)
+        host.bn.running_var.uniform_(0.5, 1.5)
+    x = torch.from_numpy(rng.normal(0, 1, (4, 48, 40, 40)).astype(np.float32))
+    card = Conv(48, 64, k, s).to(cuda_device).eval()
+    card.load_state_dict(host.state_dict())
+    scales = {"conv": 0.9 * x.abs().max().item()} if static else None
+    set_int8_inference(host, True, scales)
+    set_int8_inference(card, True, scales)
+    before = int8_matmul_cuda.launches
+    with torch.inference_mode():
+        want = host(x)
+        got = card(x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert int8_matmul_cuda.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_int8_predict_on_the_card_launches_the_int8_kernel(cuda_device):
+    """Calibrated int8 predict: one int8 matmul launch per quantizable conv per batch; off again, none."""
+    from bsyolo_tpu_torch import YOLO, kernels
+    from bsyolo_tpu_torch.nn.modules import quantizable_convs, set_int8_inference
+    from bsyolo_tpu_torch.nn.quant import calibrate_int8
+    from bsyolo_tpu_torch.ops.letterbox import letterbox
+
+    model = YOLO("yolo11n.yaml", device=cuda_device)
+    rng = np.random.default_rng(10)
+    frames = [rng.integers(0, 256, (96, 128, 3), dtype=np.uint8) for _ in range(3)]
+    batch = torch.stack([letterbox(f, (128, 128), cuda_device) for f in frames]).float() / 255.0
+    scales = calibrate_int8(model.model, [batch])
+    assert len(scales) == len(quantizable_convs(model.model)) == 74
+    set_int8_inference(model.model, True, scales)
+    kernels.reset_launch_counts()
+    res = model.predict(frames, imgsz=128, conf=0.001, batch=2)
+    assert kernels.launch_counts() == {"decode_box_best": 2, "decode_xywh": 0, "int8_matmul": 74 * 2}
+    assert all(r.boxes.data.shape[1] == 6 and np.isfinite(r.boxes.data).all() for r in res)
+    set_int8_inference(model.model, False)
+    kernels.reset_launch_counts()
+    model.predict(frames[:2], imgsz=128, conf=0.001, batch=2)
+    assert kernels.launch_counts() == {"decode_box_best": 1, "decode_xywh": 0, "int8_matmul": 0}

@@ -120,8 +120,8 @@ def test_both_kernels_are_registered():
     from bsyolo_tpu_torch import kernels
     from bsyolo_tpu_torch.kernels.build import CSRC
 
-    assert set(kernels.KERNELS) == {"decode_box_best", "decode_xywh"}
+    assert set(kernels.KERNELS) == {"decode_box_best", "decode_xywh", "int8_matmul"}
     for _, src in kernels.KERNELS.values():
         assert (CSRC / f"{src}.cu").is_file()
     kernels.reset_launch_counts()
-    assert kernels.launch_counts() == {"decode_box_best": 0, "decode_xywh": 0}
+    assert kernels.launch_counts() == {"decode_box_best": 0, "decode_xywh": 0, "int8_matmul": 0}
