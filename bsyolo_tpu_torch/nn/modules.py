@@ -69,7 +69,7 @@ class Conv(nn.Module):
         self.act = nn.SiLU() if act else nn.Identity()
         self.int8 = False  # int8 inference mode, set by set_int8_inference
         self.act_absmax: Optional[float] = None  # static activation abs-max from calibration; None: dynamic
-        self._int8_cache = None  # (weight key, (N, K) int8 codes, (N,) weight scales, static sx, 1 / sx)
+        self._int8_cache = None  # (weight key, Int8Weight of the (K, N) codes and (N,) scales, static sx, 1 / sx)
         self._calib_hook = None  # forward pre-hook on self.conv while calibrating
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -78,9 +78,12 @@ class Conv(nn.Module):
         return self.act(self.bn(self.conv(x)))
 
     def _int8_codes(self):
-        """Weight codes (N, Cin * kh * kw), per-channel scales (N,), and the static
-        activation scale and its float32 reciprocal (None, None when dynamic),
-        cached until the weight's version, storage or device changes."""
+        """The weight as an ``Int8Weight`` (codes (Cin * kh * kw, N) and per-channel
+        scales (N,), held as (N, K) rows at a 16-byte pitch and checked once), and
+        the static activation scale and its float32 reciprocal (None, None when
+        dynamic), cached until the weight's version, storage or device changes."""
+        from bsyolo_tpu_torch.kernels.int8_matmul import Int8Weight, empty_rows  # here: kernels imports this module
+
         w = self.conv.weight
         key = (w._version, w.data_ptr(), w.device)
         if self._int8_cache is None or self._int8_cache[0] != key:
@@ -88,21 +91,22 @@ class Conv(nn.Module):
                 wf = w.detach().float()
                 sw = wf.abs().amax((1, 2, 3)).clamp_min(1e-12) * INV_127
                 wq = torch.round(wf / sw[:, None, None, None]).clamp_(-127, 127).to(torch.int8)
+                rows = empty_rows(wq.shape[0], wq[0].numel(), w.device).copy_(wq.reshape(wq.shape[0], -1))
                 sx = inv_sx = None
                 if self.act_absmax is not None:  # divided in double, then rounded to float32, as JAX's static scale
                     sx = torch.tensor(max(self.act_absmax, 1e-8) / 127.0, dtype=torch.float32, device=w.device)
                     inv_sx = torch.reciprocal(sx)
-            self._int8_cache = (key, wq.reshape(wq.shape[0], -1).contiguous(), sw, sx, inv_sx)
+            self._int8_cache = (key, Int8Weight(rows.t(), sw), sx, inv_sx)
         return self._int8_cache[1:]
 
     def _int8_conv(self, x: torch.Tensor) -> torch.Tensor:
-        from bsyolo_tpu_torch.kernels.int8_matmul import int8_matmul  # here: kernels imports this module
+        from bsyolo_tpu_torch.kernels.int8_matmul import empty_rows, int8_matmul_prepared
 
         conv = self.conv
         if conv.dilation != (1, 1):
             raise NotImplementedError(f"int8 conv takes no dilation, got {conv}")
         (k, _), (s, _), (p, _) = conv.kernel_size, conv.stride, conv.padding
-        wt, sw, sx, inv_sx = self._int8_codes()
+        weight, sx, inv_sx = self._int8_codes()
         xf = x.float()
         if sx is None:  # dynamic: one abs-max over the whole batch, x / sx
             sx = xf.abs().amax().clamp_min(1e-8) * INV_127
@@ -113,12 +117,15 @@ class Conv(nn.Module):
         B, C, H, W = xq.shape
         if k == 1 and s == 1 and p == 0:
             oh, ow = H, W
-            cols = xq.permute(0, 2, 3, 1).reshape(B * H * W, C)
+            src = xq.permute(0, 2, 3, 1)  # (B, H, W, C)
         else:  # im2col: K ordered (cin, kh, kw), as weight.reshape(Cout, -1)
             patches = F.pad(xq, (p, p, p, p)).unfold(2, k, s).unfold(3, k, s)  # (B, C, OH, OW, k, k)
             oh, ow = patches.shape[2:4]
-            cols = patches.permute(0, 2, 3, 1, 4, 5).reshape(B * oh * ow, C * k * k)
-        y = int8_matmul(cols, wt.t(), sw, sx, torch.float32)  # (B * OH * OW, Cout), channels last
+            src = patches.permute(0, 2, 3, 1, 4, 5)  # (B, OH, OW, C, k, k)
+        # one copy into rows at a 16-byte pitch, which the kernel reads in place whatever K is
+        cols = empty_rows(B * oh * ow, weight.k, xq.device)
+        cols.view(src.shape).copy_(src)
+        y = int8_matmul_prepared(cols, weight, sx, torch.float32)  # (B * OH * OW, Cout), channels last
         return y.view(B, oh, ow, -1).permute(0, 3, 1, 2).contiguous()
 
 

@@ -29,7 +29,10 @@ non-zero without them. Phases, each of which fails the run on its own:
    float, every int8 conv held against its CPU twin on the same input, and
    detections held against the port's int8 on the CPU with the same scales;
    one batch in dynamic int8 and one in float; then the kernel, its plain
-   version and ``torch._int_mm`` timed over the 74 products of one forward.
+   version and ``torch._int_mm`` timed over the 74 products of one forward,
+   with the kernel's tile at each, its host time per call, and the share of
+   the device time that is not the kernel (which must be 0: the operands are
+   laid out as the conv path lays them out, so the wrapper copies nothing).
 
 Every launch counter is set to 0 just before a path is driven and read just
 after, so each path shows the kernels it went through.
@@ -74,14 +77,35 @@ MATCH_BOX_PX, MATCH_SCORE, MATCH_MIN_FRACTION = 0.05, 1e-4, 0.98
 # itself to float rounding.
 INT8_MATCH_BOX_PX, INT8_MATCH_SCORE, INT8_MATCH_MIN_FRACTION = 1.0, 1e-2, 0.15
 INT8_CONV_RTOL = 1e-5  # one int8 Conv, card vs CPU, fed the same input: the same codes, BatchNorm's order differs
-# int8 matmul shapes: stem, model.3 and model.28.cv2.1.0 of yolo11n at batch 4, 640 px; the Pallas test's; a ragged one
-INT8_SHAPES = ((409600, 27, 16), (25600, 576, 64), (6400, 1152, 64), (512, 128, 128), (1000, 27, 20))
+# int8 matmul shapes: stem, model.3, model.28.cv2.1.0, model.1 and the largest K and N at M = 1,600 of yolo11n
+# at batch 4, 640 px; the Pallas test's; a ragged one
+INT8_SHAPES = ((409600, 27, 16), (25600, 576, 64), (6400, 1152, 64), (102400, 48, 64), (1600, 2304, 64),
+               (1600, 512, 256), (512, 128, 128), (1000, 27, 20))
 
 
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(log: str):
+    """(function, its resource lines) from nvcc's -Xptxas -v output; the int8 matmul's
+    instantiations named by their tile and output type."""
+    import re
+
+    report, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            tile = re.search(r"int8_matmul_kernelILi(\d+)ELi(\d+)ELi(\d+)E(f|13__nv_bfloat16)", name)
+            if tile:
+                out = "float" if tile[4] == "f" else "bfloat16"
+                name = f"int8_matmul_kernel<BM={tile[1]}, BN={tile[2]}, KB={tile[3]}, {out}>"
+            report.append((name, []))
+        elif report and any(w in line for w in ("registers", "spill", "stack frame", "warning")):
+            report[-1][1].append(line.split(":", 1)[-1].strip())
+    return report
 
 
 def build_kernels():
@@ -97,9 +121,8 @@ def build_kernels():
         print(f"built {src.relative_to(build.CSRC.parents[1])} (sha256 {hashlib.sha256(src.read_bytes()).hexdigest()[:16]})"
               f" in {rec['seconds']:.2f} s -> {rec['library']}")
         print(f"  {rec.get('command', '(library reused)')}")
-        for line in rec["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+        for function, lines in ptxas_report(rec["ptxas"]):
+            print(f"  ptxas: {function}: {'; '.join(lines)}")
     print(f"build wall time {time.perf_counter() - t0:.2f} s")
 
 
@@ -150,7 +173,9 @@ def time_against_plain(label, kernel, plain, inputs, bytes_moved, ops, peak_ops=
     import torch
 
     head = inputs[0]
-    copies = [(head.clone(), *inputs[1:]) for _ in range(max(2, math.ceil(120e6 / head.nbytes)))]
+    n_copies = max(2, math.ceil(120e6 / head.nbytes))
+    copies = [(torch.empty_strided(head.shape, head.stride(), dtype=head.dtype, device=head.device).copy_(head),
+               *inputs[1:]) for _ in range(n_copies)]  # each copy laid out as the original
     call_ms, dev_ms = cuda_time_ms(kernel, copies, 200)
     plain_call_ms, plain_dev_ms = cuda_time_ms(plain, copies, 50)
     lib_call_ms = lib_dev_ms = None
@@ -253,12 +278,15 @@ def check_decode_xywh_kernel(dev):
 
 
 def int8_operands(g, dev, m, k, n):
-    """Seeded int8 codes x (m, k) and w (k, n), weight scales (n,) and an activation scale;
-    w is the transpose of an (n, k) tensor, as the conv path holds it."""
+    """Seeded int8 codes x (m, k) and w (k, n), weight scales (n,) and an activation scale,
+    laid out as the conv path lays them out: x in rows at a 16-byte pitch (its im2col),
+    w the transpose of (n, k) rows at that pitch (its cached codes)."""
     import torch
 
-    x = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=dev, generator=g)
-    w = torch.randint(-127, 128, (n, k), dtype=torch.int8, device=dev, generator=g).t()
+    from bsyolo_tpu_torch.kernels.int8_matmul import empty_rows
+
+    x = empty_rows(m, k, dev).copy_(torch.randint(-127, 128, (m, k), dtype=torch.int8, device=dev, generator=g))
+    w = empty_rows(n, k, dev).copy_(torch.randint(-127, 128, (n, k), dtype=torch.int8, device=dev, generator=g)).t()
     sw = torch.rand(n, device=dev, generator=g) * 0.02 + 1e-3
     return x, w, sw, torch.tensor(0.013, device=dev)
 
@@ -291,12 +319,16 @@ def check_int8_kernel(dev):
     bfloat16 out, at INT8_SHAPES; each timed against its plain version and torch._int_mm."""
     import torch
 
-    from bsyolo_tpu_torch.kernels.int8_matmul import int8_matmul_cuda, int8_matmul_reference
+    from bsyolo_tpu_torch.kernels.int8_matmul import SMEM_LIMIT, Int8Weight
+    from bsyolo_tpu_torch.kernels.int8_matmul import _launch as int8_launch  # takes a tile plan, to compare two
+    from bsyolo_tpu_torch.kernels.int8_matmul import int8_matmul_cuda, int8_matmul_reference, smem_bytes, tile_plan
 
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     worst = 0.0
     for m, k, n in INT8_SHAPES:
         x, w, sw, sx = int8_operands(g, dev, m, k, n)
+        print(f"int8_matmul M={m} K={k} N={n}, {tile_plan(m, n, k, 4, sms)}:")
         errs = []
         for dtype in (torch.float32, torch.bfloat16):
             got = int8_matmul_cuda(x, w, sw, sx, dtype)
@@ -304,14 +336,26 @@ def check_int8_kernel(dev):
             torch.cuda.synchronize()
             errs.append((got.float() - want.float()).abs().max().item())
         ok = errs == [0.0, 0.0]
-        print(f"int8_matmul M={m} K={k} N={n}: max|err| {errs[0]:.3g} (float32 out), {errs[1]:.3g} (bfloat16 out), "
-              f"tol 0; {'OK' if ok else 'FAIL'}")
+        print(f"  max|err| {errs[0]:.3g} (float32 out), {errs[1]:.3g} (bfloat16 out), tol 0; {'OK' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"int8_matmul disagrees with its plain version at M={m} K={k} N={n}")
         worst = max(worst, *errs)
         bytes_moved, ops = int8_bytes_ops(m, k, n)
         time_against_plain(f"M{m} K{k} N{n}", int8_matmul_cuda, int8_matmul_reference, (x, w, sw, sx), bytes_moved,
                            ops, PEAK_INT8_OPS_PER_S, int8_library, int8_library_inputs)
+        plan = tile_plan(m, n, k, 4, sms)
+        if plan.resident:  # the same product with the weight streamed through the stages, in turns with the plan's
+            weight = Int8Weight(w, sw)
+            streamed = plan._replace(resident=False, stages=min(4, plan.stages))
+            while smem_bytes(streamed, k, 4) > SMEM_LIMIT:
+                streamed = streamed._replace(stages=streamed.stages - 1)
+            copies = [(torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=dev).copy_(x),)
+                      for _ in range(max(2, math.ceil(120e6 / (m * k))))]  # together beyond the 50 MB L2
+            runs = [(label, p) for _ in range(2) for label, p in (("kept", plan), ("streamed", streamed))]
+            us = [kernel_us(lambda xx, p=p: int8_launch(xx, weight, sx, torch.float32, p), copies, 40) for _, p in runs]
+            del copies
+            print("  weight kept in shared memory against streamed through the stages, in turns: " + ", ".join(
+                f"{label} {t:.2f} us" for (label, _), t in zip(runs, us)) + f" (streamed {tuple(streamed)})")
     return worst
 
 
@@ -608,39 +652,69 @@ def path_products(model, dev):
     return shapes
 
 
-def print_largest_products(prof, shapes) -> None:
-    """Device time of the kernel per product of the forward, from the profiled launches in
-    order (the i-th launch is product i mod len(shapes)); the five largest beside their bound."""
+def kernel_us(fn, inputs, reps: int):
+    """Mean device us of the kernel events of ``reps`` calls of ``fn(*inputs[i % len(inputs)])``
+    under torch.profiler (a session that saw no kernel at all is run again)."""
+    import torch
     from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    launches = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA and "int8_matmul_kernel" in e.name),
-                      key=lambda e: e.time_range.start)
-    if not launches or len(launches) % len(shapes):
-        print(f"  per-product times not read: {len(launches)} kernel events for {len(shapes)} products")
-        return
-    us = np.zeros(len(shapes))
-    for i, e in enumerate(launches):
-        us[i % len(shapes)] += e.time_range.end - e.time_range.start
-    us /= len(launches) // len(shapes)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                fn(*inputs[i % len(inputs)])
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            return sum(e.time_range.end - e.time_range.start for e in events) / len(events)
+    return math.nan
+
+
+def product_times(fn, inputs, reps: int = 5):
+    """Device us of ``fn`` per product, one profiler session each (a session can lose an
+    event, so the launches of a whole forward cannot be matched to products by order)."""
+    return [kernel_us(fn, [args], reps) for args in inputs]
+
+
+def print_largest_products(us, shapes) -> None:
+    """The five largest products beside their bound; the spread at each M."""
     print("  largest products (M, K, N): kernel us / bound us: " + "; ".join(
         f"{shapes[i]} {us[i]:.2f} / {bound(*int8_bytes_ops(*shapes[i]), PEAK_INT8_OPS_PER_S)[0] * 1e3:.2f}"
-        for i in np.argsort(-us)[:5]))
+        for i in np.argsort(us)[::-1][:5]))
+    by_m = {}
+    for shape, t in zip(shapes, us):
+        by_m.setdefault(shape[0], []).append(t)
+    print("  kernel us per product by M (count, min / median / max, sum): " + "; ".join(
+        f"M={m} ({len(t)}) {min(t):.2f} / {np.median(t):.2f} / {max(t):.2f}, {sum(t):.1f}"
+        for m, t in sorted(by_m.items())))
 
 
 def time_path_products(dev, shapes):
     """The kernel, its plain version and torch._int_mm over every product of one forward,
-    each product's operands drawn anew (their sum far exceeds the L2): device ms per
-    forward from torch.profiler; the kernel held exactly to the plain version at each."""
+    each product's operands drawn anew (their sum far exceeds the L2) and laid out as the
+    conv path lays them out, the weight prepared once as the conv path caches it: device
+    ms per forward from torch.profiler, the share of it outside the kernel (must be 0),
+    host time per call; the kernel held exactly to the plain version at each product."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from bsyolo_tpu_torch.kernels.int8_matmul import int8_matmul_cuda, int8_matmul_reference
+    from bsyolo_tpu_torch.kernels.int8_matmul import (Int8Weight, int8_matmul_cuda, int8_matmul_prepared,
+                                                      int8_matmul_reference, tile_plan)
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     operands = [int8_operands(g, dev, *shape) for shape in shapes]
-    for (m, k, n), ops in zip(shapes, operands):
-        if not torch.equal(int8_matmul_cuda(*ops), int8_matmul_reference(*ops)):
-            raise SystemExit(f"int8_matmul disagrees with its plain version at the path shape M={m} K={k} N={n}")
+    prepared = [(x, Int8Weight(w, sw), sx) for x, w, sw, sx in operands]
+    for (m, k, n), ops, args in zip(shapes, operands, prepared):
+        for dtype in (torch.float32, torch.bfloat16):
+            if not torch.equal(int8_matmul_prepared(*args, dtype), int8_matmul_reference(*ops, dtype)):
+                raise SystemExit(f"int8_matmul disagrees with its plain version at the path shape M={m} K={k} N={n} "
+                                 f"({dtype} out)")
+    plans = {}
+    for shape in shapes:
+        plans.setdefault(tile_plan(shape[0], shape[2], shape[1], 4, sms), []).append(shape)
+    print(f"int8_matmul tiles over the {len(shapes)} products (BM, BN, KB, stages, resident): " + "; ".join(
+        f"{tuple(p)} x {len(v)}: {sorted(set(v))[:4]}{' ...' if len(set(v)) > 4 else ''}" for p, v in plans.items()))
     library_ops = [int8_library_inputs(*ops) for ops in operands]
 
     def per_forward(fn, inputs, reps):
@@ -662,24 +736,51 @@ def time_path_products(dev, shapes):
         kern = device_kernels(prof)
         return start.elapsed_time(end) / reps, sum(us for _, us, _ in kern) / reps / 1e3, kern, prof
 
-    call_ms, ms, kern, prof = per_forward(int8_matmul_cuda, operands, 5)
+    def host_us(fn, inputs, reps=5):
+        """The calls' own host time, us per call: the loop's host clock before the card is
+        waited for (the card runs behind the calls here: it needs under a fifth of their time)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for args in inputs:
+                fn(*args)
+        elapsed = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return elapsed * 1e6 / (reps * len(inputs))
+
+    call_ms, ms, kern, _ = per_forward(int8_matmul_prepared, prepared, 5)
     plain_call_ms, plain_ms, _, _ = per_forward(int8_matmul_reference, operands, 2)
     lib_call_ms, lib_ms, _, _ = per_forward(int8_library, library_ops, 5)
+    # host time per call in turns (prepared weight, as the conv path calls it; int8_matmul_cuda, which
+    # prepares the weight on every call; torch._int_mm + dequantization), twice each
+    turns = [(label, host_us(fn, inputs)) for _ in range(2) for label, fn, inputs in (
+        ("prepared", int8_matmul_prepared, prepared), ("int8_matmul_cuda", int8_matmul_cuda, operands),
+        ("_int_mm", int8_library, library_ops))]
+    host = {label: min(us for name, us in turns if name == label) for label, _ in turns}
     kernel_only = sum(us for name, us, _ in kern if "int8_matmul_kernel" in name) / 5 / 1e3
-    print_largest_products(prof, shapes)
+    others = sorted({name for name, _, _ in kern if "int8_matmul_kernel" not in name})
+    print_largest_products(product_times(int8_matmul_prepared, prepared), shapes)
     bytes_moved = sum(int8_bytes_ops(*shape)[0] for shape in shapes)
     n_ops = sum(int8_bytes_ops(*shape)[1] for shape in shapes)
     bound_ms, bound_by = bound(bytes_moved, n_ops, PEAK_INT8_OPS_PER_S)
-    print(f"int8_matmul over the {len(shapes)} products of one forward (batch 4, {IMGSZ} px; exact at each): kernel "
-          f"{ms:.4f} ms on the device per forward ({kernel_only:.4f} ms in the kernel itself, the rest the wrapper's "
-          f"K padding), {call_ms:.3f} ms host to host (events); plain {plain_ms:.4f} ms on the device, "
-          f"{plain_call_ms:.3f} ms host to host; torch._int_mm + dequantization {lib_ms:.4f} ms on the device, "
-          f"{lib_call_ms:.3f} ms host to host; bound {bound_ms:.4f} ms ({bound_by}: {bytes_moved / 1e6:.1f} MB, "
-          f"{n_ops / 1e9:.2f} Gop)")
-    del operands, library_ops
+    print(f"int8_matmul over the {len(shapes)} products of one forward (batch 4, {IMGSZ} px; exact at each, float32 "
+          f"and bfloat16 out): kernel {ms:.4f} ms on the device per forward, {call_ms:.3f} ms host to host (events); "
+          f"plain {plain_ms:.4f} ms on the device, {plain_call_ms:.3f} ms host to host; torch._int_mm + "
+          f"dequantization {lib_ms:.4f} ms on the device, {lib_call_ms:.3f} ms host to host; bound {bound_ms:.4f} ms "
+          f"({bound_by}: {bytes_moved / 1e6:.1f} MB, {n_ops / 1e9:.2f} Gop)")
+    print("  host time per call (the calls' own host time over 5 forwards, in turns): " + "; ".join(
+        f"{label} {us:.2f} us" for label, us in turns) + " (prepared: the weight prepared once, as the conv path "
+        "calls it; int8_matmul_cuda prepares it on every call; _int_mm: torch._int_mm + dequantization)")
+    outside = (ms - kernel_only) / ms
+    print(f"  device time outside int8_matmul_kernel: {outside:.4f} of {ms:.4f} ms (must be 0); other device "
+          f"items: {others or 'none'}")
+    if others:
+        raise SystemExit(f"the int8 matmul wrapper ran device work besides its kernel: {others}")
+    del operands, prepared, library_ops
     torch.cuda.empty_cache()
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by, call_ms=call_ms,
-                plain_call_ms=plain_call_ms, shape=f"the {len(shapes)} products of one forward, batch 4, {IMGSZ} px")
+                plain_call_ms=plain_call_ms, host_us_per_call=host["prepared"],
+                shape=f"the {len(shapes)} products of one forward, batch 4, {IMGSZ} px")
 
 
 def check_int8_convs_against_cpu(dev, host, model, frames):
@@ -815,7 +916,8 @@ def kernel_entry(name, source, replaces, launches, row):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
-            "shape": row["shape"], "call_ms": row["call_ms"], "plain_call_ms": row["plain_call_ms"]}
+            "shape": row["shape"], "call_ms": row["call_ms"], "plain_call_ms": row["plain_call_ms"],
+            **({"host_us_per_call": row["host_us_per_call"]} if "host_us_per_call" in row else {})}
 
 
 def main() -> int:

@@ -155,16 +155,20 @@ INT8_SHAPES = [(409600, 27, 16), (25600, 576, 64), (6400, 1152, 64), (512, 128, 
                (77, 48, 200)]
 
 
+def _int8_operands(device, m, k, n, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=device, generator=g)
+    w = torch.randint(-128, 128, (k, n), dtype=torch.int8, device=device, generator=g)
+    sw = torch.rand(n, device=device, generator=g) * 0.02 + 1e-3
+    return x, w, sw, torch.tensor(0.013, device=device)
+
+
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("m,k,n", INT8_SHAPES)
 def test_int8_matmul_kernel_equals_plain_version(cuda_device, m, k, n, out_dtype):
     from bsyolo_tpu_torch.kernels.int8_matmul import int8_matmul_cuda, int8_matmul_reference
 
-    g = torch.Generator(device=cuda_device).manual_seed(m + k + n)
-    x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=cuda_device, generator=g)
-    w = torch.randint(-128, 128, (k, n), dtype=torch.int8, device=cuda_device, generator=g)
-    sw = torch.rand(n, device=cuda_device, generator=g) * 0.02 + 1e-3
-    sx = torch.tensor(0.013, device=cuda_device)
+    x, w, sw, sx = _int8_operands(cuda_device, m, k, n, m + k + n)
     before = int8_matmul_cuda.launches
     got = int8_matmul_cuda(x, w, sw, sx, out_dtype)
     torch.cuda.synchronize()
@@ -174,6 +178,79 @@ def test_int8_matmul_kernel_equals_plain_version(cuda_device, m, k, n, out_dtype
     assert torch.equal(got, want)
     # the weight as the conv path holds it, the transpose of an (N, K) tensor: read in place
     assert torch.equal(int8_matmul_cuda(x, w.t().contiguous().t(), sw, sx, out_dtype), want)
+
+
+# every tile width (N from 8 to 300, 300 as two tiles of 256), K within one stage, across two, ragged and long;
+# M = 333 takes 64-row tiles, M = 17000 128-row ones (133 tiles of 128 on 132 SMs)
+@pytest.mark.parametrize("m", [333, 17000])
+@pytest.mark.parametrize("k", [16, 27, 48, 2304])
+@pytest.mark.parametrize("n", [8, 16, 20, 32, 64, 128, 200, 256, 300])
+def test_int8_matmul_every_tile_equals_plain_version(cuda_device, m, k, n):
+    """Exact at every tile plan, float32 and bfloat16 out, with x read in place from
+    rows at a 16-byte pitch (as the conv path writes them) and from contiguous rows."""
+    from bsyolo_tpu_torch.kernels.int8_matmul import (Int8Weight, empty_rows, int8_matmul_prepared,
+                                                      int8_matmul_reference, tma_readable)
+
+    x, w, sw, sx = _int8_operands(cuda_device, m, k, n, 7 * m + 3 * k + n)
+    strided = empty_rows(m, k, cuda_device).copy_(x)
+    assert tma_readable(strided)
+    weight = Int8Weight(w, sw)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        want = int8_matmul_reference(x, w, sw, sx, out_dtype)
+        for xx in (strided, x):
+            got = int8_matmul_prepared(xx, weight, sx, out_dtype)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (out_dtype, xx.stride())
+
+
+def test_int8_matmul_persistent_walk(cuda_device):
+    """Many more tiles than blocks: each block walks several tiles, across two tiles of N,
+    the weight riding in the stages, its ring running on from one tile into the next; exact."""
+    from bsyolo_tpu_torch.kernels.int8_matmul import int8_matmul_cuda, int8_matmul_reference, tile_plan
+
+    m, k, n = 132 * 128 * 3 + 5, 300, 300
+    plan = tile_plan(m, n, k)
+    assert plan.bn == 256 and not plan.resident and -(-m // plan.bm) * 2 > 8 * 132
+    x, w, sw, sx = _int8_operands(cuda_device, m, k, n, 11)
+    got = int8_matmul_cuda(x, w, sw, sx)
+    assert torch.equal(got, int8_matmul_reference(x, w, sw, sx))
+
+
+@pytest.mark.parametrize("m,k,n", [(409600, 27, 16), (102400, 48, 64), (102400, 576, 64), (40000, 256, 200)])
+def test_int8_matmul_resident_weight_equals_streamed(cuda_device, m, k, n):
+    """Where the plan keeps the weight in shared memory (blocks walk several tiles), the
+    same product with the weight streamed through the stages instead gives the same
+    output, and both equal the plain version."""
+    from bsyolo_tpu_torch.kernels.int8_matmul import Int8Weight, _launch, int8_matmul_reference, tile_plan
+
+    x, w, sw, sx = _int8_operands(cuda_device, m, k, n, 13)
+    weight = Int8Weight(w, sw)
+    plan = tile_plan(m, n, k)
+    assert plan.resident
+    want = int8_matmul_reference(x, w, sw, sx)
+    assert torch.equal(_launch(x, weight, sx, torch.float32, plan), want)
+    assert torch.equal(_launch(x, weight, sx, torch.float32, plan._replace(resident=False, stages=2)), want)
+
+
+def test_int8_matmul_reads_strided_x_in_place(cuda_device):
+    """The stem's x (K = 27) in rows 32 bytes apart, and a prepared weight: one device
+    kernel per call, the int8 matmul's, and no padding copy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bsyolo_tpu_torch.kernels.int8_matmul import Int8Weight, empty_rows, int8_matmul_prepared
+
+    x, w, sw, sx = _int8_operands(cuda_device, 4096, 27, 16, 5)
+    x = empty_rows(4096, 27, cuda_device).copy_(x)
+    weight = Int8Weight(empty_rows(16, 27, cuda_device).copy_(w.t()).t(), sw)
+    int8_matmul_prepared(x, weight, sx)  # first launch: library, descriptor
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            int8_matmul_prepared(x, weight, sx)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 3 and all("int8_matmul_kernel" in e.name for e in kernels), [e.name for e in kernels]
 
 
 def test_int8_matmul_kernel_refuses_what_it_does_not_take(cuda_device):
