@@ -12,8 +12,8 @@ from bsyolo_tpu_torch.kernels import decode, int8_matmul
 
 # kernel name -> (wrapper with a launch count, CUDA source stem)
 KERNELS = {
-    "decode_box_best": (decode.box_best_cuda, "decode_box"),
-    "decode_xywh": (decode.decode_xywh_cuda, "decode_xywh"),
+    "decode_box_best": (decode.box_best_cuda, "decode"),
+    "decode_xywh": (decode.decode_xywh_cuda, "decode"),
     "int8_matmul": (int8_matmul.int8_matmul_cuda, "int8_matmul"),
 }
 

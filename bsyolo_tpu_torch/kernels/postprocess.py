@@ -1,8 +1,10 @@
 """Detect postprocess: raw head maps -> (B, max_det, 6) boxes
 (counterpart of ``bsyolo_tpu/kernels/postprocess.py``).
 
-    [CUDA]    DFL box decode -> xyxy pixels, fused with the per-anchor max
-              class logit (kernels/decode.py); its plain version on the CPU
+    [CUDA]    DFL box decode of the per-level maps, read in place -> xyxy
+              pixels, the per-anchor max class logit and the class logits
+              anchors-first, in one launch (kernels/decode.py); its plain
+              version on the CPU
     [PyTorch] top-k candidates on raw logits, sigmoid on the survivors only,
               greedy fixed-point NMS (ops/nms.py)
 """
@@ -13,9 +15,7 @@ from typing import Sequence
 
 import torch
 
-from bsyolo_tpu_torch.kernels.decode import REG_MAX, box_best, box_best_reference
-from bsyolo_tpu_torch.nn.heads import flatten_levels
-from bsyolo_tpu_torch.ops.anchors import make_anchors
+from bsyolo_tpu_torch.kernels.decode import REG_MAX, box_best
 from bsyolo_tpu_torch.ops.nms import nms_from_logits
 
 
@@ -35,17 +35,11 @@ def detect_postprocess(
     """Per-level (B, 4 * reg_max + nc, H, W) Detect maps -> (B, max_det, 6)
     x1, y1, x2, y2, conf, cls (+ (B, max_det) source anchor indices).
 
-    The decode is the CUDA kernel for a CUDA tensor and its plain version for a
-    CPU tensor. The kernel is specialised to 16 DFL bins, so ``reg_max != 16``
+    The decode is one launch of the CUDA kernel for CUDA maps, which reads the
+    levels in place, and its plain version for CPU maps. The kernel is specialised to 16 DFL bins, so ``reg_max != 16``
     decodes with the plain version on either device, as in the JAX package.
     """
-    anchors, stride_t = make_anchors([f.shape[2:] for f in feats], strides, 0.5, device=feats[0].device)
-    flat = flatten_levels(feats).float()  # (B, no, A), contiguous
-    if reg_max == REG_MAX:
-        boxes, best = box_best(flat, anchors, stride_t, nc)
-    else:
-        boxes, best = box_best_reference(flat, anchors, stride_t, nc, reg_max)
-    cls_logits = flat[:, 4 * reg_max : 4 * reg_max + nc].transpose(1, 2)  # (B, A, nc) view
+    boxes, best, cls_logits = box_best(feats, strides, nc, reg_max)
     return nms_from_logits(
         boxes,
         cls_logits,

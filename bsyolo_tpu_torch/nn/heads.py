@@ -13,9 +13,8 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from bsyolo_tpu_torch.kernels.decode import REG_MAX, decode_xywh, decode_xywh_reference
+from bsyolo_tpu_torch.kernels.decode import decode_xywh
 from bsyolo_tpu_torch.nn.modules import Conv, DWConv
-from bsyolo_tpu_torch.ops.anchors import make_anchors
 
 
 class Detect(nn.Module):
@@ -50,22 +49,13 @@ class Detect(nn.Module):
         return [torch.cat([self.cv2[i](x), self.cv3[i](x)], 1) for i, x in enumerate(feats)]
 
 
-def flatten_levels(feats: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Per-level (B, no, H, W) maps -> (B, no, A), anchors level-major then h * W + w."""
-    b, no = feats[0].shape[:2]
-    return torch.cat([f.reshape(b, no, -1) for f in feats], 2)
-
-
 def decode_detections(feats: Sequence[torch.Tensor], strides: Sequence[int], nc: int, reg_max: int = 16) -> torch.Tensor:
     """Raw Detect maps -> (B, A, 4 + nc): xywh pixels + sigmoid scores.
 
-    The decode is the CUDA kernel (kernels/decode.py ``decode_xywh``) for a
-    CUDA tensor and its plain version for a CPU tensor. The kernel is
-    specialised to 16 DFL bins, so ``reg_max != 16`` decodes with the plain
-    version on either device. Channels past ``4 * reg_max + nc`` are ignored.
+    The decode is one launch of the CUDA kernel (kernels/decode.py
+    ``decode_xywh``) for CUDA maps, which reads the levels in place, and its
+    plain version for CPU maps. The kernel is specialised to 16 DFL bins, so
+    ``reg_max != 16`` decodes with the plain version on either device.
+    Channels past ``4 * reg_max + nc`` are ignored.
     """
-    anchors, stride_t = make_anchors([f.shape[2:] for f in feats], strides, 0.5, device=feats[0].device)
-    flat = flatten_levels(feats).float()  # (B, no, A), contiguous
-    if reg_max == REG_MAX:
-        return decode_xywh(flat, anchors, stride_t, nc)
-    return decode_xywh_reference(flat, anchors, stride_t, nc, reg_max)
+    return decode_xywh(feats, strides, nc, reg_max)

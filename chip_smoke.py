@@ -9,20 +9,24 @@ non-zero without them. Phases, each of which fails the run on its own:
 1. the card's name and power limit; every kernel of the port built with
    nvcc from ``bsyolo_tpu_torch/kernels/csrc``, one nvcc per source, all at once;
 2. each kernel against its plain PyTorch version on the card, at the shapes
-   its paths give it and at a ragged one, with its time, the plain version's
-   time and the least time the card could take (bytes or operations over the
-   card's published peak);
+   its paths give it and at ragged ones, with its time, the plain version's
+   time, the least time the card could take (bytes or operations over the
+   card's published peak) and, for the decode kernels, the host time per call
+   in turns with the plain version;
 3. the predict path at full yolo11n width (nc 12, imgsz 640), seeded random
    weights, 8 seeded synthetic frames (480x640 and 720x1280), batch 1 and
    batch 4, conf 0.001: the box-best decode kernel launched once per batch,
-   throughput, and detections held against the same port on the CPU;
+   throughput, and detections held against the same port on the CPU; the
+   decode stage on the head maps the path made runs one device kernel per
+   call, the decode kernel, and its device and host time per call;
 4. the test-time-augmented predict path (``predict(augment=True)``) on the
    same frames at batch 4: the xywh decode kernel launched three times per
-   batch, throughput, and detections held against the CPU;
+   batch, throughput, and detections held against the CPU; the decode stage
+   of each pass as in phase 3;
 5. the tiled (SAHI-style) path, ``predict_tiled`` with 640-px tiles on a
    seeded 1080x1920 frame (8 tiles) and a 720x1280 frame (6 tiles): the xywh
    decode kernel launched once per call, time per frame, and detections held
-   against the CPU;
+   against the CPU; the decode stage as in phase 3;
 6. int8 predict on the same frames at batch 4: ``calibrate_int8`` on the card,
    static int8 (the int8 matmul kernel launched once per quantizable conv,
    74 times per batch), throughput, float and int8 in turns, head maps against
@@ -91,7 +95,8 @@ def card_line() -> str:
 
 def ptxas_report(log: str):
     """(function, its resource lines) from nvcc's -Xptxas -v output; the int8 matmul's
-    instantiations named by their tile and output type."""
+    instantiations named by their tile and output type, the decode kernel's by its
+    epilogue and tile."""
     import re
 
     report, name = [], None
@@ -99,9 +104,12 @@ def ptxas_report(log: str):
         if "Compiling entry function" in line:
             name = line.split("'")[1]
             tile = re.search(r"int8_matmul_kernelILi(\d+)ELi(\d+)ELi(\d+)E(f|13__nv_bfloat16)", name)
+            decode = re.search(r"decode_kernelILi(\d)ELi(\d+)E", name)
             if tile:
                 out = "float" if tile[4] == "f" else "bfloat16"
                 name = f"int8_matmul_kernel<BM={tile[1]}, BN={tile[2]}, KB={tile[3]}, {out}>"
+            elif decode:
+                name = f"decode_kernel<{('box', 'xywh')[int(decode[1])]}, T={decode[2]}>"
             report.append((name, []))
         elif report and any(w in line for w in ("registers", "spill", "stack frame", "warning")):
             report[-1][1].append(line.split(":", 1)[-1].strip())
@@ -133,28 +141,45 @@ def device_kernels(prof):
     return [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
 
+def profiled(run):
+    """torch.profiler (host and device) over ``run()``, then a synchronize. A session now and
+    then records no device event at all; such a session is run again, up to three times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        if any(e.device_type == DeviceType.CUDA for e in prof.events()):
+            break
+    return prof
+
+
+def repeat(fn, inputs, reps: int):
+    """A function that calls ``fn(*inputs[i % len(inputs)])`` for i < reps, keeping no result."""
+    def run():
+        for i in range(reps):
+            fn(*inputs[i % len(inputs)])
+    return run
+
+
 def cuda_time_ms(fn, inputs, reps: int):
     """Mean ms per call of ``fn(*inputs[i % len(inputs)])`` after warm-up: CUDA events
     around the loop (host enqueue included where it is the slower side), and the
     device time of every kernel the calls launched, from torch.profiler."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    for i in range(3):
-        fn(*inputs[i % len(inputs)])
+    repeat(fn, inputs, 3)()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for i in range(reps):
-        fn(*inputs[i % len(inputs)])
+    repeat(fn, inputs, reps)()
     end.record()
     torch.cuda.synchronize()
     event_ms = start.elapsed_time(end) / reps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            fn(*inputs[i % len(inputs)])
-        torch.cuda.synchronize()
-    device_ms = sum(us for _, us, _ in device_kernels(prof)) / reps / 1e3
+    device_ms = sum(us for _, us, _ in device_kernels(profiled(repeat(fn, inputs, reps)))) / reps / 1e3
     return event_ms, device_ms
 
 
@@ -169,13 +194,16 @@ def time_against_plain(label, kernel, plain, inputs, bytes_moved, ops, peak_ops=
                        library=None, prepare=None):
     """Time ``kernel`` and ``plain`` (and ``library`` on ``prepare``d inputs) on copies
     of ``inputs`` that together exceed the 50 MB L2, so each launch reads its first
-    input from HBM; returns the kernels-line fields."""
+    input (a tensor or a list of levels) from HBM; returns the kernels-line fields."""
     import torch
 
-    head = inputs[0]
-    n_copies = max(2, math.ceil(120e6 / head.nbytes))
-    copies = [(torch.empty_strided(head.shape, head.stride(), dtype=head.dtype, device=head.device).copy_(head),
-               *inputs[1:]) for _ in range(n_copies)]  # each copy laid out as the original
+    def copy(t):  # laid out as the original
+        return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=t.device).copy_(t)
+
+    head = inputs[0]  # a tensor, or a list of a head's levels
+    nbytes = sum(t.nbytes for t in head) if isinstance(head, list) else head.nbytes
+    copies = [([copy(t) for t in head] if isinstance(head, list) else copy(head), *inputs[1:])
+              for _ in range(max(2, math.ceil(120e6 / nbytes)))]
     call_ms, dev_ms = cuda_time_ms(kernel, copies, 200)
     plain_call_ms, plain_dev_ms = cuda_time_ms(plain, copies, 50)
     lib_call_ms = lib_dev_ms = None
@@ -195,58 +223,100 @@ def time_against_plain(label, kernel, plain, inputs, bytes_moved, ops, peak_ops=
                 library_ms=None if library is None else (lib_dev_ms or lib_call_ms))
 
 
-def seeded_head(g, dev, b, side, nc):
-    """(B, 64 + nc, A) head at ``side`` px (or A = -side random anchors), image 0's side 1 far below the others."""
+def square_levels(side, strides=(8, 16, 32)):
+    return tuple((side // s, side // s) for s in strides), strides
+
+
+# (label, B, level sizes, strides, nc) at which phase 2 holds both decode kernels: plain predict at batch 1, 4
+# and 8 at IMGSZ (8 is also the tiled path's 8 tiles), the TTA passes at 544 and 448 px, 6 tiles, nc = 80 on
+# ragged levels, and a P6 pyramid of 4 levels
+DECODE_SHAPES = (
+    ("B1 640", 1, *square_levels(IMGSZ), 12),
+    ("B4 640", 4, *square_levels(IMGSZ), 12),
+    ("B8 640", 8, *square_levels(IMGSZ), 12),
+    ("B4 544", 4, *square_levels(544), 12),
+    ("B4 448", 4, *square_levels(448), 12),
+    ("B6 640", 6, *square_levels(IMGSZ), 12),
+    ("B2 ragged nc80", 2, ((37, 53), (19, 27), (10, 14)), (8, 16, 32), 80),
+    ("B2 224 nc80", 2, *square_levels(224), 80),
+    ("B2 640 P6", 2, *square_levels(IMGSZ, (8, 16, 32, 64)), 12),
+)
+
+
+def seeded_levels(g, dev, b, sizes, nc):
+    """(B, 64 + nc, h, w) head levels, image 0's side 1 far below the others (NaN for a single row max)."""
     import torch
 
     from bsyolo_tpu_torch.kernels.decode import REG_MAX
-    from bsyolo_tpu_torch.ops.anchors import make_anchors
 
-    if side > 0:
-        shapes = [(side // s, side // s) for s in (8, 16, 32)]
-        anchors, strides = make_anchors(shapes, (8, 16, 32), 0.5, device=dev)
-    else:
-        anchors = torch.rand((-side, 2), generator=g, device=dev) * 80
-        strides = torch.tensor([8.0, 16.0, 32.0], device=dev)[torch.randint(0, 3, (-side, 1), generator=g, device=dev)]
-    head = torch.randn((b, 4 * REG_MAX + nc, anchors.shape[0]), generator=g, device=dev) * 2.0
-    head[0, REG_MAX : 2 * REG_MAX] -= 120.0  # one side far below the others (NaN for a single row max)
-    return head, anchors, strides
+    levels = [torch.randn((b, 4 * REG_MAX + nc, h, w), generator=g, device=dev) * 2.0 for h, w in sizes]
+    for f in levels:
+        f[0, REG_MAX : 2 * REG_MAX] -= 120.0
+    return levels
+
+
+def host_us(fn, inputs, reps: int = 20):
+    """The calls' own host time, us per call: the loop's host clock before the card is
+    waited for (the card runs behind the calls where they are host-bound)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for args in inputs:
+            fn(*args)
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed * 1e6 / (reps * len(inputs))
+
+
+def host_us_in_turns(kernel, plain, inputs):
+    """Host us per call of ``kernel`` and ``plain`` in turns (kernel, plain, kernel, plain)."""
+    turns = [(label, host_us(fn, inputs)) for _ in range(2) for label, fn in (("kernel", kernel), ("plain", plain))]
+    print("  host time per call, in turns: " + ", ".join(f"{label} {us:.2f} us" for label, us in turns))
+    return min(us for label, us in turns if label == "kernel")
 
 
 def check_decode_kernel(dev):
-    """box_best_cuda against box_best_reference on the card; returns the kernels-line fields."""
+    """box_best_cuda against box_best_reference on the card at DECODE_SHAPES; returns the kernels-line fields."""
     import torch
 
     from bsyolo_tpu_torch.kernels.decode import REG_MAX, box_best_cuda, box_best_reference
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     worst, rows = 0.0, {}
-    for b, side, nc in ((1, IMGSZ, 12), (4, IMGSZ, 12), (8, IMGSZ, 12), (2, 224, 80)):
-        head, anchors, strides = seeded_head(g, dev, b, side, nc)
-        a = anchors.shape[0]
-        boxes, best = box_best_cuda(head, anchors, strides, nc)
-        want_boxes, want_best = box_best_reference(head, anchors, strides, nc)
+    for label, b, sizes, strides, nc in DECODE_SHAPES:
+        levels = seeded_levels(g, dev, b, sizes, nc)
+        a = sum(h * w for h, w in sizes)
+        boxes, best, cls = box_best_cuda(levels, strides, nc)
+        want_boxes, want_best, want_cls = box_best_reference(levels, strides, nc)
         torch.cuda.synchronize()
         err = (boxes - want_boxes).abs().max().item()
         best_err = (best - want_best).abs().max().item()
+        cls_equal = torch.equal(cls, want_cls)
         finite = bool(torch.isfinite(boxes).all())
-        ok = finite and err <= BOX_ATOL_PX and best_err == 0.0
-        print(f"decode_box_best B={b} A={a} nc={nc}: max|box err| {err:.3g} px (tol {BOX_ATOL_PX}), "
-              f"max|best err| {best_err:.3g} (tol 0), finite {finite}; {'OK' if ok else 'FAIL'}")
+        ok = finite and err <= BOX_ATOL_PX and best_err == 0.0 and cls_equal
+        print(f"decode_box_best {label}: B={b} A={a} nc={nc}: max|box err| {err:.3g} px (tol {BOX_ATOL_PX}), "
+              f"max|best err| {best_err:.3g} (tol 0), class logits equal {cls_equal}, finite {finite}; "
+              f"{'OK' if ok else 'FAIL'}")
         if not ok:
-            raise SystemExit(f"decode_box_best disagrees with its plain version at B={b} A={a} nc={nc}")
+            raise SystemExit(f"decode_box_best disagrees with its plain version at {label}")
         worst = max(worst, err)
-        bytes_moved = head.nbytes + anchors.nbytes + strides.nbytes + b * a * (4 + 1) * 4
+        head_bytes = b * a * (4 * REG_MAX + nc) * 4
+        bytes_moved = head_bytes + b * a * (4 + 1 + nc) * 4  # head once; boxes, best and class logits once
         ops = b * a * (4 * (6 * REG_MAX + 1) + nc + 8)  # per side: max, sub, exp, add, fma (2); one divide
-        rows[(b, nc)] = time_against_plain(f"B{b} A{a} nc{nc}", box_best_cuda, box_best_reference,
-                                           (head, anchors, strides, nc), bytes_moved, ops)
+        old_bound_us = (head_bytes + 12 * a + b * a * 5 * 4) / PEAK_BYTES_PER_S * 1e6  # + anchors and strides
+        print(f"  bound of the earlier flat-head kernel (anchors and strides read, no class-logit output): "
+              f"{old_bound_us:.2f} us")
+        rows[label] = time_against_plain(label, box_best_cuda, box_best_reference, (levels, strides, nc),
+                                         bytes_moved, ops)
+        rows[label]["host_us_per_call"] = host_us_in_turns(box_best_cuda, box_best_reference, [(levels, strides, nc)])
     # the kernels line reports the largest batch the predict phase runs
-    return dict(max_abs_err=worst, **rows[(4, 12)])
+    return dict(max_abs_err=worst, **rows["B4 640"])
 
 
 def check_decode_xywh_kernel(dev):
-    """decode_xywh_cuda against decode_xywh_reference on the card, at the TTA passes'
-    shapes (B=4 at 640, 544 and 448 px), eight 640-px tiles and a ragged nc=80 case;
+    """decode_xywh_cuda against decode_xywh_reference on the card at DECODE_SHAPES;
     returns the kernels-line fields."""
     import torch
 
@@ -254,27 +324,68 @@ def check_decode_xywh_kernel(dev):
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     worst, rows = 0.0, {}
-    for b, side, nc in ((4, IMGSZ, 12), (4, 544, 12), (4, 448, 12), (8, IMGSZ, 12), (2, -700, 80)):
-        head, anchors, strides = seeded_head(g, dev, b, side, nc)
-        a = anchors.shape[0]
-        got = decode_xywh_cuda(head, anchors, strides, nc)
-        want = decode_xywh_reference(head, anchors, strides, nc)
+    for label, b, sizes, strides, nc in DECODE_SHAPES:
+        levels = seeded_levels(g, dev, b, sizes, nc)
+        a = sum(h * w for h, w in sizes)
+        got = decode_xywh_cuda(levels, strides, nc)
+        want = decode_xywh_reference(levels, strides, nc)
         torch.cuda.synchronize()
         err = (got[..., :4] - want[..., :4]).abs().max().item()
         score_rel = ((got[..., 4:] - want[..., 4:]).abs() / want[..., 4:].abs()).max().item()
         finite = bool(torch.isfinite(got).all())
         ok = finite and tuple(got.shape) == (b, a, 4 + nc) and err <= BOX_ATOL_PX and score_rel <= SCORE_RTOL
-        print(f"decode_xywh B={b} A={a} nc={nc}: max|box err| {err:.3g} px (tol {BOX_ATOL_PX}), "
+        print(f"decode_xywh {label}: B={b} A={a} nc={nc}: max|box err| {err:.3g} px (tol {BOX_ATOL_PX}), "
               f"max score rel err {score_rel:.3g} (tol {SCORE_RTOL}), finite {finite}; {'OK' if ok else 'FAIL'}")
         if not ok:
-            raise SystemExit(f"decode_xywh disagrees with its plain version at B={b} A={a} nc={nc}")
+            raise SystemExit(f"decode_xywh disagrees with its plain version at {label}")
         worst = max(worst, err)
-        bytes_moved = head.nbytes + anchors.nbytes + strides.nbytes + b * a * (4 + nc) * 4
+        head_bytes = b * a * (4 * REG_MAX + nc) * 4
+        bytes_moved = head_bytes + b * a * (4 + nc) * 4  # head once, output rows once
         ops = b * a * (4 * (6 * REG_MAX + 1) + 10 + 4 * nc)  # the sides as above; box 10; sigmoid 4 per class
-        rows[(b, a)] = time_against_plain(f"B{b} A{a} nc{nc}", decode_xywh_cuda, decode_xywh_reference,
-                                          (head, anchors, strides, nc), bytes_moved, ops)
+        old_bound_us = (head_bytes + 12 * a + b * a * (4 + nc) * 4) / PEAK_BYTES_PER_S * 1e6  # + anchors and strides
+        print(f"  bound of the earlier flat-head kernel (anchors and strides read): {old_bound_us:.2f} us")
+        rows[label] = time_against_plain(label, decode_xywh_cuda, decode_xywh_reference, (levels, strides, nc),
+                                         bytes_moved, ops)
+        rows[label]["host_us_per_call"] = host_us_in_turns(decode_xywh_cuda, decode_xywh_reference,
+                                                           [(levels, strides, nc)])
     # the kernels line reports the TTA path's unscaled pass, B=4 at 640 px
-    return dict(max_abs_err=worst, **rows[(4, 8400)])
+    return dict(max_abs_err=worst, **rows["B4 640"])
+
+
+def head_outputs(model, run):
+    """The Detect head's level maps of every forward that ``run()`` makes, as the path made them."""
+    import torch
+
+    captured = []
+    hook = model.model.model[-1].register_forward_hook(lambda mod, args, out: captured.append(out))
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    return captured
+
+
+def check_decode_stage(label, decode, feats, reps: int = 50):
+    """``decode(feats)``, the decode stage as the path calls it, on head maps the path made
+    (in L2, as when the head has just written them): fails unless each call runs exactly
+    one device kernel, the decode kernel; prints its device time (torch.profiler) and
+    host time per call."""
+    import torch
+    from torch.autograd import DeviceType
+
+    repeat(decode, [(feats,)], 3)()
+    torch.cuda.synchronize()
+    events = [e for e in profiled(repeat(decode, [(feats,)], reps)).events() if e.device_type == DeviceType.CUDA]
+    others = sorted({e.name for e in events if "decode_kernel" not in e.name})
+    device_us = sum(e.time_range.end - e.time_range.start for e in events) / reps
+    call_us = host_us(decode, [(feats,)])
+    print(f"decode stage, {label}: {len(events) / reps:g} device kernels per call, {device_us:.2f} us of device "
+          f"time per call, {call_us:.2f} us of host time per call; other device items: {others or 'none'}")
+    if len(events) != reps or others:
+        raise SystemExit(f"the {label} decode stage ran {len(events)} device items in {reps} calls "
+                         f"(expected {reps}, all the decode kernel): {others}")
+    return device_us
 
 
 def int8_operands(g, dev, m, k, n):
@@ -436,14 +547,17 @@ def profile_once(label: str, run, unprofiled_ms: float):
     """One call of ``run`` under torch.profiler: device work, busy share, largest device
     items; returns (name, device us, count) of every device item."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    walls = []
+
+    def timed():
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = sorted(device_kernels(prof), key=lambda k: -k[1])
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    kern = sorted(device_kernels(profiled(timed)), key=lambda k: -k[1])
+    wall_ms = walls[-1]
     busy_ms = sum(us for _, us, _ in kern) / 1e3
     print(f"{label} under torch.profiler: {wall_ms:.1f} ms wall, {busy_ms:.2f} ms of device work; device busy "
           f"{busy_ms / wall_ms:.3f} of the profiled wall time, {busy_ms / unprofiled_ms:.3f} of the unprofiled "
@@ -488,8 +602,8 @@ def predict_path(dev, host, model, frames):
     import torch
 
     from bsyolo_tpu_torch import kernels
+    from bsyolo_tpu_torch.kernels.decode import box_best, flatten_levels
     from bsyolo_tpu_torch.kernels.postprocess import detect_postprocess
-    from bsyolo_tpu_torch.nn.heads import flatten_levels
     from bsyolo_tpu_torch.ops.letterbox import letterbox
 
     for batch in (1, 4):  # warm-up at both batch sizes: cuDNN plans, allocator, first-use kernel loads
@@ -515,6 +629,11 @@ def predict_path(dev, host, model, frames):
 
     profile_once("predict, one batch of 4", lambda: model.predict(frames[:4], imgsz=IMGSZ, batch=4, conf=CONF),
                  batch_ms[4])
+    spec = model.spec
+    for feats in head_outputs(model, lambda: model.predict(frames[:4], imgsz=IMGSZ, batch=4, conf=CONF)):
+        check_decode_stage(f"predict, batch of 4 (box_best, as detect_postprocess calls it), levels "
+                           f"{[tuple(f.shape[2:]) for f in feats]}",
+                           lambda f: box_best(f, spec.head_strides, spec.nc, spec.reg_max), feats)
 
     # host-clock split of one batch of 4, synchronised after each stage; median of 5
     split = []
@@ -560,6 +679,7 @@ def tta_path(host, model, frames):
     import torch
 
     from bsyolo_tpu_torch import kernels
+    from bsyolo_tpu_torch.nn.heads import decode_detections
 
     model.predict(frames[:4], imgsz=IMGSZ, batch=4, conf=CONF, augment=True)  # warm-up: the 544 and 448 px plans
     torch.cuda.synchronize()
@@ -578,6 +698,13 @@ def tta_path(host, model, frames):
     print("  Results.speed, ms per frame: " + ", ".join(f"{k} {v:.2f}" for k, v in speed.items()))
     profile_once("TTA predict, one batch of 4",
                  lambda: model.predict(frames[:4], imgsz=IMGSZ, batch=4, conf=CONF, augment=True), batch_ms)
+    spec = model.spec
+    passes = head_outputs(model, lambda: model.predict(frames[:4], imgsz=IMGSZ, batch=4, conf=CONF, augment=True))
+    if len(passes) != 3:
+        raise SystemExit(f"one TTA batch ran the head {len(passes)} times, expected 3")
+    for i, feats in enumerate(passes):
+        check_decode_stage(f"TTA pass {i + 1} of 3 (decode_detections), levels {[tuple(f.shape[2:]) for f in feats]}",
+                           lambda f: decode_detections(f, spec.head_strides, spec.nc, spec.reg_max), feats)
 
     got = [r.boxes.data for r in res]
     check_finite("TTA predict", got)
@@ -592,6 +719,7 @@ def tiled_path(host, model):
 
     from bsyolo_tpu_torch import kernels
     from bsyolo_tpu_torch.engine.tiled import predict_tiled, tile_grid
+    from bsyolo_tpu_torch.nn.heads import decode_detections
 
     rng = np.random.default_rng(SEED + 1)
     big = {f"{h}x{w}": rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w in ((1080, 1920), (720, 1280))}
@@ -621,6 +749,11 @@ def tiled_path(host, model):
               f"{len(got[label])} detections")
     launches = expect_launches("tiled", {"decode_box_best": 0, "decode_xywh": reps * len(big), "int8_matmul": 0})
     profile_once("tiled, one 1080x1920 frame", lambda: run(model, big["1080x1920"]), frame_ms["1080x1920"])
+    for feats in head_outputs(model, lambda: run(model, big["1080x1920"])):
+        check_decode_stage(f"tiled 1080x1920 (decode_detections), B={feats[0].shape[0]}, levels "
+                           f"{[tuple(f.shape[2:]) for f in feats]}",
+                           lambda f: decode_detections(f, model.spec.head_strides, model.spec.nc, model.spec.reg_max),
+                           feats)
 
     check_finite("tiled", list(got.values()))
     compare_with_cpu("tiled, 2 frames", list(got.values()), [run(host, f) for f in big.values()])
@@ -654,20 +787,11 @@ def path_products(model, dev):
 
 def kernel_us(fn, inputs, reps: int):
     """Mean device us of the kernel events of ``reps`` calls of ``fn(*inputs[i % len(inputs)])``
-    under torch.profiler (a session that saw no kernel at all is run again)."""
-    import torch
+    under torch.profiler (nan where no session saw a kernel)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for i in range(reps):
-                fn(*inputs[i % len(inputs)])
-            torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if events:
-            return sum(e.time_range.end - e.time_range.start for e in events) / len(events)
-    return math.nan
+    events = [e for e in profiled(repeat(fn, inputs, reps)).events() if e.device_type == DeviceType.CUDA]
+    return sum(e.time_range.end - e.time_range.start for e in events) / len(events) if events else math.nan
 
 
 def product_times(fn, inputs, reps: int = 5):
@@ -696,7 +820,6 @@ def time_path_products(dev, shapes):
     ms per forward from torch.profiler, the share of it outside the kernel (must be 0),
     host time per call; the kernel held exactly to the plain version at each product."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from bsyolo_tpu_torch.kernels.int8_matmul import (Int8Weight, int8_matmul_cuda, int8_matmul_prepared,
                                                       int8_matmul_reference, tile_plan)
@@ -728,32 +851,15 @@ def time_path_products(dev, shapes):
                 fn(*args)
         end.record()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                for args in inputs:
-                    fn(*args)
-            torch.cuda.synchronize()
-        kern = device_kernels(prof)
-        return start.elapsed_time(end) / reps, sum(us for _, us, _ in kern) / reps / 1e3, kern, prof
+        kern = device_kernels(profiled(repeat(fn, inputs, reps * len(inputs))))
+        return start.elapsed_time(end) / reps, sum(us for _, us, _ in kern) / reps / 1e3, kern
 
-    def host_us(fn, inputs, reps=5):
-        """The calls' own host time, us per call: the loop's host clock before the card is
-        waited for (the card runs behind the calls here: it needs under a fifth of their time)."""
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            for args in inputs:
-                fn(*args)
-        elapsed = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        return elapsed * 1e6 / (reps * len(inputs))
-
-    call_ms, ms, kern, _ = per_forward(int8_matmul_prepared, prepared, 5)
-    plain_call_ms, plain_ms, _, _ = per_forward(int8_matmul_reference, operands, 2)
-    lib_call_ms, lib_ms, _, _ = per_forward(int8_library, library_ops, 5)
+    call_ms, ms, kern = per_forward(int8_matmul_prepared, prepared, 5)
+    plain_call_ms, plain_ms, _ = per_forward(int8_matmul_reference, operands, 2)
+    lib_call_ms, lib_ms, _ = per_forward(int8_library, library_ops, 5)
     # host time per call in turns (prepared weight, as the conv path calls it; int8_matmul_cuda, which
     # prepares the weight on every call; torch._int_mm + dequantization), twice each
-    turns = [(label, host_us(fn, inputs)) for _ in range(2) for label, fn, inputs in (
+    turns = [(label, host_us(fn, inputs, 5)) for _ in range(2) for label, fn, inputs in (
         ("prepared", int8_matmul_prepared, prepared), ("int8_matmul_cuda", int8_matmul_cuda, operands),
         ("_int_mm", int8_library, library_ops))]
     host = {label: min(us for name, us in turns if name == label) for label, _ in turns}
@@ -822,7 +928,7 @@ def int8_path(dev, host, model, frames):
     import torch
 
     from bsyolo_tpu_torch import kernels
-    from bsyolo_tpu_torch.nn.heads import flatten_levels
+    from bsyolo_tpu_torch.kernels.decode import flatten_levels
     from bsyolo_tpu_torch.nn.modules import quantizable_convs, set_int8_inference
     from bsyolo_tpu_torch.nn.quant import calibrate_int8
     from bsyolo_tpu_torch.ops.letterbox import letterbox
@@ -945,9 +1051,9 @@ def main() -> int:
     tiled_launches = tiled_path(host, model)
     int8_launches, int8_row = int8_path(dev, host, model, frames)
     kernels_line = {"kernels": [
-        kernel_entry("decode_box_best", "bsyolo_tpu_torch/kernels/csrc/decode_box.cu",
+        kernel_entry("decode_box_best", "bsyolo_tpu_torch/kernels/csrc/decode.cu",
                      "bsyolo_tpu/kernels/decode.py:124", predict_launches["decode_box_best"], box_row),
-        kernel_entry("decode_xywh", "bsyolo_tpu_torch/kernels/csrc/decode_xywh.cu",
+        kernel_entry("decode_xywh", "bsyolo_tpu_torch/kernels/csrc/decode.cu",
                      "bsyolo_tpu/kernels/decode.py:34",
                      tta_launches["decode_xywh"] + tiled_launches["decode_xywh"], xywh_row),
         kernel_entry("int8_matmul", "bsyolo_tpu_torch/kernels/csrc/int8_matmul.cu",

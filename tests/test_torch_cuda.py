@@ -7,7 +7,8 @@ machine that has only the port's dependencies:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: boxes within rtol 1e-5, atol 2e-3 px (float32 softmax sums in
-another order, times strides up to 32); best logits equal (a max is exact);
+another order, times strides up to 32); best logits equal (a max is exact)
+and the class-logit output equal (a copy);
 sigmoid scores within rtol 1e-5 (the kernel's expf against torch's exp);
 the int8 matmul exactly equal (int32 sums, the same float32 dequantization);
 an int8 Conv within rtol 1e-5, atol 1e-6 (the same codes; BatchNorm on the
@@ -31,40 +32,68 @@ def cuda_device():
     return torch.device("cuda:0")
 
 
-def _head(rng, b, a, nc):
-    """Port layout (B, no, A), anchors (A, 2), strides (A, 1); image 0 has side 1 far below the others."""
-    head = rng.normal(0, 2, (b, 64 + nc, a)).astype(np.float32)
-    head[0, 16:32] -= 120.0
-    anchors = rng.uniform(0, 80, (a, 2)).astype(np.float32)
-    strides = rng.choice([8.0, 16.0, 32.0], (a, 1)).astype(np.float32)
-    return [torch.from_numpy(t) for t in (head, anchors, strides)]
+def _levels(rng, b, sizes, nc):
+    """Port layout: one (B, 64 + nc, h, w) float32 map per level; image 0 has side 1 far below the others."""
+    levels = [rng.normal(0, 2, (b, 64 + nc, h, w)).astype(np.float32) for h, w in sizes]
+    for f in levels:
+        f[0, 16:32] -= 120.0
+    return [torch.from_numpy(f) for f in levels]
 
 
-@pytest.mark.parametrize("b,a,nc", [(1, 8400, 12), (8, 8400, 12), (2, 700, 80)])
-def test_decode_kernel_matches_plain_version(cuda_device, b, a, nc):
+def _square(side, strides=(8, 16, 32)):
+    return tuple((side // s, side // s) for s in strides), strides
+
+
+# (B, level sizes, strides, nc) of the paths: plain predict at batch 1, 4 and 8 at 640 px, the 544 and 448 TTA
+# passes at batch 4, 6 and 8 tiles of 640, nc = 80 on ragged levels, and a P6 pyramid of 4 levels
+DECODE_SHAPES = {
+    "b1-640": (1, *_square(640), 12),
+    "b4-640": (4, *_square(640), 12),
+    "b8-640": (8, *_square(640), 12),
+    "b4-544": (4, *_square(544), 12),
+    "b4-448": (4, *_square(448), 12),
+    "6tiles-640": (6, *_square(640), 12),
+    "nc80-ragged": (2, ((37, 53), (19, 27), (10, 14)), (8, 16, 32), 80),
+    "p6-640": (2, *_square(640, (8, 16, 32, 64)), 12),
+}
+
+
+@pytest.mark.parametrize("shape", list(DECODE_SHAPES))
+def test_decode_kernel_matches_plain_version(cuda_device, shape):
     from bsyolo_tpu_torch.kernels.decode import box_best_cuda, box_best_reference
 
-    head, anchors, strides = _head(np.random.default_rng(a + nc), b, a, nc)
+    b, sizes, strides, nc = DECODE_SHAPES[shape]
+    levels = _levels(np.random.default_rng(b + nc + len(sizes)), b, sizes, nc)
     before = box_best_cuda.launches
-    boxes, best = box_best_cuda(*(t.to(cuda_device) for t in (head, anchors, strides)), nc)
+    boxes, best, cls = box_best_cuda([f.to(cuda_device) for f in levels], strides, nc)
     torch.cuda.synchronize()
     assert box_best_cuda.launches == before + 1
-    want_boxes, want_best = box_best_reference(head, anchors, strides, nc)
-    assert torch.isfinite(boxes).all()
+    want_boxes, want_best, want_cls = box_best_reference(levels, strides, nc)
+    assert torch.isfinite(boxes).all() and cls.is_contiguous()
     np.testing.assert_allclose(boxes.cpu().numpy(), want_boxes.numpy(), rtol=1e-5, atol=2e-3)
     np.testing.assert_array_equal(best.cpu().numpy(), want_best.numpy())
+    np.testing.assert_array_equal(cls.cpu().numpy(), want_cls.numpy())
+
+
+def _refusals(kernel, cuda_device):
+    """A half, a non-contiguous, a CPU level, and a fifth level."""
+    levels = [f.to(cuda_device) for f in _levels(np.random.default_rng(0), 1, ((8, 8), (4, 4)), 12)]
+    with pytest.raises(TypeError, match="float32"):
+        kernel([levels[0], levels[1].half()], (8, 16), 12)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel([levels[0], levels[1].transpose(2, 3)], (8, 16), 12)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        kernel([levels[0], levels[1].cpu()], (8, 16), 12)
+    with pytest.raises(ValueError, match="1 to 4 levels"):
+        kernel(levels + levels[1:] * 3, (8, 16, 32, 64, 128), 12)
 
 
 def test_decode_kernel_refuses_what_it_does_not_take(cuda_device):
     from bsyolo_tpu_torch.kernels.decode import box_best_cuda
 
-    head, anchors, strides = (t.to(cuda_device) for t in _head(np.random.default_rng(0), 1, 64, 12))
-    with pytest.raises(TypeError, match="float32"):
-        box_best_cuda(head.half(), anchors, strides, 12)
-    with pytest.raises(ValueError, match="contiguous"):
-        box_best_cuda(head.transpose(1, 2), anchors, strides, 12)
-    with pytest.raises(ValueError, match="anchors"):
-        box_best_cuda(head, anchors.cpu(), strides, 12)
+    before = box_best_cuda.launches
+    _refusals(box_best_cuda, cuda_device)
+    assert box_best_cuda.launches == before
 
 
 def test_postprocess_on_the_card_goes_through_the_kernel(cuda_device):
@@ -83,36 +112,95 @@ def test_postprocess_on_the_card_goes_through_the_kernel(cuda_device):
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5, atol=2e-3)
 
 
-# the TTA passes at 640 (A = 8400, 6069, 4116), a batch of 8 tiles, and a ragged nc=80 case
-@pytest.mark.parametrize("b,a,nc", [(4, 8400, 12), (4, 6069, 12), (4, 4116, 12), (8, 8400, 12), (2, 700, 80)])
-def test_decode_xywh_kernel_matches_plain_version(cuda_device, b, a, nc):
+@pytest.mark.parametrize("shape", list(DECODE_SHAPES))
+def test_decode_xywh_kernel_matches_plain_version(cuda_device, shape):
     from bsyolo_tpu_torch.kernels.decode import decode_xywh_cuda, decode_xywh_reference
 
-    head, anchors, strides = _head(np.random.default_rng(a + nc), b, a, nc)
+    b, sizes, strides, nc = DECODE_SHAPES[shape]
+    levels = _levels(np.random.default_rng(b + nc + len(sizes) + 1), b, sizes, nc)
     before = decode_xywh_cuda.launches
-    got = decode_xywh_cuda(*(t.to(cuda_device) for t in (head, anchors, strides)), nc)
+    got = decode_xywh_cuda([f.to(cuda_device) for f in levels], strides, nc)
     torch.cuda.synchronize()
     assert decode_xywh_cuda.launches == before + 1
-    want = decode_xywh_reference(head, anchors, strides, nc).numpy()
+    want = decode_xywh_reference(levels, strides, nc).numpy()
     got = got.cpu().numpy()
-    assert got.shape == (b, a, 4 + nc) and np.isfinite(got).all()
+    assert got.shape == (b, sum(h * w for h, w in sizes), 4 + nc) and np.isfinite(got).all()
     np.testing.assert_allclose(got[..., :4], want[..., :4], rtol=1e-5, atol=2e-3)
     np.testing.assert_allclose(got[..., 4:], want[..., 4:], rtol=1e-5, atol=0)
 
 
 def test_decode_xywh_kernel_refuses_what_it_does_not_take(cuda_device):
-    from bsyolo_tpu_torch.kernels.decode import DECODE_XYWH_MAX_NC, decode_xywh_cuda
+    from bsyolo_tpu_torch.kernels.decode import MAX_NC, decode_xywh_cuda
 
-    head, anchors, strides = (t.to(cuda_device) for t in _head(np.random.default_rng(0), 1, 64, 12))
-    with pytest.raises(TypeError, match="float32"):
-        decode_xywh_cuda(head.half(), anchors, strides, 12)
-    with pytest.raises(ValueError, match="contiguous"):
-        decode_xywh_cuda(head.transpose(1, 2), anchors, strides, 12)
-    with pytest.raises(ValueError, match="anchors"):
-        decode_xywh_cuda(head, anchors.cpu(), strides, 12)
-    wide = torch.zeros((1, 64 + DECODE_XYWH_MAX_NC + 1, 64), device=cuda_device)
+    before = decode_xywh_cuda.launches
+    _refusals(decode_xywh_cuda, cuda_device)
+    wide = torch.zeros((1, 64 + MAX_NC + 1, 4, 4), device=cuda_device)
     with pytest.raises(ValueError, match="classes"):
-        decode_xywh_cuda(wide, anchors, strides, DECODE_XYWH_MAX_NC + 1)
+        decode_xywh_cuda([wide], (8,), MAX_NC + 1)
+    assert decode_xywh_cuda.launches == before
+
+
+def test_decode_kernels_read_unaligned_levels(cuda_device):
+    """Levels that start 4 bytes past a 16-byte boundary (views into a larger buffer)
+    take the 4-byte copies and give the plain version's outputs."""
+    from bsyolo_tpu_torch.kernels.decode import (box_best_cuda, box_best_reference, decode_xywh_cuda,
+                                                 decode_xywh_reference)
+
+    levels = _levels(np.random.default_rng(3), 2, _square(256)[0], 12)
+    shifted = []
+    for f in levels:
+        buf = torch.empty(f.numel() + 1, device=cuda_device)
+        shifted.append(buf[1:].view(f.shape).copy_(f))
+        assert shifted[-1].is_contiguous() and shifted[-1].data_ptr() % 16 == 4
+    boxes, best, cls = box_best_cuda(shifted, (8, 16, 32), 12)
+    want_boxes, want_best, want_cls = box_best_reference(levels, (8, 16, 32), 12)
+    np.testing.assert_allclose(boxes.cpu().numpy(), want_boxes.numpy(), rtol=1e-5, atol=2e-3)
+    np.testing.assert_array_equal(best.cpu().numpy(), want_best.numpy())
+    np.testing.assert_array_equal(cls.cpu().numpy(), want_cls.numpy())
+    got = decode_xywh_cuda(shifted, (8, 16, 32), 12).cpu().numpy()
+    want = decode_xywh_reference(levels, (8, 16, 32), 12).numpy()
+    np.testing.assert_allclose(got[..., :4], want[..., :4], rtol=1e-5, atol=2e-3)
+    np.testing.assert_allclose(got[..., 4:], want[..., 4:], rtol=1e-5, atol=0)
+
+
+def _device_kernels(fn, reps=3):
+    """Names of the device kernels ``reps`` calls of ``fn`` ran, in the order they started,
+    from torch.profiler. A profiler session now and then records no device event at all;
+    such a session is run again, up to three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # first call: library, layout
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+    return [e.name for e in sorted(events, key=lambda e: e.time_range.start)]
+
+
+def test_one_device_kernel_per_decode_call(cuda_device):
+    """decode_detections and the decode stage of detect_postprocess (box_best) each run
+    one device kernel per call, the decode kernel; detect_postprocess runs that kernel
+    first and then exactly the kernels of nms_from_logits on its outputs."""
+    from bsyolo_tpu_torch.kernels.decode import box_best
+    from bsyolo_tpu_torch.kernels.postprocess import detect_postprocess
+    from bsyolo_tpu_torch.nn.heads import decode_detections
+    from bsyolo_tpu_torch.ops.nms import nms_from_logits
+
+    levels = [f.to(cuda_device) for f in _levels(np.random.default_rng(4), 4, _square(640)[0], 12)]
+    for fn in (lambda: decode_detections(levels, (8, 16, 32), 12), lambda: box_best(levels, (8, 16, 32), 12)):
+        names = _device_kernels(fn)
+        assert len(names) == 3 and all("decode_kernel" in n for n in names), names
+    post = _device_kernels(lambda: detect_postprocess(levels, (8, 16, 32), 12, conf_thres=0.001), reps=1)
+    boxes, best, cls = box_best(levels, (8, 16, 32), 12)
+    nms = _device_kernels(lambda: nms_from_logits(boxes, cls, best, conf_thres=0.001), reps=1)
+    assert "decode_kernel" in post[0] and not any("decode_kernel" in n for n in post[1:]), post[:3]
+    assert len(post) == 1 + len(nms)
 
 
 def test_decode_detections_on_the_card_goes_through_the_kernel(cuda_device):
@@ -235,22 +323,13 @@ def test_int8_matmul_resident_weight_equals_streamed(cuda_device, m, k, n):
 def test_int8_matmul_reads_strided_x_in_place(cuda_device):
     """The stem's x (K = 27) in rows 32 bytes apart, and a prepared weight: one device
     kernel per call, the int8 matmul's, and no padding copy."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from bsyolo_tpu_torch.kernels.int8_matmul import Int8Weight, empty_rows, int8_matmul_prepared
 
     x, w, sw, sx = _int8_operands(cuda_device, 4096, 27, 16, 5)
     x = empty_rows(4096, 27, cuda_device).copy_(x)
     weight = Int8Weight(empty_rows(16, 27, cuda_device).copy_(w.t()).t(), sw)
-    int8_matmul_prepared(x, weight, sx)  # first launch: library, descriptor
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            int8_matmul_prepared(x, weight, sx)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    assert len(kernels) == 3 and all("int8_matmul_kernel" in e.name for e in kernels), [e.name for e in kernels]
+    kernels = _device_kernels(lambda: int8_matmul_prepared(x, weight, sx))  # after a first launch: library, descriptor
+    assert len(kernels) == 3 and all("int8_matmul_kernel" in name for name in kernels), kernels
 
 
 def test_int8_matmul_kernel_refuses_what_it_does_not_take(cuda_device):

@@ -82,3 +82,24 @@ def nchw(x):
 
 def nhwc(x):
     return np.ascontiguousarray(np.asarray(x).transpose(0, 2, 3, 1))
+
+
+# head levels of A = 700 anchors, not a multiple of the Pallas decode kernels' 512-anchor tile, none square
+RAGGED_LEVELS = ((20, 25), (10, 14), (6, 10))
+
+
+def head_levels(rng, b, sizes, no, sigma=2.0):
+    """Seeded NHWC head levels (JAX layout), one (b, h, w, no) float32 map per size."""
+    return [rng.normal(0, sigma, (b, h, w, no)).astype(np.float32) for h, w in sizes]
+
+
+def pallas_head(levels, strides):
+    """NHWC levels -> the Pallas decode entries' inputs: the (B, A, no) head, (A, 2)
+    anchors and (A, 1) strides from the JAX ``make_anchors``."""
+    import jax.numpy as jnp
+
+    from bsyolo_tpu.ops.anchors import make_anchors
+
+    flat = np.concatenate([f.reshape(f.shape[0], -1, f.shape[-1]) for f in levels], 1)
+    anchors, stride_t = make_anchors([f.shape[1:3] for f in levels], strides)
+    return jnp.asarray(flat), anchors, stride_t
