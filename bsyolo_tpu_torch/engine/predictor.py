@@ -14,6 +14,7 @@ and the merged passes go through one ``non_max_suppression``.
 
 from __future__ import annotations
 
+import glob
 import math
 import time
 from pathlib import Path
@@ -46,7 +47,8 @@ def _imread(path) -> Optional[np.ndarray]:
 
 
 def iter_source(source) -> Iterator[tuple]:
-    """Yield (uint8 BGR frame, path) from an array, a list, an image file or a directory."""
+    """Yield (BGR frame, path) from an array (uint8, or float32 on the 0-255 scale), a list,
+    an image file, a directory or a glob pattern (``*``, ``**`` recursive), in sorted order."""
     if isinstance(source, np.ndarray):
         yield source, "array"
         return
@@ -63,12 +65,25 @@ def iter_source(source) -> Iterator[tuple]:
                     yield im, str(f)
         return
     s = str(source)
+    if "*" in s:
+        for f in sorted(glob.glob(s, recursive=True)):
+            im = _imread(f)
+            if im is not None:
+                yield im, f
+        return
     if p.suffix.lower() in VID_SUFFIXES or s.endswith(".streams") or s.isnumeric() or "://" in s:
         raise NotImplementedError(f"video and stream sources ({s}) are not ported yet (ROADMAP queue 1, item 17)")
     im = _imread(p)
     if im is None:
         raise FileNotFoundError(f"cannot read source: {source}")
     yield im, s
+
+
+def _stack(lbs) -> torch.Tensor:
+    """One batch of letterboxed frames: uint8 where every frame is uint8, else float32."""
+    if any(t.dtype != torch.uint8 for t in lbs):
+        lbs = [t.float() for t in lbs]
+    return torch.stack(lbs)
 
 
 # TTA passes (scale, left-right flip), as the reference's _predict_augment
@@ -118,7 +133,8 @@ class DetectionPredictor:
 
     @torch.inference_mode()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, 3, S, S) uint8 RGB on the device -> (B, max_det, 6) detections on the device."""
+        """(B, 3, S, S) RGB on the device, uint8 or float32 on the 0-255 scale -> (B, max_det, 6)
+        detections on the device."""
         x = x.float() / 255.0
         if self.augment:
             return self._forward_augment(x)
@@ -161,11 +177,11 @@ class DetectionPredictor:
             frames.append(frame)
             paths.append(path)
             if len(frames) == self.batch:
-                yield frames, paths, torch.stack(lbs), t_pre
+                yield frames, paths, _stack(lbs), t_pre
                 frames, paths, lbs, t_pre = [], [], [], 0.0
         if frames:
             lbs += [lbs[-1]] * (self.batch - len(frames))
-            yield frames, paths, torch.stack(lbs), t_pre
+            yield frames, paths, _stack(lbs), t_pre
 
     def stream(self, source, verbose: bool = False) -> Iterator[Results]:
         for frames, paths, x, t_pre in self._batches(source):

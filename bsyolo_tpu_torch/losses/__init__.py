@@ -1,0 +1,6 @@
+"""Losses and target assignment (counterpart of ``bsyolo_tpu/losses``)."""
+
+from bsyolo_tpu_torch.losses.detect import DetectionLossConfig, LossState, detection_loss, init_loss_state
+from bsyolo_tpu_torch.losses.tal import task_aligned_assign
+
+__all__ = ["task_aligned_assign", "DetectionLossConfig", "LossState", "detection_loss", "init_loss_state"]

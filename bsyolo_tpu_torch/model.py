@@ -30,6 +30,7 @@ from bsyolo_tpu_torch.cfg import model_yaml_path
 from bsyolo_tpu_torch.engine.predictor import DetectionPredictor
 from bsyolo_tpu_torch.nn.model import build_model
 from bsyolo_tpu_torch.nn.parser import load_model_yaml, parse_model_yaml
+from bsyolo_tpu_torch.utils import LOGGER
 from bsyolo_tpu_torch.utils.weights import load_reference_state_dict
 
 _PREDICT_ARGS = {"conf", "iou", "imgsz", "batch", "max_det", "classes", "agnostic_nms", "augment", "verbose"}
@@ -62,8 +63,13 @@ class YOLO:
         self.model = build_model(self.spec, self._device, seed)
 
     def load(self, weights: Union[str, Path]) -> "YOLO":
-        """Load a reference torch state_dict (``.pt``) into the graph, every key matched."""
-        self.model.load_state_dict(load_reference_state_dict(weights), strict=True)
+        """Load a reference torch checkpoint (``.pt``: a state_dict or a pickled module) into
+        the graph. Parameters the file lacks keep their values, with a warning naming how
+        many, and keys the graph lacks are ignored, as in the JAX package."""
+        report = self.model.load_state_dict(load_reference_state_dict(weights), strict=False)
+        n_missing = sum(not k.endswith("num_batches_tracked") for k in report.missing_keys)
+        if n_missing:
+            LOGGER.warning(f"weight import: {n_missing} params not found in {weights}")
         return self
 
     @property
@@ -104,10 +110,14 @@ class YOLO:
         return self.predict(source, stream=stream, **kwargs)
 
     def train(self, **kwargs):
-        raise NotImplementedError("training is not ported yet (ROADMAP queue 1, items 6-8 and 10)")
+        raise NotImplementedError(
+            "YOLO.train is not ported yet: it needs the data pipeline and the trainer (ROADMAP queue 1, items 8 "
+            "and 10); the train step is engine/train_step.py make_train_step")
 
     def val(self, **kwargs):
-        raise NotImplementedError("validation is not ported yet (ROADMAP queue 1, item 9)")
+        raise NotImplementedError(
+            "YOLO.val is not ported yet: it needs the data pipeline and the facade (ROADMAP queue 1, items 8 "
+            "and 10); the validator is engine/validator.py DetectionValidator")
 
     def track(self, *args, **kwargs):
         raise NotImplementedError("tracking is not ported yet (ROADMAP queue 1, item 11)")

@@ -50,6 +50,31 @@ def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
                     p.zero_()
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm whose train mode follows flax ``nn.BatchNorm``, the JAX package's.
+
+    Eval mode is stock. In train mode the batch is normalized by its own mean and
+    biased variance (stock torch does the same), and the running statistics take
+    ``running = 0.97 * running + (1 - 0.97) * batch`` with the batch's *biased*
+    variance, E[x^2] - E[x]^2 clipped at 0, as flax computes it. Stock
+    ``torch.nn.BatchNorm2d`` puts the unbiased variance (times n / (n - 1)) into
+    ``running_var``, which at a 4 x 4 level and batch 2 is 3 % larger per step.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            xf = x.detach().float()
+            mean = xf.mean((0, 2, 3))
+            var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_(min=0)
+            m = 1.0 - BN_MOMENTUM  # flax's momentum, 0.97
+            self.running_mean.mul_(m).add_(mean * (1.0 - m))
+            self.running_var.mul_(m).add_(var * (1.0 - m))
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
 class Conv(nn.Module):
     """Conv2d + BatchNorm + SiLU (reference ``Conv``).
 
@@ -65,7 +90,7 @@ class Conv(nn.Module):
                  act: bool = True):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), dilation=d, groups=g, bias=False)
-        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bn = BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = nn.SiLU() if act else nn.Identity()
         self.int8 = False  # int8 inference mode, set by set_int8_inference
         self.act_absmax: Optional[float] = None  # static activation abs-max from calibration; None: dynamic

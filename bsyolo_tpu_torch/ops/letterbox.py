@@ -45,9 +45,15 @@ def letterbox_params(
 
 
 def letterbox(frame: np.ndarray, new_shape: Tuple[int, int], device, pad_value: int = 114) -> torch.Tensor:
-    """uint8 (h, w, 3) BGR frame -> (3, H, W) uint8 RGB letterboxed tensor on ``device``."""
-    if frame.dtype != np.uint8 or frame.ndim != 3 or frame.shape[2] != 3:
-        raise ValueError(f"expected a uint8 (h, w, 3) BGR frame, got {frame.dtype} {frame.shape}")
+    """(h, w, 3) BGR frame -> (3, H, W) RGB letterboxed tensor on ``device``.
+
+    A uint8 frame gives a uint8 tensor (the resize rounds and clamps). A float32
+    frame, on the same 0-255 scale, gives a float32 tensor, resized without
+    rounding: the JAX predictor letterboxes such frames as they are and divides
+    them by 255 afterwards, as the port's forward does with either dtype.
+    """
+    if frame.dtype not in (np.uint8, np.float32) or frame.ndim != 3 or frame.shape[2] != 3:
+        raise ValueError(f"expected a uint8 or float32 (h, w, 3) BGR frame, got {frame.dtype} {frame.shape}")
     shape = frame.shape[:2]
     _, (dw, dh), new_unpad = letterbox_params(shape, new_shape)
     im = torch.from_numpy(np.ascontiguousarray(frame)).to(device).permute(2, 0, 1)
@@ -55,7 +61,7 @@ def letterbox(frame: np.ndarray, new_shape: Tuple[int, int], device, pad_value: 
         x = F.interpolate(
             im[None].float(), size=(new_unpad[1], new_unpad[0]), mode="bilinear", align_corners=False, antialias=False
         )
-        im = x[0].round_().clamp_(0, 255).to(torch.uint8)
+        im = x[0] if im.dtype == torch.float32 else x[0].round_().clamp_(0, 255).to(torch.uint8)
     top, bottom = int(round(dh - 0.1)), int(round(dh + 0.1))
     left, right = int(round(dw - 0.1)), int(round(dw + 0.1))
     im = F.pad(im, (left, right, top, bottom), value=pad_value)

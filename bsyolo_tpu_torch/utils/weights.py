@@ -11,11 +11,14 @@ fusion weights are bare parameters.
 
 from __future__ import annotations
 
+import pickle
 import re
 from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from bsyolo_tpu_torch.utils import LOGGER
 
 
 def _translate_component(comp: str) -> Tuple[str, ...]:
@@ -94,17 +97,111 @@ def scales_from_jax(scales: Mapping[str, float]) -> Dict[str, float]:
             for key, v in scales.items()}
 
 
+def _from_torch_layout(a: np.ndarray, leaf: str) -> np.ndarray:
+    if leaf != "kernel":
+        return a
+    if a.ndim == 4:
+        return a.transpose(2, 3, 1, 0)
+    if a.ndim == 3:
+        return a.transpose(2, 1, 0)
+    if a.ndim == 2:
+        return a.T
+    return a
+
+
+def _tree_to_port(tree: Mapping, collection: str, device) -> Dict[str, torch.Tensor]:
+    """A JAX tree -> name -> tensor on ``device``, each a copy: the step updates them in place."""
+    return {flax_path_to_torch_key(collection, path): torch.tensor(_to_torch_layout(np.asarray(v), path[-1]),
+                                                                   device=device) for path, v in _flatten(tree)}
+
+
+def _unflatten_like(like: Mapping, fn, path: Tuple[str, ...] = ()):
+    return {k: _unflatten_like(v, fn, path + (k,)) if isinstance(v, Mapping) else fn(path + (k,))
+            for k, v in like.items()}
+
+
+def train_state_from_jax(state, model: torch.nn.Module):
+    """A JAX ``TrainState`` -> the port's, for ``model``: its params and batch_stats are
+    loaded into the model (every key matched), the EMA parameters, optimizer slots
+    and accumulator (None where the JAX state elides them) become tensors on the
+    model's device, the counters Python ints, the loss state tensors."""
+    from bsyolo_tpu_torch.engine.train_step import TrainState, _batch_stat_buffers
+    from bsyolo_tpu_torch.losses.detect import LossState
+
+    plain = lambda t: None if t is None else {k: plain(v) if hasattr(v, "items") else np.asarray(v)
+                                              for k, v in t.items()}
+    model.load_state_dict(state_dict_from_jax({"params": plain(state.params),
+                                               "batch_stats": plain(state.batch_stats)}), strict=True)
+    dev = next(model.parameters()).device
+    tree = lambda t: None if t is None else _tree_to_port(plain(t), "params", dev)
+    return TrainState(
+        step=int(state.step),
+        params=dict(model.named_parameters()),
+        batch_stats=_batch_stat_buffers(model),
+        ema_params=tree(state.ema_params),
+        ema_updates=int(state.ema_updates),
+        slot0=tree(state.slot0),
+        slot1=tree(state.slot1),
+        acc_grads=tree(state.acc_grads),
+        last_opt_step=int(state.last_opt_step),
+        loss_state=LossState(updates=torch.tensor(int(state.loss_state.updates), dtype=torch.int32, device=dev),
+                             iou_mean=torch.tensor(np.asarray(state.loss_state.iou_mean), dtype=torch.float32,
+                                                   device=dev)),
+    )
+
+
+def train_state_to_jax(state, like) -> dict:
+    """The inverse of ``train_state_from_jax``, as numpy: a dict with the JAX
+    ``TrainState``'s fields, each tree shaped as the same field of ``like`` (a JAX
+    state), each leaf the port's tensor in the JAX layout; None where the port
+    state has no slot."""
+
+    def tree(tensors, like_tree, collection="params"):
+        if tensors is None:
+            return None
+
+        def leaf(path):
+            t = tensors[flax_path_to_torch_key(collection, path)]
+            return np.array(_from_torch_layout(t.detach().cpu().numpy(), path[-1]))  # a copy: the step updates in place
+
+        return _unflatten_like(like_tree, leaf)
+
+    return {
+        "step": state.step,
+        "params": tree(state.params, like.params),
+        "batch_stats": tree(state.batch_stats, like.batch_stats, "batch_stats"),
+        "ema_params": tree(state.ema_params, like.params),
+        "ema_updates": state.ema_updates,
+        "slot0": tree(state.slot0, like.params),
+        "slot1": tree(state.slot1, like.params),
+        "acc_grads": tree(state.acc_grads, like.params),
+        "last_opt_step": state.last_opt_step,
+        "loss_state": {"updates": int(state.loss_state.updates), "iou_mean": float(state.loss_state.iou_mean)},
+    }
+
+
 def load_reference_state_dict(path) -> Dict[str, torch.Tensor]:
-    """A ``.pt`` state_dict (or ``{'model'|'ema': state_dict}``), loaded with
-    ``weights_only=True``; ``dfl.*`` (the fixed DFL projection, a pure function
-    here), ``anchors`` and ``strides`` buffers are dropped."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    """A reference ``.pt`` checkpoint's tensors: a state_dict, ``{'model'|'ema': state_dict}``,
+    or, as the reference saves them, ``{'model'|'ema': nn.Module}``. The file is loaded
+    with ``weights_only=True`` first; where that fails (a pickled module) it is
+    unpickled in full, after a warning, as the JAX package does: unpickling runs
+    code from the file, so load only checkpoints from sources you trust.
+    ``dfl.*`` (the fixed DFL projection, a pure function here), ``anchors`` and
+    ``strides`` buffers are dropped."""
+    try:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        LOGGER.warning(f"{path}: weights_only load failed; falling back to full unpickle. "
+                       "Only load checkpoints from sources you trust.")
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(ckpt, Mapping) and not all(isinstance(v, torch.Tensor) for v in ckpt.values()):
         ckpt = ckpt.get("ema") or ckpt.get("model")
+    if isinstance(ckpt, torch.nn.Module):
+        ckpt = ckpt.state_dict()
     if not isinstance(ckpt, Mapping):
-        raise ValueError(f"{path}: expected a state_dict of tensors (optionally under 'model' or 'ema')")
+        raise ValueError(f"{path}: expected a state_dict or a module (optionally under 'model' or 'ema')")
     return {
-        k: v.float() if v.is_floating_point() else v
+        k: v.detach().float() if v.is_floating_point() else v.detach()
         for k, v in ckpt.items()
         if ".dfl." not in f".{k}" and not k.endswith(("anchors", "strides"))
     }

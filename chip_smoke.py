@@ -38,6 +38,26 @@ non-zero without them. Phases, each of which fails the run on its own:
    the device time that is not the kernel (which must be 0: the operands are
    laid out as the conv path lays them out, so the wrapper copies nothing).
 
+7. the train step at the same width (``make_train_step``, SGD, lr0 0.01, nbs
+   64, the default warmup), on seeded synthetic batches in the padded-label
+   contract (uint8 frames with 1 to 4 filled rectangles, one colour per
+   class, 8 label rows): (a) one step at batch 4 from the same weights and
+   batch on the card and on the port's CPU path, the loss items, each
+   tensor's gradient, and the params, EMA, BatchNorm statistics and momentum
+   buffers after the step held against the CPU; (b) 30 steps at batch 16 on
+   the card on a repeated batch, the accumulation count rising from 1 to 2
+   within the run: every ``updated`` flag against the host's rule, every loss
+   finite, the last 5 steps' mean loss below the first 5's; ms per step,
+   img/s, the device busy share over 10 profiled steps and the peak memory;
+   no kernel of the port launched;
+8. the detect validator (``DetectionValidator``) over the EMA parameters of
+   7b and the model's live BatchNorm statistics, on 4 seeded val batches of 8
+   at two canvas shapes (640x640 and 384x640), the last batch ending in
+   padding rows: the box decode kernel launched once per batch and its plain
+   version never, mAP50, mAP50-95, P and R held against the port's validator
+   on the CPU with the same weights and batches, and each batch's detections
+   held against the CPU's; ms per image.
+
 Every launch counter is set to 0 just before a path is driven and read just
 after, so each path shows the kernels it went through.
 
@@ -49,6 +69,8 @@ convolutions in TF32). The last two lines are the kernels JSON and
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import hashlib
 import json
 import math
@@ -1018,6 +1040,362 @@ def int8_path(dev, host, model, frames):
     return launches, row
 
 
+# phases 7 and 8: the train step and the validator
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_CPU_BATCH = 16, 30, 4
+TRAIN_NB = 10  # batches per epoch of the schedule: warmup max(round(3 * 10), 100) = 100 iterations
+TRAIN_NBS = 64  # nbs / batch = 4 at batch 16: the accumulation count is 2 from iteration 17 on
+M_GT = 8  # label rows per image
+# card vs CPU after one train step at batch 4. The step is the same Python on both devices; only the
+# libraries' kernels differ: cuDNN's float32 convolutions and BatchNorm, forward and backward, against
+# the CPU's, each summing in its own order. With draw_weights' head the class logits are saturated (a loss
+# near 1e5) and many gradients are small sums of large terms that cancel: a BatchNorm weight's gradient
+# sums dy * x_hat over up to 102,400 pixels per channel. Measured on an NVIDIA H100 80GB HBM3 at 700 W:
+# gradients per tensor (norm of the difference over the CPU's norm) median 1.5e-4, p99 9.1e-3, max
+# 3.3e-2; the whole gradient 4.9e-3 of its norm; params after the step (max |diff| over the tensor's max
+# |value|) up to 9.8e-4, through the biases' lr of 0.1; BatchNorm statistics 1.1e-6; loss items 1.6e-5.
+# The same card run twice differs by 1.6e-6 (whole gradient); a run with cuDNN's deterministic
+# algorithms is printed beside it, to show how far the card's own float32 algorithms spread. A tensor
+# whose gradient norm is below GRAD_FLOOR of the whole gradient's is held to its difference over the
+# whole gradient's norm: some gradients are analytically 0 (a BatchNorm bias before another BatchNorm)
+# and hold float32 noise on either side.
+# A float64 copy of the graph on the CPU is the referee (the loss itself in float32, as in the JAX package).
+# Measured on the same card: the card's float32 gradient 1.2e-4 of the norm from the float64 one (per tensor
+# at most 6.4e-4), the CPU's 4.9e-3 (per tensor up to 3.4e-2), so the card-vs-CPU gap is the CPU's float32
+# backward. The card is held to TRAIN_GRAD_F64_RTOL of the float64 gradient.
+TRAIN_LOSS_RTOL, TRAIN_BN_RTOL = 1e-4, 1e-4
+TRAIN_GRAD_RTOL, TRAIN_TENSOR_GRAD_RTOL, TRAIN_PARAM_RTOL = 1e-2, 5e-2, 2e-3
+TRAIN_GRAD_F64_RTOL = 2e-3
+GRAD_FLOOR, FLOOR_TOL = 1e-6, 1e-8
+VAL_BATCH, VAL_SHAPES = 8, ((640, 640), (640, 640), (384, 640), (384, 640))
+VAL_PAD_ROWS = 3  # rows that pad the last val batch (im_idx -1)
+VAL_METRIC_ATOL = 0.01  # card vs CPU mAP50, mAP50-95, P, R: the rows differ only where scores nearly tie
+
+
+def synthetic_batch(rng, b: int, hw, nc: int = 12):
+    """A batch in the padded-label contract: uint8 (b, 3, H, W) frames of dark noise with 1 to 4
+    filled rectangles each, one colour per class; cls (b, M_GT), normalized xywh bboxes, mask."""
+    h, w = hw
+    colours = (np.arange(nc)[:, None] * np.array([97, 57, 23]) + np.array([40, 90, 150])) % 200 + 55
+    img = rng.integers(0, 60, (b, 3, h, w), dtype=np.uint8)
+    cls = np.zeros((b, M_GT), np.int64)
+    boxes = np.zeros((b, M_GT, 4), np.float32)
+    mask = np.zeros((b, M_GT), np.float32)
+    for i in range(b):
+        for j in range(int(rng.integers(1, 5))):
+            bw, bh = int(rng.integers(w // 16, w // 3)), int(rng.integers(h // 16, h // 3))
+            x0, y0 = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+            c = int(rng.integers(0, nc))
+            img[i, :, y0 : y0 + bh, x0 : x0 + bw] = colours[c][:, None, None]
+            boxes[i, j] = [(x0 + bw / 2) / w, (y0 + bh / 2) / h, bw / w, bh / h]
+            cls[i, j], mask[i, j] = c, 1.0
+    return {"img": img, "cls": cls, "bboxes": boxes, "mask": mask}
+
+
+def on_device(batch, dev):
+    import torch
+
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def train_config(spec, batch: int):
+    """The smoke's step configuration: SGD, lr0 0.01, nbs 64, default momentum and warmup."""
+    from bsyolo_tpu_torch.engine.optim import OptimConfig, scaled_weight_decay
+    from bsyolo_tpu_torch.engine.train_step import StepConfig
+    from bsyolo_tpu_torch.losses import DetectionLossConfig
+
+    optim = OptimConfig(name="SGD", lr0=0.01, nbs=TRAIN_NBS)
+    accumulate = max(round(TRAIN_NBS / batch), 1)
+    return StepConfig(loss=DetectionLossConfig(nc=spec.nc, strides=spec.head_strides), optim=optim, batch_size=batch,
+                      nb=TRAIN_NB, nw=max(round(optim.warmup_epochs * TRAIN_NB), 100), use_adamw=False,
+                      weight_decay=scaled_weight_decay(optim, batch, accumulate))
+
+
+def loss_gradients(graph, spec, b, dev):
+    """(loss items, name -> gradient on the CPU) of the detection loss at the graph's weights, in
+    train mode; the image is cast to the graph's dtype (a float64 graph's loss still runs in float32)."""
+    from bsyolo_tpu_torch.losses import detection_loss, init_loss_state
+    from bsyolo_tpu_torch.ops.normalize import normalize_image_batch
+
+    graph.train()
+    x = normalize_image_batch(b["img"]).to(next(graph.parameters()).dtype)
+    total, items, _ = detection_loss(graph(x), b["cls"], b["bboxes"], b["mask"], init_loss_state(dev),
+                                     train_config(spec, TRAIN_CPU_BATCH).loss)
+    total.backward()
+    grads = {n: p.grad.detach().cpu() for n, p in graph.named_parameters()}
+    graph.zero_grad(set_to_none=True)
+    return items.detach().cpu(), grads
+
+
+def one_train_step(graph, spec, batch, dev):
+    """The gradients of the loss at the graph's weights, then one train step from the same weights
+    (the BatchNorm statistics restored in between); returns what phase 7a compares, on the CPU."""
+    from bsyolo_tpu_torch.engine.train_step import init_train_state, make_train_step
+
+    cfg = train_config(spec, TRAIN_CPU_BATCH)
+    b = on_device(batch, dev)
+    snapshot = {k: v.clone() for k, v in graph.state_dict().items()}
+    items, grads = loss_gradients(graph, spec, b, dev)
+    graph.load_state_dict(snapshot)
+    state, metrics = make_train_step(graph, cfg)(init_train_state(graph, cfg), b)
+    cpu = lambda d: {k: v.detach().cpu().clone() for k, v in d.items()}
+    graph.eval()
+    return {"items": items, "grads": grads, "params": cpu(state.params), "ema": cpu(state.ema_params),
+            "bn": cpu(state.batch_stats), "momentum": cpu(state.slot0), "loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"]), "updated": metrics["updated"]}
+
+
+def against_float64(label, grads, ref):
+    """The whole gradient's distance from the float64 graph's, over its norm; printed per tensor too."""
+    total = _whole_norm(ref.values())
+    whole = _whole_norm(grads[n].double() - g for n, g in ref.items()) / total
+    big = {n: _rel_norm(grads[n].double(), g) for n, g in ref.items() if g.norm().item() >= GRAD_FLOOR * total}
+    q = np.quantile(list(big.values()), [0.5, 0.99, 1.0])
+    print(f"  {label} vs the float64 graph's gradient: whole {whole:.3g} of its norm; per tensor median {q[0]:.3g}, "
+          f"p99 {q[1]:.3g}, max {q[2]:.3g} ({len(big)} tensors above {GRAD_FLOOR} of the whole norm)")
+    return whole
+
+
+def _rel_max(got, want):
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+def _rel_norm(got, want):
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def _whole_norm(tensors):
+    return math.sqrt(sum(t.double().norm().item() ** 2 for t in tensors))
+
+
+def compare_step(label, got, want, check=True):
+    """One train step's results against another's (see TRAIN_*); returns the names of what failed."""
+    failures = []
+    items_err = ((got["items"] - want["items"]).abs() / want["items"].abs().clamp_min(1e-30)).max().item()
+    print(f"  {label}: loss items (box, cls, dfl) {got['items'].tolist()} vs {want['items'].tolist()}: max rel err "
+          f"{items_err:.3g} (tol {TRAIN_LOSS_RTOL})")
+    if items_err > TRAIN_LOSS_RTOL or got["updated"] != want["updated"]:
+        failures.append("loss items")
+    for what, key, err_fn, tol in (("gradients", "grads", _rel_norm, TRAIN_TENSOR_GRAD_RTOL),
+                                   ("momentum buffers", "momentum", _rel_norm, TRAIN_TENSOR_GRAD_RTOL),
+                                   ("params", "params", _rel_max, TRAIN_PARAM_RTOL),
+                                   ("EMA params", "ema", _rel_max, TRAIN_PARAM_RTOL),
+                                   ("BatchNorm statistics", "bn", _rel_max, TRAIN_BN_RTOL)):
+        total = _whole_norm(want[key].values())
+        whole = _whole_norm(got[key][n] - w for n, w in want[key].items()) / total
+        errs, small = {}, {}
+        for name, w in want[key].items():
+            if key in ("grads", "momentum") and w.norm().item() < GRAD_FLOOR * total:
+                small[name] = (got[key][name] - w).norm().item() / total
+            else:
+                errs[name] = err_fn(got[key][name], w)
+        worst = max(errs, key=errs.get)
+        q = np.quantile(list(errs.values()), [0.5, 0.99])
+        text = (f"  {label}: {what}: whole {whole:.3g} of its norm; {len(errs)} tensors, rel err median {q[0]:.3g}, "
+                f"p99 {q[1]:.3g}, max {errs[worst]:.3g} ({worst}) (tol {tol})")
+        if small:
+            text += (f"; {len(small)} below {GRAD_FLOOR} of the whole norm: max |diff| / whole norm "
+                     f"{max(small.values()):.3g} (tol {FLOOR_TOL})")
+        if key in ("grads", "momentum"):
+            text += f"; whole tol {TRAIN_GRAD_RTOL}"
+        print(text)
+        if (errs[worst] > tol or any(e > FLOOR_TOL for e in small.values())
+                or key in ("grads", "momentum") and whole > TRAIN_GRAD_RTOL):
+            failures.append(what)
+    return failures
+
+
+def train_step_against_cpu(dev, host, model):
+    """Phase 7a: one step at batch 4, card against CPU; beside it, a second card run and one
+    with cuDNN's deterministic algorithms."""
+    import torch
+
+    batch = synthetic_batch(np.random.default_rng(SEED + 10), TRAIN_CPU_BATCH, (IMGSZ, IMGSZ), len(model.names))
+    t0 = time.perf_counter()
+    reference = copy.deepcopy(host.model).double()  # the graph in float64, from the same weights
+    _, ref_grads = loss_gradients(reference, host.spec, on_device(batch, "cpu"), "cpu")
+    del reference
+    ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = one_train_step(host.model, host.spec, batch, "cpu")
+    cpu_s = time.perf_counter() - t0
+    start = {k: v.clone() for k, v in model.model.state_dict().items()}
+    got = one_train_step(model.model, model.spec, batch, dev)
+    model.model.load_state_dict(start)
+    again = one_train_step(model.model, model.spec, batch, dev)
+    model.model.load_state_dict(start)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        deterministic = one_train_step(model.model, model.spec, batch, dev)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    print(f"train step, batch {TRAIN_CPU_BATCH} at {IMGSZ}, card vs CPU (CPU: {cpu_s:.1f} s for the gradients and "
+          f"the step): loss {got['loss']:.6g} vs {want['loss']:.6g}, grad norm {got['grad_norm']:.6g} vs "
+          f"{want['grad_norm']:.6g}, updated {got['updated']} vs {want['updated']}")
+    failures = compare_step("card vs CPU", got, want)
+    compare_step("card vs card, run to run", again, got)
+    compare_step("card, cuDNN's deterministic algorithms vs its default ones", deterministic, got)
+    print(f"  the float64 graph's gradient on the CPU ({ref_s:.1f} s; the loss in float32, as in the JAX package):")
+    if against_float64("card", got["grads"], ref_grads) > TRAIN_GRAD_F64_RTOL:
+        failures.append(f"gradients against the float64 graph's (tol {TRAIN_GRAD_F64_RTOL})")
+    against_float64("CPU", want["grads"], ref_grads)
+    if failures or want["updated"] != 1:
+        raise SystemExit(f"train step on the card differs from the CPU in: {failures}")
+
+
+def expected_updates(n_steps: int, nw: int, nbs_over_batch: float):
+    """The host's rule: the accumulation count ramps from 1 to round(nbs / batch) over the warmup
+    (rounded half to even), and a step updates when that many iterations passed since the last update."""
+    last, flags = -1, []
+    for ni in range(n_steps):
+        acc = max(round(1 + min(ni / nw, 1.0) * (round(nbs_over_batch) - 1)), 1)
+        flags.append(int(ni - last >= acc))
+        last = ni if flags[-1] else last
+    return flags
+
+
+def train_path(dev, model):
+    """Phase 7b: TRAIN_STEPS steps at batch 16 on the card on a repeated batch; returns the state."""
+    import torch
+
+    from bsyolo_tpu_torch import kernels
+    from bsyolo_tpu_torch.engine.train_step import init_train_state, make_train_step
+
+    cfg = train_config(model.spec, TRAIN_BATCH)
+    batch = on_device(synthetic_batch(np.random.default_rng(SEED + 11), TRAIN_BATCH, (IMGSZ, IMGSZ),
+                                      len(model.names)), dev)
+    state = init_train_state(model.model, cfg)
+    step = make_train_step(model.model, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    metrics, timed_ms = [], 0.0
+    timed = range(10, 20)  # 0 to 9 warm up; 20 to 29 run under the profiler
+    walls = []
+
+    def run(steps):
+        nonlocal state
+        for _ in steps:
+            state, m = step(state, batch)
+            metrics.append(m)
+
+    run(range(10))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(timed)
+    torch.cuda.synchronize()
+    timed_ms = (time.perf_counter() - t0) * 1e3 / len(timed)
+
+    def profiled_steps():
+        t1 = time.perf_counter()
+        run(range(20, TRAIN_STEPS))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+
+    kern = device_kernels(profiled(profiled_steps))  # a session the profiler runs again adds steps: all are checked
+    busy_ms = sum(us for _, us, _ in kern) / 1e3
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    expect_launches("train", {name: 0 for name in kernels.KERNELS})
+
+    losses = torch.stack([m["loss"] for m in metrics]).cpu().numpy()  # the one readback of the run
+    updated = [m["updated"] for m in metrics]
+    want = expected_updates(len(metrics), cfg.nw, cfg.optim.nbs / cfg.batch_size)
+    n_prof = TRAIN_STEPS - 20
+    first, last = losses[:5].mean(), losses[-5:].mean()
+    print(f"train {TRAIN_STEPS} steps, batch {TRAIN_BATCH} at {IMGSZ} (SGD lr0 {cfg.optim.lr0}, nbs {cfg.optim.nbs}, "
+          f"warmup {cfg.nw} iterations): updated {''.join(map(str, updated))} (host's rule "
+          f"{''.join(map(str, want))}); loss first 5 mean {first:.4g}, last 5 mean {last:.4g}; "
+          f"losses {np.array2string(losses, precision=4, max_line_width=400)}")
+    print(f"  {timed_ms:.2f} ms per step, {TRAIN_BATCH * 1e3 / timed_ms:.1f} img/s over steps {timed.start} to "
+          f"{timed.stop - 1} (host clock, synchronized); {n_prof} more steps under torch.profiler: "
+          f"{walls[-1] / n_prof:.2f} ms per step wall, {busy_ms / n_prof:.2f} ms of device work per step, device "
+          f"busy {busy_ms / walls[-1]:.3f}; peak memory allocated {peak_gb:.2f} GB")
+    for name, us, n in sorted(kern, key=lambda k: -k[1])[:8]:
+        print(f"  {us / 1e3 / n_prof:8.3f} ms per step  {n // n_prof:5d} x  {name[:100]}")
+    if updated != want:
+        raise SystemExit(f"train steps updated {updated}, the host's rule says {want}")
+    if not np.isfinite(losses).all() or not last < first:
+        raise SystemExit(f"train losses not finite or not falling: first 5 mean {first}, last 5 mean {last}")
+    if want[:2] != [1, 1] or 0 not in want:
+        raise SystemExit("the configuration does not take the accumulation count from 1 to 2 within the run")
+    return state
+
+
+def val_batches():
+    rng = np.random.default_rng(SEED + 12)
+    batches = []
+    for i, hw in enumerate(VAL_SHAPES):
+        b = synthetic_batch(rng, VAL_BATCH, hw)
+        b["im_idx"] = np.arange(i * VAL_BATCH, (i + 1) * VAL_BATCH)
+        batches.append(b)
+    batches[-1]["im_idx"][-VAL_PAD_ROWS:] = -1
+    for k in ("img", "cls", "bboxes", "mask"):  # the padding rows repeat the batch's first rows
+        batches[-1][k][-VAL_PAD_ROWS:] = batches[-1][k][:VAL_PAD_ROWS]
+    return batches
+
+
+@contextlib.contextmanager
+def plain_decode_calls():
+    """A list that gets one entry per call of the box decode's plain version while the block runs."""
+    from bsyolo_tpu_torch.kernels import decode
+
+    calls, plain = [], decode.box_best_reference
+    decode.box_best_reference = lambda *a, **k: calls.append(1) or plain(*a, **k)
+    try:
+        yield calls
+    finally:
+        decode.box_best_reference = plain
+
+
+def val_path(dev, host, model, state):
+    """Phase 8: the validator on the card over the EMA parameters of phase 7b, against the CPU."""
+    import torch
+
+    from bsyolo_tpu_torch import kernels
+    from bsyolo_tpu_torch.engine.validator import DetectionValidator
+
+    batches = val_batches()
+    n_img = sum(int((b["im_idx"] >= 0).sum()) for b in batches)
+    ema = state.ema_params
+    card = DetectionValidator(model.model, model.spec, names=model.names)  # cuda:0 by default
+    if card.device != dev:
+        raise SystemExit(f"DetectionValidator runs on {card.device}, not on {dev}")
+    card(ema, batches[1:3])  # warm-up at both canvas shapes
+    torch.cuda.synchronize()
+
+    with plain_decode_calls() as plain_calls:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = card(ema, batches)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = expect_launches("validation", {"decode_box_best": len(batches), "decode_xywh": 0, "int8_matmul": 0})
+    if plain_calls:
+        raise SystemExit(f"the validator ran the decode's plain version {len(plain_calls)} times on the card")
+    print(f"validation on the card: {len(batches)} batches of {VAL_BATCH} at {sorted(set(VAL_SHAPES))}, {n_img} "
+          f"images (+{VAL_PAD_ROWS} padding rows): {wall * 1e3 / n_img:.2f} ms per image (host clock, batches to "
+          f"metrics), speed['inference'] {got.speed['inference']:.2f} ms per image")
+
+    host.model.load_state_dict({k: v.cpu() for k, v in model.model.state_dict().items()})  # live BN statistics
+    ema_cpu = {k: v.cpu() for k, v in ema.items()}
+    cpu = DetectionValidator(host.model, host.spec, names=host.names, device="cpu")
+    want = cpu(ema_cpu, batches)
+    g, w = got.results_dict, want.results_dict
+    print("  metrics card vs CPU: " + ", ".join(f"{k} {g[k]:.5f} vs {w[k]:.5f}" for k in w)
+          + f" (tol {VAL_METRIC_ATOL} absolute)")
+    if any(abs(g[k] - w[k]) > VAL_METRIC_ATOL for k in w):
+        raise SystemExit("validation metrics on the card differ from the CPU's")
+    got_rows, want_rows = [], []
+    for b in batches:
+        keep = b["im_idx"] >= 0
+        gd = card._forward(ema, b["img"]).cpu().numpy()[keep]
+        wd = cpu._forward(ema_cpu, b["img"]).numpy()[keep]
+        got_rows += [d[d[:, 4] > 0] for d in gd]
+        want_rows += [d[d[:, 4] > 0] for d in wd]
+    check_finite("validation detections", got_rows)
+    compare_with_cpu("validation", got_rows, want_rows)
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, row):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -1034,7 +1412,7 @@ def main() -> int:
         return 1
     from bsyolo_tpu_torch import select_device
 
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False  # every phase, training and validation included
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = select_device(None)
     card = card_line()
@@ -1050,9 +1428,14 @@ def main() -> int:
     tta_launches = tta_path(host, model, frames)
     tiled_launches = tiled_path(host, model)
     int8_launches, int8_row = int8_path(dev, host, model, frames)
+    seeded = {k: v.clone() for k, v in model.model.state_dict().items()}
+    train_step_against_cpu(dev, host, model)
+    model.model.load_state_dict(seeded)  # 7b starts from the seeded weights too
+    state = train_path(dev, model)
+    val_launches = val_path(dev, host, model, state)
     kernels_line = {"kernels": [
-        kernel_entry("decode_box_best", "bsyolo_tpu_torch/kernels/csrc/decode.cu",
-                     "bsyolo_tpu/kernels/decode.py:124", predict_launches["decode_box_best"], box_row),
+        kernel_entry("decode_box_best", "bsyolo_tpu_torch/kernels/csrc/decode.cu", "bsyolo_tpu/kernels/decode.py:124",
+                     predict_launches["decode_box_best"] + val_launches["decode_box_best"], box_row),
         kernel_entry("decode_xywh", "bsyolo_tpu_torch/kernels/csrc/decode.cu",
                      "bsyolo_tpu/kernels/decode.py:34",
                      tta_launches["decode_xywh"] + tiled_launches["decode_xywh"], xywh_row),

@@ -399,3 +399,101 @@ def test_int8_predict_on_the_card_launches_the_int8_kernel(cuda_device):
     kernels.reset_launch_counts()
     model.predict(frames[:2], imgsz=128, conf=0.001, batch=2)
     assert kernels.launch_counts() == {"decode_box_best": 1, "decode_xywh": 0, "int8_matmul": 0}
+
+
+def _tiny_graph(seed, nc=2):
+    """tests/fixtures/tiny.yaml on the CPU, weights from a seeded generator (head scaled so its logits spread)."""
+    from pathlib import Path
+
+    from bsyolo_tpu_torch.nn.model import build_model
+    from bsyolo_tpu_torch.nn.parser import load_model_yaml, parse_model_yaml
+
+    d = load_model_yaml(str(Path(__file__).parent / "fixtures" / "tiny.yaml"))
+    d["nc"] = nc
+    spec = parse_model_yaml(d)
+    model = build_model(spec, "cpu", seed)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if name.endswith("running_var"):
+                t.copy_(torch.empty(t.shape).uniform_(0.5, 1.5, generator=g))
+            elif name.endswith("running_mean"):
+                t.copy_(torch.empty(t.shape).uniform_(-0.1, 0.1, generator=g))
+    return spec, model
+
+
+def _tiny_batch(seed, b, hw, nc=2, m=4):
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    img = rng.integers(0, 60, (b, 3, h, w), dtype=np.uint8)
+    cls, boxes, mask = np.zeros((b, m), np.int64), np.zeros((b, m, 4), np.float32), np.zeros((b, m), np.float32)
+    for i in range(b):
+        for j in range(int(rng.integers(1, m))):
+            bw, bh = int(rng.integers(w // 8, w // 2)), int(rng.integers(h // 8, h // 2))
+            x0, y0 = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+            c = int(rng.integers(0, nc))
+            img[i, :, y0 : y0 + bh, x0 : x0 + bw] = 120 + 100 * c
+            boxes[i, j], cls[i, j], mask[i, j] = [(x0 + bw / 2) / w, (y0 + bh / 2) / h, bw / w, bh / h], c, 1
+    return {"img": img, "cls": cls, "bboxes": boxes, "mask": mask}
+
+
+def test_train_step_on_the_card_equals_the_cpu(cuda_device):
+    """One SGD step of tiny.yaml at 64 px, batch 2, card against CPU from the same weights and
+    batch: loss within rtol 1e-4; params, EMA and BatchNorm statistics within rtol 1e-4 /
+    atol 1e-6; the momentum buffers and the accumulator within rtol 1e-4 / atol 1e-4 of the
+    largest magnitude in the slot (gradient sums, whose small elements cancel); no kernel of
+    the port launched."""
+    from bsyolo_tpu_torch import kernels
+    from bsyolo_tpu_torch.engine.optim import OptimConfig
+    from bsyolo_tpu_torch.engine.train_step import StepConfig, init_train_state, make_train_step
+    from bsyolo_tpu_torch.losses import DetectionLossConfig
+
+    spec, host = _tiny_graph(3)
+    card = _tiny_graph(3)[1].to(cuda_device)
+    cfg = StepConfig(loss=DetectionLossConfig(nc=spec.nc, strides=spec.head_strides),
+                     optim=OptimConfig(name="SGD", lr0=0.01, nbs=4, warmup_bias_lr=0.1), batch_size=2, nb=5, nw=2,
+                     use_adamw=False, weight_decay=5e-4)
+    batch = _tiny_batch(4, 2, (64, 64))
+    out = {}
+    kernels.reset_launch_counts()
+    for label, model, dev in (("cpu", host, "cpu"), ("card", card, cuda_device)):
+        state = init_train_state(model, cfg)
+        state, metrics = make_train_step(model, cfg)(state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        out[label] = (state, metrics)
+    assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
+    (hs, hm), (cs, cm) = out["cpu"], out["card"]
+    assert cm["updated"] == hm["updated"] == 1 and cs.acc_grads is not None and cs.slot1 is None
+    np.testing.assert_allclose(float(cm["loss"]), float(hm["loss"]), rtol=1e-4)
+    for field in ("params", "ema_params", "batch_stats", "slot0", "acc_grads"):
+        tensors = getattr(hs, field)
+        atol = 1e-6 if field in ("params", "ema_params", "batch_stats") else 1e-4 * max(
+            t.abs().max().item() for t in tensors.values())
+        for name, want in tensors.items():
+            got = getattr(cs, field)[name].detach().cpu()
+            np.testing.assert_allclose(got.numpy(), want.detach().numpy(), rtol=1e-4, atol=atol, err_msg=f"{field} {name}")
+
+
+def test_validator_on_the_card_launches_the_box_kernel_once_per_batch(cuda_device):
+    """DetectionValidator on the card: one decode_box launch per batch at two canvas shapes,
+    the plain decode never; the same metrics and confusion matrix as on the CPU."""
+    from bsyolo_tpu_torch import kernels
+    from bsyolo_tpu_torch.engine.validator import DetectionValidator
+    from bsyolo_tpu_torch.kernels import decode
+
+    spec, host = _tiny_graph(5)
+    card = _tiny_graph(5)[1].to(cuda_device)
+    batches = [_tiny_batch(10 + i, 4, hw) for i, hw in enumerate(((64, 64), (64, 64), (64, 32)))]
+    for i, b in enumerate(batches):
+        b["im_idx"] = np.arange(4 * i, 4 * i + 4)
+    batches[-1]["im_idx"][-1] = -1
+    plain, calls = decode.box_best_reference, []
+    decode.box_best_reference = lambda *a, **k: calls.append(1) or plain(*a, **k)
+    try:
+        kernels.reset_launch_counts()
+        got = DetectionValidator(card, spec, device=cuda_device)(None, batches)
+        assert kernels.launch_counts() == {"decode_box_best": 3, "decode_xywh": 0, "int8_matmul": 0} and not calls
+    finally:
+        decode.box_best_reference = plain
+    want = DetectionValidator(host, spec, device="cpu")(None, batches)
+    np.testing.assert_allclose(list(got.results_dict.values()), list(want.results_dict.values()), rtol=1e-6, atol=1e-9)
+    np.testing.assert_array_equal(got.confusion_matrix.matrix, want.confusion_matrix.matrix)

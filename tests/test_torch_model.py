@@ -4,6 +4,7 @@ Parameter counts must be equal; the yolo11n forward on carried weights must
 agree within rtol 1e-4, atol 1e-4 (float32, NCHW vs NHWC sums in other orders).
 """
 
+import logging
 import sys
 from pathlib import Path
 
@@ -71,8 +72,9 @@ def test_state_dict_round_trips_through_jax_converter(yolo11n_pair):
         np.testing.assert_array_equal(np.asarray(got[path]), w)
 
 
-def test_load_reference_state_dict(tmp_path):
-    """YOLO.load reads a .pt state_dict (weights_only), drops dfl/anchors/strides, matches every key."""
+def test_load_reference_state_dict(tmp_path, caplog):
+    """YOLO.load reads a .pt state_dict (weights_only), drops dfl/anchors/strides, matches every key;
+    a parameter the file lacks keeps its value, with a warning, as in the JAX package."""
     from bsyolo_tpu_torch import YOLO
 
     src = YOLO("yolo11n.yaml", device="cpu", seed=5)
@@ -86,5 +88,8 @@ def test_load_reference_state_dict(tmp_path):
         torch.testing.assert_close(dst.model.state_dict()[k], v, rtol=0, atol=0)
     sd.pop("model.0.conv.weight")
     torch.save(sd, tmp_path / "missing.pt")
-    with pytest.raises(RuntimeError, match="model.0.conv.weight"):
+    kept = dst.model.state_dict()["model.0.conv.weight"].clone()
+    with caplog.at_level(logging.WARNING):
         dst.load(tmp_path / "missing.pt")
+    assert [r.getMessage() for r in caplog.records] == [f"weight import: 1 params not found in {tmp_path / 'missing.pt'}"]
+    torch.testing.assert_close(dst.model.state_dict()["model.0.conv.weight"], kept, rtol=0, atol=0)
