@@ -259,3 +259,90 @@ def load_yaml(text: str) -> Any:
 
 def read_yaml(path) -> Any:
     return load_yaml(Path(path).read_text())
+
+
+# --- the training configuration (counterpart of bsyolo_tpu/cfg/__init__.py get_cfg) ---------------
+
+DEFAULT_CFG_PATH = CFG_ROOT / "default.yaml"
+
+CFG_FLOAT_KEYS = {"warmup_epochs", "box", "cls", "dfl", "degrees", "shear", "time", "pose", "kobj", "iou_ratio"}
+CFG_FRACTION_KEYS = {
+    "dropout", "lr0", "lrf", "momentum", "weight_decay", "warmup_momentum", "warmup_bias_lr", "hsv_h", "hsv_s",
+    "hsv_v", "translate", "scale", "perspective", "flipud", "fliplr", "bgr", "mosaic", "mixup", "copy_paste", "conf",
+    "iou", "fraction",
+}
+CFG_INT_KEYS = {
+    "epochs", "patience", "workers", "seed", "close_mosaic", "mask_ratio", "max_det", "vid_stride", "line_width",
+    "nbs", "save_period", "max_gt",
+}
+CFG_BOOL_KEYS = {
+    "save", "exist_ok", "verbose", "deterministic", "single_cls", "rect", "cos_lr", "resume", "amp", "profile",
+    "multi_scale", "nwdloss", "overlap_mask", "val", "save_json", "save_hybrid", "half", "dnn", "plots", "show",
+    "save_frames", "save_txt", "save_conf", "save_crop", "show_labels", "show_conf", "show_boxes", "stream_buffer",
+    "visualize", "augment", "agnostic_nms", "retina_masks", "keras", "optimize", "int8", "dynamic", "simplify", "nms",
+}
+
+
+def _default_cfg() -> dict:
+    d = read_yaml(DEFAULT_CFG_PATH) or {}
+    return {k: None if isinstance(v, str) and v.lower() == "none" else v for k, v in d.items()}
+
+
+DEFAULT_CFG_DICT = _default_cfg()
+
+
+def cfg2dict(cfg) -> dict:
+    from types import SimpleNamespace
+
+    if isinstance(cfg, (str, Path)):
+        return read_yaml(cfg) or {}
+    if isinstance(cfg, SimpleNamespace):
+        return vars(cfg)
+    return dict(cfg)
+
+
+def check_dict_alignment(base: dict, custom: dict) -> None:
+    """Unknown keys raise SyntaxError with did-you-mean suggestions."""
+    import difflib
+
+    msgs = []
+    for k in (k for k in custom if k not in base):
+        matches = difflib.get_close_matches(k, base.keys(), n=3, cutoff=0.5)
+        hint = f" Did you mean {', '.join(repr(m) for m in matches)}?" if matches else ""
+        msgs.append(f"'{k}' is not a valid key.{hint}")
+    if msgs:
+        raise SyntaxError("\n".join(msgs))
+
+
+def _check_types(cfg: dict) -> dict:
+    for k, v in cfg.items():
+        if v is None:
+            continue
+        if k in CFG_FLOAT_KEYS | CFG_FRACTION_KEYS and isinstance(v, (int, float)):
+            cfg[k] = float(v)
+        elif k in CFG_INT_KEYS and isinstance(v, (int, float)) and not isinstance(v, bool):
+            cfg[k] = int(v)
+        elif k in CFG_BOOL_KEYS and not isinstance(v, bool):
+            if isinstance(v, str) and v.lower() in ("true", "false"):
+                cfg[k] = v.lower() == "true"
+            else:
+                raise TypeError(f"'{k}={v}' must be a bool")
+    return cfg
+
+
+def get_cfg(cfg=None, overrides=None):
+    """default.yaml < ``cfg`` < ``overrides`` (a ``cfg=<file>`` override first), type-checked,
+    as a namespace."""
+    from types import SimpleNamespace
+
+    merged = {**DEFAULT_CFG_DICT, **cfg2dict(DEFAULT_CFG_DICT if cfg is None else cfg)}
+    if overrides:
+        overrides = cfg2dict(overrides)
+        if overrides.get("cfg"):
+            merged.update(read_yaml(overrides.pop("cfg")) or {})
+        check_dict_alignment(merged, overrides)
+        merged.update(overrides)
+    for k in ("project", "name"):
+        if merged.get(k) is not None:
+            merged[k] = str(merged[k])
+    return SimpleNamespace(**_check_types(merged))

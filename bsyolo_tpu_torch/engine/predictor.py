@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from bsyolo_tpu_torch.data.imread import imread
 from bsyolo_tpu_torch.engine.results import Results
 from bsyolo_tpu_torch.kernels.postprocess import detect_postprocess
 from bsyolo_tpu_torch.nn.heads import decode_detections
@@ -33,17 +34,6 @@ from bsyolo_tpu_torch.ops.nms import non_max_suppression
 
 IMG_SUFFIXES = {".bmp", ".jpeg", ".jpg", ".png", ".tif", ".tiff", ".webp"}
 VID_SUFFIXES = {".mp4", ".avi", ".mov", ".mkv", ".m4v", ".mpg", ".mpeg", ".wmv", ".webm"}
-
-
-def _imread(path) -> Optional[np.ndarray]:
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError(
-            f"reading the image file {path} needs OpenCV (cv2), which is not installed; "
-            "pass decoded uint8 BGR numpy frames instead"
-        ) from e
-    return cv2.imread(str(path))
 
 
 def iter_source(source) -> Iterator[tuple]:
@@ -60,20 +50,20 @@ def iter_source(source) -> Iterator[tuple]:
     if p.is_dir():
         for f in sorted(p.rglob("*")):
             if f.suffix.lower() in IMG_SUFFIXES:
-                im = _imread(f)
+                im = imread(f)
                 if im is not None:
                     yield im, str(f)
         return
     s = str(source)
     if "*" in s:
         for f in sorted(glob.glob(s, recursive=True)):
-            im = _imread(f)
+            im = imread(f)
             if im is not None:
                 yield im, f
         return
     if p.suffix.lower() in VID_SUFFIXES or s.endswith(".streams") or s.isnumeric() or "://" in s:
         raise NotImplementedError(f"video and stream sources ({s}) are not ported yet (ROADMAP queue 1, item 17)")
-    im = _imread(p)
+    im = imread(p)
     if im is None:
         raise FileNotFoundError(f"cannot read source: {source}")
     yield im, s

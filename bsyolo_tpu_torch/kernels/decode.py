@@ -10,7 +10,9 @@ centre and stride from a table of the levels; on CPU maps they run the plain
 PyTorch version of the same function (``flatten_levels`` + ``make_anchors`` +
 the reference math). The kernel is specialised to 16 DFL bins, so
 ``reg_max != 16`` takes the plain version on either device, as in the JAX
-package.
+package. Levels may be float32, bfloat16 or float16, one type for all; the
+kernel computes and writes float32, and the plain versions cast to float32
+first, as the Pallas kernels do.
 
 - ``box_best``: ``(B, A, 4)`` xyxy pixel boxes, the ``(B, A)`` max class logit
   and the ``(B, A, nc)`` class logits (the kernel writes them contiguous; the
@@ -21,9 +23,9 @@ package.
   scores, for ``nn/heads.decode_detections``. Port of ``bsyolo_tpu/kernels/
   decode.py:34 _decode_kernel`` (entry ``fused_decode_pallas``).
 
-A launch checks the level table once per distinct shape (``_layout``, cached)
-and per call only what can differ between calls of one shape: each level's
-device, dtype and contiguity.
+A launch checks the level table once per distinct shape and element size
+(``_layout``, cached) and per call only what can differ between calls of one
+shape: each level's device, dtype and contiguity.
 """
 
 from __future__ import annotations
@@ -45,27 +47,30 @@ SMEM_LIMIT = 232448  # shared memory one block may use on sm_90 (227 KB)
 H100_SMS = 132
 _BOX, _XYWH = 0, 1  # the kernel's epilogues
 _NAMES = {_BOX: "box_best_cuda", _XYWH: "decode_xywh_cuda"}
+# level element types the kernel takes -> its Dtype code in csrc/decode.cu
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
-def tile_smem(epilogue: int, tile: int, nc: int) -> int:
-    """Shared memory of one block, as csrc/decode.cu lays it out: the tile's 64 + nc
-    channel rows, its staged output rows at an odd pitch, two (4, tile) float arrays."""
+def tile_smem(epilogue: int, tile: int, nc: int, esize: int = 4) -> int:
+    """Shared memory of one block in bytes, as csrc/decode.cu lays it out: the tile's
+    64 + nc channel rows of ``esize``-byte elements, its staged float32 output rows at
+    an odd pitch, two (4, tile) float arrays."""
     width = nc if epilogue == _BOX else 4 + nc
-    return 4 * tile * (4 * REG_MAX + nc + (width | 1)) + 2 * 4 * tile * 4
+    return esize * tile * (4 * REG_MAX + nc) + 4 * tile * (width | 1) + 2 * 4 * tile * 4
 
 
-# the most classes a block of the smallest tile holds (a block takes at least 8 bytes per class and cell)
+# the most classes a block of the smallest tile holds at float32 levels (at least 8 bytes per class and cell)
 MAX_NC = next(nc for nc in range(SMEM_LIMIT // (8 * TILES[-1]), 0, -1)
               if tile_smem(_XYWH, TILES[-1], nc) <= SMEM_LIMIT)
 
 
 @functools.lru_cache(maxsize=1024)
-def tile_anchors(epilogue: int, b: int, hws: Sequence[int], nc: int, sms: int = H100_SMS) -> int:
+def tile_anchors(epilogue: int, b: int, hws: Sequence[int], nc: int, sms: int = H100_SMS, esize: int = 4) -> int:
     """Cells per block for ``b`` images of levels of ``hws`` cells: the largest tile
     that fits on an SM and still gives every SM at least two blocks, else the
     smallest (a grid that small is latency-bound whatever the tile). Tiles above
     32 cells measured slower on the H100 at every path shape (PERF.md, Findings)."""
-    fits = [t for t in TILES if tile_smem(epilogue, t, nc) <= SMEM_LIMIT]
+    fits = [t for t in TILES if tile_smem(epilogue, t, nc, esize) <= SMEM_LIMIT]
     for t in fits:
         if b * sum(-(-hw // t) for hw in hws) >= 2 * sms:
             return t
@@ -97,9 +102,10 @@ class Layout(NamedTuple):
 
 
 @functools.lru_cache(maxsize=256)
-def _layout(epilogue: int, shapes: tuple, strides: tuple, nc: int, sms: int = H100_SMS) -> Layout:
-    """The level table of one shape of the head, checked: 1 to 4 levels of (B, no, H, W)
-    with one B and one no, a stride each, 1 <= nc <= MAX_NC, no >= 64 + nc."""
+def _layout(epilogue: int, shapes: tuple, strides: tuple, nc: int, sms: int = H100_SMS, esize: int = 4) -> Layout:
+    """The level table of one shape of the head with ``esize``-byte elements, checked: 1 to
+    4 levels of (B, no, H, W) with one B and one no, a stride each, 1 <= nc <= MAX_NC,
+    no >= 64 + nc."""
     fn = _NAMES[epilogue]
     if not 1 <= len(shapes) <= MAX_LEVELS:
         raise ValueError(f"{fn} takes 1 to {MAX_LEVELS} levels, got {len(shapes)}")
@@ -113,7 +119,7 @@ def _layout(epilogue: int, shapes: tuple, strides: tuple, nc: int, sms: int = H1
     if no < 4 * REG_MAX + nc:
         raise ValueError(f"head has {no} channels, fewer than 4 * {REG_MAX} + nc = {4 * REG_MAX + nc}")
     hws = tuple(h * w for _, _, h, w in shapes)
-    tile = tile_anchors(epilogue, b, hws, nc, sms)
+    tile = tile_anchors(epilogue, b, hws, nc, sms, esize)
     table = _LevelTable()
     first = tile0 = 0
     for i, ((_, _, _, w), hw, stride) in enumerate(zip(shapes, hws, strides)):
@@ -131,10 +137,10 @@ def _lib():
     global _entry
     if _entry is None:
         lib = load_library("decode")
-        lib.decode_levels_f32.argtypes = (
-            [ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * MAX_LEVELS + [ctypes.c_int] * 3
-            + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
-        lib.decode_levels_f32.restype = ctypes.c_int
+        lib.decode_levels.argtypes = (
+            [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * MAX_LEVELS
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
+        lib.decode_levels.restype = ctypes.c_int
         lib.decode_error_string.argtypes = [ctypes.c_int]
         lib.decode_error_string.restype = ctypes.c_char_p
         _entry = lib
@@ -151,8 +157,9 @@ def _refuse(epilogue: int, feats: Sequence[torch.Tensor], index: int) -> None:
     for f in feats:
         if f.get_device() != index:
             raise ValueError(f"{fn} takes levels on one CUDA device, got {[str(g.device) for g in feats]}")
-        if f.dtype != torch.float32:
-            raise TypeError(f"{fn} takes float32 level maps, got {f.dtype}")
+        if f.dtype not in DTYPES or f.dtype != feats[0].dtype:
+            raise TypeError(f"{fn} takes level maps of one dtype, float32, bfloat16 or float16, got "
+                            f"{[str(g.dtype) for g in feats]}")
         if not f.is_contiguous():
             raise ValueError(f"{fn} takes contiguous (B, no, H, W) levels, got strides {f.stride()}")
 
@@ -163,18 +170,19 @@ def _launch(epilogue: int, feats: Sequence[torch.Tensor], strides: Sequence[int]
     if not feats or feats[0].get_device() < 0:
         raise ValueError(f"{_NAMES[epilogue]} needs levels on a CUDA device, got "
                          f"{[str(f.device) for f in feats]}")
-    index = feats[0].get_device()
+    index, dtype = feats[0].get_device(), feats[0].dtype
     for f in feats:
-        if f.dtype != torch.float32 or f.get_device() != index or not f.is_contiguous():
+        if f.dtype != dtype or f.get_device() != index or not f.is_contiguous() or dtype not in DTYPES:
             _refuse(epilogue, feats, index)
-    lay = _layout(epilogue, tuple(f.shape for f in feats), tuple(strides), nc, _sm_count(index))
-    f = feats[0]  # new_empty: float32 on the levels' device, a cheaper call than torch.empty
-    outs = ((f.new_empty((lay.b, lay.a, 4)), f.new_empty((lay.b, lay.a)), f.new_empty((lay.b, lay.a, nc)))
-            if epilogue == _BOX else (f.new_empty((lay.b, lay.a, 4 + nc)),))
+    lay = _layout(epilogue, tuple(f.shape for f in feats), tuple(strides), nc, _sm_count(index), feats[0].element_size())
+    f, b, a = feats[0], lay.b, lay.a  # new_empty: outputs float32 on the levels' device, a cheaper call than torch.empty
+    outs = ((f.new_empty((b, a, 4), dtype=torch.float32), f.new_empty((b, a), dtype=torch.float32),
+             f.new_empty((b, a, nc), dtype=torch.float32)) if epilogue == _BOX
+            else (f.new_empty((b, a, 4 + nc), dtype=torch.float32),))
     ptrs = [o.data_ptr() for o in outs] + [None] * (3 - len(outs))
     maps = [f.data_ptr() for f in feats] + [None] * (MAX_LEVELS - len(feats))
     lib = _lib()
-    rc = lib.decode_levels_f32(epilogue, lay.address, lay.tile, *maps, lay.b, lay.no, nc, *ptrs, index,
+    rc = lib.decode_levels(epilogue, DTYPES[dtype], lay.address, lay.tile, *maps, lay.b, lay.no, nc, *ptrs, index,
                                torch._C._cuda_getCurrentRawStream(index))  # the current stream, without a Stream object
     if rc != 0:
         raise RuntimeError(f"{_NAMES[epilogue]} launch failed: {lib.decode_error_string(rc).decode()}")
@@ -194,8 +202,8 @@ def _flat_head(feats: Sequence[torch.Tensor], strides: Sequence[int]):
 
 
 def box_best_reference(feats: Sequence[torch.Tensor], strides: Sequence[int], nc: int, reg_max: int = REG_MAX):
-    """Plain PyTorch version: dfl_decode + dist2bbox, the max over the class logits and a
-    (B, A, nc) view of them."""
+    """Plain PyTorch version on the float32 head: dfl_decode + dist2bbox, the max over the
+    class logits and a (B, A, nc) view of them."""
     flat, anchors, stride_t = _flat_head(feats, strides)
     dist = dfl_decode(flat[:, : 4 * reg_max].transpose(1, 2), reg_max)  # (B, A, 4)
     boxes = dist2bbox(dist, anchors[None], xywh=False) * stride_t.reshape(1, -1, 1)
@@ -223,7 +231,8 @@ def box_best(feats: Sequence[torch.Tensor], strides: Sequence[int], nc: int, reg
 
 def decode_xywh_reference(feats: Sequence[torch.Tensor], strides: Sequence[int], nc: int,
                           reg_max: int = REG_MAX) -> torch.Tensor:
-    """Plain PyTorch version: dfl_decode + dist2bbox(xywh=True) * stride + sigmoid of the class logits."""
+    """Plain PyTorch version on the float32 head: dfl_decode + dist2bbox(xywh=True) * stride + sigmoid
+    of the class logits."""
     flat, anchors, stride_t = _flat_head(feats, strides)
     dist = dfl_decode(flat[:, : 4 * reg_max].transpose(1, 2), reg_max)  # (B, A, 4)
     dbox = dist2bbox(dist, anchors[None], xywh=True) * stride_t.reshape(1, -1, 1)

@@ -66,3 +66,25 @@ def letterbox(frame: np.ndarray, new_shape: Tuple[int, int], device, pad_value: 
     left, right = int(round(dw - 0.1)), int(round(dw + 0.1))
     im = F.pad(im, (left, right, top, bottom), value=pad_value)
     return im.flip(0)
+
+
+def letterbox_image(im: np.ndarray, new_shape: Tuple[int, int] = (640, 640), color: Tuple[int, int, int] = (114, 114, 114),
+                    scaleup: bool = True, center: bool = True, stride: int = 32, auto: bool = False):
+    """Host numpy letterbox of the data pipeline (counterpart of ``bsyolo_tpu/ops/letterbox.py
+    letterbox_image``): ``data/cv.py resize`` (INTER_LINEAR), then the reference's round-0.1 pad
+    split filled with ``color``. Returns (image, ratio, (dw, dh))."""
+    from bsyolo_tpu_torch.data.cv import resize
+
+    shape = im.shape[:2]
+    r, (dw, dh), new_unpad = letterbox_params(shape, new_shape, scaleup, center, stride, auto)
+    if shape[::-1] != new_unpad:
+        im = resize(im, new_unpad)
+    top, bottom = int(round(dh - 0.1)) if center else 0, int(round(dh + 0.1))
+    left, right = int(round(dw - 0.1)) if center else 0, int(round(dw + 0.1))
+    pad = ((top, bottom), (left, right)) + ((0, 0),) * (im.ndim - 2)
+    if im.ndim == 3:
+        out = np.empty((im.shape[0] + top + bottom, im.shape[1] + left + right, im.shape[2]), im.dtype)
+        out[:] = np.asarray(color, im.dtype)[: im.shape[2]]
+        out[top : top + im.shape[0], left : left + im.shape[1]] = im
+        return out, r, (dw, dh)
+    return np.pad(im, pad, constant_values=color[0]), r, (dw, dh)

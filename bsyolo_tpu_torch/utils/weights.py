@@ -205,3 +205,67 @@ def load_reference_state_dict(path) -> Dict[str, torch.Tensor]:
         for k, v in ckpt.items()
         if ".dfl." not in f".{k}" and not k.endswith(("anchors", "strides"))
     }
+
+
+_NORMS = (torch.nn.BatchNorm2d, torch.nn.GroupNorm)
+_LEAF_FROM_TORCH = {"weight": "kernel", "running_mean": "mean", "running_var": "var"}
+
+
+def jax_paths(model: torch.nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...]]]:
+    """The inverse of ``flax_path_to_torch_key`` for ``model``'s parameters and BatchNorm
+    statistics: torch key -> (collection, flax path), from the port's own module types, so no
+    JAX state is needed. Consecutive list indices join their list's name (``cv2.1.0`` ->
+    ``cv2_1_0``), ``model.{i}`` is ``m{i}``, DWConv gets its ``dw`` level back, an _SE's
+    ``conv.0`` is the SE level itself, ELA's ``ch_att.2`` is ``ch_conv``; a norm's weight is
+    ``scale``, a conv's or linear's ``kernel``."""
+    mods = dict(model.named_modules())
+    out = {}
+    names = [n for n, _ in model.named_parameters()] + [n for n, _ in model.named_buffers()
+                                                       if n.endswith(("running_mean", "running_var"))]
+    for key in names:
+        comps = key.split(".")
+        leaf, parents = comps[-1], comps[:-1]
+        path, i = [], 0
+        while i < len(parents):
+            prefix = ".".join(parents[:i])
+            c = parents[i]
+            owner = mods[prefix] if prefix or i == 0 else None
+            j = i + 1
+            while j < len(parents) and parents[j].isdigit():
+                j += 1
+            if type(owner).__name__ == "_SE" and c == "conv":
+                i = j  # the SE level's own conv
+                continue
+            if c == "ch_att" and parents[i + 1 : i + 2] == ["2"]:
+                path.append("ch_conv")
+                i += 2
+                continue
+            if i == 0 and c == "model":
+                path.append("m" + parents[1])
+            else:
+                path.append("_".join(parents[i:j]))
+            if type(mods[".".join(parents[:j])]).__name__ == "DWConv":
+                path.append("dw")
+            i = j
+        module = mods[".".join(parents)]
+        collection = "batch_stats" if leaf in ("running_mean", "running_var") else "params"
+        if isinstance(module, _NORMS) and leaf == "weight":
+            name = "scale"
+        elif isinstance(module, (torch.nn.Conv1d, torch.nn.Conv2d, torch.nn.Linear)) or leaf != "weight":
+            name = _LEAF_FROM_TORCH.get(leaf, leaf)
+        else:
+            name = leaf
+        out[key] = (collection, tuple(path) + (name,))
+    return out
+
+
+def jax_tree(tensors: Mapping[str, torch.Tensor], paths: Mapping[str, Tuple[str, Tuple[str, ...]]]) -> dict:
+    """name -> tensor (the port's layout) -> the nested flax tree of numpy arrays in the JAX layout."""
+    tree: dict = {}
+    for key, t in tensors.items():
+        _, path = paths[key]
+        node = tree
+        for c in path[:-1]:
+            node = node.setdefault(c, {})
+        node[path[-1]] = np.array(_from_torch_layout(t.detach().cpu().numpy(), path[-1]))
+    return tree

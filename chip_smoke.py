@@ -12,7 +12,10 @@ non-zero without them. Phases, each of which fails the run on its own:
    its paths give it and at ragged ones, with its time, the plain version's
    time, the least time the card could take (bytes or operations over the
    card's published peak) and, for the decode kernels, the host time per call
-   in turns with the plain version;
+   in turns with the plain version; both decode kernels also on bfloat16 and
+   float16 levels (the predict shape, B 4 at 640 px, and a P6 pyramid whose
+   5 x 5 level has odd H * W) against the plain version on the same levels,
+   timed at the predict shape beside their 2-byte bound;
 3. the predict path at full yolo11n width (nc 12, imgsz 640), seeded random
    weights, 8 seeded synthetic frames (480x640 and 720x1280), batch 1 and
    batch 4, conf 0.001: the box-best decode kernel launched once per batch,
@@ -57,6 +60,20 @@ non-zero without them. Phases, each of which fails the run on its own:
    version never, mAP50, mAP50-95, P and R held against the port's validator
    on the CPU with the same weights and batches, and each batch's detections
    held against the CPU's; ms per image.
+9. the trainer and the facade at full width: a seeded synthetic PNG dataset
+   (64 train and 16 val 480x640 frames, 1 to 4 filled rectangles each, one
+   colour per class, the 12 car.yaml classes) written to a temporary
+   directory; ``YOLO("yolo11n.yaml").train(epochs=2, close_mosaic=1, imgsz
+   640, batch 16, amp=False, plots=False, workers=4, seed=3)`` (mosaic in
+   epoch 0, none in epoch 1), then ``train(resume=True, epochs=3)`` (epoch 2
+   only), then ``YOLO(best.ckpt).val(batch=16)`` and ``.predict`` of phase
+   3's frames: the box decode kernel launched once per validation batch and
+   per predict batch and its plain version never; the first batch the card
+   trainer's step received equal, byte for byte, to the CPU loader's at the
+   same seed and epoch; finite loss items; ``last.ckpt`` reloading into the
+   trainer's parameters exactly; ms per step, img/s and the loader-wait share
+   per epoch, and over the epochs after each run's first (whose spawned
+   workers start up); peak memory, validation ms per image.
 
 Every launch counter is set to 0 just before a path is driven and read just
 after, so each path shows the kernels it went through.
@@ -372,6 +389,56 @@ def check_decode_xywh_kernel(dev):
                                                            [(levels, strides, nc)])
     # the kernels line reports the TTA path's unscaled pass, B=4 at 640 px
     return dict(max_abs_err=worst, **rows["B4 640"])
+
+
+# (label, B, level sizes, strides) of the 2-byte checks: the predict shape, and a P6 pyramid whose 5 x 5 level has
+# odd H * W (its 2-byte rows start off 4-byte boundaries, so the kernel takes its plain loads there)
+HALF_SHAPES = (("B4 640", 4, *square_levels(IMGSZ)), ("B2 P6 odd", 2, ((40, 40), (20, 20), (10, 10), (5, 5)),
+                                                       (8, 16, 32, 64)))
+
+
+def check_decode_2_byte_levels(dev):
+    """Both decode kernels on bfloat16 and float16 levels against their plain versions (which cast to
+    float32 first) on the same levels, timed at the predict shape; returns {kernel: {dtype: row}}."""
+    import torch
+
+    from bsyolo_tpu_torch.kernels.decode import (REG_MAX, box_best_cuda, box_best_reference, decode_xywh_cuda,
+                                                 decode_xywh_reference)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    nc, rows = 12, {"decode_box_best": {}, "decode_xywh": {}}
+    for dtype in (torch.bfloat16, torch.float16):
+        name = str(dtype).split(".")[1]
+        for label, b, sizes, strides in HALF_SHAPES:
+            levels = [f.to(dtype) for f in seeded_levels(g, dev, b, sizes, nc)]
+            a = sum(h * w for h, w in sizes)
+            boxes, best, cls = box_best_cuda(levels, strides, nc)
+            wb, wbest, wcls = box_best_reference(levels, strides, nc)
+            xywh, want = decode_xywh_cuda(levels, strides, nc), decode_xywh_reference(levels, strides, nc)
+            torch.cuda.synchronize()
+            box_err = max((boxes - wb).abs().max().item(), (xywh[..., :4] - want[..., :4]).abs().max().item())
+            score_rel = ((xywh[..., 4:] - want[..., 4:]).abs() / want[..., 4:].abs()).max().item()
+            ok = (box_err <= BOX_ATOL_PX and torch.equal(best, wbest) and torch.equal(cls, wcls)
+                  and score_rel <= SCORE_RTOL and bool(torch.isfinite(boxes).all() and torch.isfinite(xywh).all())
+                  and boxes.dtype == xywh.dtype == torch.float32)
+            print(f"decode kernels on {name} levels, {label}: B={b} A={a} nc={nc}: max|box err| {box_err:.3g} px "
+                  f"(tol {BOX_ATOL_PX}), best and class logits equal {torch.equal(best, wbest) and torch.equal(cls, wcls)},"
+                  f" max score rel err {score_rel:.3g} (tol {SCORE_RTOL}); {'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"a decode kernel disagrees with its plain version on {name} levels at {label}")
+            if label != HALF_SHAPES[0][0]:
+                continue
+            head_bytes = b * a * (4 * REG_MAX + nc) * 2
+            for kernel, plain, out_floats, ops in (
+                    (box_best_cuda, box_best_reference, 5 + nc, 4 * (6 * REG_MAX + 1) + nc + 8),
+                    (decode_xywh_cuda, decode_xywh_reference, 4 + nc, 4 * (6 * REG_MAX + 1) + 10 + 4 * nc)):
+                key = "decode_box_best" if kernel is box_best_cuda else "decode_xywh"
+                print(f"  {key} on {name} levels, {label}:")
+                row = time_against_plain(f"{label} {name}", kernel, plain, (levels, strides, nc),
+                                         head_bytes + b * a * out_floats * 4, b * a * ops)
+                rows[key][name] = {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "call_ms")}
+                rows[key][name]["max_abs_err"] = box_err
+    return rows
 
 
 def head_outputs(model, run):
@@ -1396,12 +1463,152 @@ def val_path(dev, host, model, state):
     return launches
 
 
+# phase 9: the trainer and the facade
+P9_TRAIN, P9_VAL, P9_HW = 64, 16, (480, 640)
+P9_BATCH, P9_WORKERS = 16, 4
+
+
+def write_png_dataset(root, names, seed: int):
+    """P9_TRAIN + P9_VAL seeded 480x640 PNG frames in the images/ and labels/ layout, 1 to 4 filled
+    rectangles each, one colour per class; returns the dataset YAML's path."""
+    from bsyolo_tpu_torch.data.imread import imwrite_png
+
+    rng = np.random.default_rng(seed)
+    colours = rng.integers(40, 256, (len(names), 3))
+    h, w = P9_HW
+    for split, n in (("train", P9_TRAIN), ("val", P9_VAL)):
+        (root / "images" / split).mkdir(parents=True)
+        (root / "labels" / split).mkdir(parents=True)
+        for i in range(n):
+            img = rng.integers(0, 40, (h, w, 3), dtype=np.uint8)
+            rows = []
+            for _ in range(int(rng.integers(1, 5))):
+                bw, bh = int(rng.integers(w // 12, w // 3)), int(rng.integers(h // 12, h // 3))
+                x0, y0, c = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh)), int(rng.integers(0, len(names)))
+                img[y0 : y0 + bh, x0 : x0 + bw] = colours[c]
+                rows.append(f"{c} {(x0 + bw / 2) / w:.6f} {(y0 + bh / 2) / h:.6f} {bw / w:.6f} {bh / h:.6f}")
+            imwrite_png(root / "images" / split / f"{i:04d}.png", img)
+            (root / "labels" / split / f"{i:04d}.txt").write_text("\n".join(rows) + "\n")
+    yaml = root / "data.yaml"
+    yaml.write_text(f"path: {root}\ntrain: images/train\nval: images/val\nnames:\n"
+                    + "".join(f"  {i}: {n}\n" for i, n in enumerate(names)))
+    return yaml
+
+
+def trainer_path(dev, frames):
+    """Phase 9: YOLO.train (2 epochs, then a resume to 3), YOLO(best.ckpt).val and .predict on the card."""
+    import csv
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from bsyolo_tpu_torch import YOLO, kernels
+    from bsyolo_tpu_torch.cfg import CFG_ROOT, read_yaml
+    from bsyolo_tpu_torch.data import DataLoader, YOLODataset
+    from bsyolo_tpu_torch.utils.ckpt import load_checkpoint
+    from bsyolo_tpu_torch.utils.weights import state_dict_from_jax
+
+    names = [str(read_yaml(CFG_ROOT / "datasets" / "car.yaml")["names"][i]) for i in range(12)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p9_") as tmp:
+        t0 = time.perf_counter()
+        data = write_png_dataset(Path(tmp) / "ds", names, SEED + 20)
+        print(f"phase 9 dataset: {P9_TRAIN} train + {P9_VAL} val PNG frames {P9_HW[0]}x{P9_HW[1]}, {len(names)} "
+              f"car.yaml classes, written in {time.perf_counter() - t0:.2f} s")
+        run = dict(data=str(data), imgsz=IMGSZ, batch=P9_BATCH, amp=False, plots=False, workers=P9_WORKERS, seed=3,
+                   project=str(Path(tmp) / "runs"), name="p9", exist_ok=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with plain_decode_calls() as plain_calls:
+            kernels.reset_launch_counts()
+            model = YOLO("yolo11n.yaml")
+            if model.device != dev:
+                raise SystemExit(f"YOLO() built its graph on {model.device}, not on {dev}")
+            t1 = time.perf_counter()
+            model.train(epochs=2, close_mosaic=1, **run)
+            first = model.trainer
+            t2 = time.perf_counter()
+            resumed = YOLO("yolo11n.yaml")
+            resumed.train(epochs=3, close_mosaic=1, resume=True, **run)
+            second = resumed.trainer
+            t3 = time.perf_counter()
+            train_launches = kernels.launch_counts()["decode_box_best"]
+            best = Path(tmp) / "runs" / "p9" / "weights" / "best.ckpt"
+            loaded = YOLO(best)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            metrics = loaded.val(data=str(data), batch=P9_BATCH)
+            torch.cuda.synchronize()
+            val_s = time.perf_counter() - t4
+            val_launches = kernels.launch_counts()["decode_box_best"] - train_launches
+            results = loaded.predict(frames, imgsz=IMGSZ, batch=4, conf=CONF)
+            torch.cuda.synchronize()
+            n_val_batches = -(-P9_VAL // P9_BATCH)
+            expected = {"decode_box_best": 3 * n_val_batches + n_val_batches + -(-len(frames) // 4),
+                        "decode_xywh": 0, "int8_matmul": 0}
+            launches = expect_launches("the trainer and the facade", expected)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        if plain_calls:
+            raise SystemExit(f"phase 9 ran the decode's plain version {len(plain_calls)} times on the card")
+        if first.start_epoch != 0 or second.start_epoch != 2 or second.state.step != 3 * first.nb:
+            raise SystemExit(f"the resume started at epoch {second.start_epoch}, step {second.state.step}")
+        # the first epoch of each run waits for its spawned worker pool to start (and epoch 0 for cuDNN's
+        # autotuning): the per-step figure reads only the later epochs, with warm workers
+        epochs = first.loader_wait + second.loader_wait
+        cold = {0, len(first.loader_wait)}
+        for e, (wait, wall, n) in enumerate(epochs):
+            print(f"  epoch {e}: {n} steps in {wall:.2f} s, {wall * 1e3 / n:.1f} ms per step, "
+                  f"{P9_BATCH * n / wall:.1f} img/s, loader-wait share {wait / wall:.3f} (host clock)"
+                  + (", first epoch of its run: the pool starts" if e in cold else ""))
+        warm = [e for e in range(len(epochs)) if e not in cold]
+        steps = sum(epochs[e][2] for e in warm)
+        ms = sum(epochs[e][1] for e in warm) * 1e3 / steps
+        print(f"phase 9 train: {ms:.1f} ms per step, {P9_BATCH * 1e3 / ms:.1f} img/s over the {steps} steps of epochs "
+              f"{warm}, the epochs with warm workers (host clock, loader in the loop, {P9_WORKERS} workers); "
+              f"loader-wait share {sum(epochs[e][0] for e in warm) / sum(epochs[e][1] for e in warm):.3f}; peak memory "
+              f"allocated {peak_gb:.2f} GB; run 1 {t2 - t1:.1f} s, run 2 (resume) {t3 - t2:.1f} s")
+        print(f"phase 9 val: {val_s * 1e3 / P9_VAL:.2f} ms per image over {P9_VAL} images (host clock, loader to "
+              f"metrics); {', '.join(f'{k} {v:.4f}' for k, v in metrics.results_dict.items())}")
+        print(f"phase 9 decode_box launches {launches['decode_box_best']} (expected {expected['decode_box_best']}: "
+              f"{n_val_batches} per validation of 3 epochs, {n_val_batches} in val, {-(-len(frames) // 4)} predict "
+              f"batches), val {val_launches}, plain-version calls {len(plain_calls)}; predict "
+              f"{sum(len(r) for r in results)} detections over {len(results)} frames")
+
+        with open(Path(tmp) / "runs" / "p9" / "results.csv") as f:
+            rows = list(csv.DictReader(f))
+        losses = [float(r[k]) for r in rows for k in ("box_loss", "cls_loss", "dfl_loss", "loss")]
+        print(f"results.csv: {len(rows)} rows, columns {list(rows[0])}")
+        if len(rows) != 3 or not np.isfinite(losses).all():
+            raise SystemExit(f"results.csv has {len(rows)} rows or loss items that are not finite: {losses}")
+
+        payload, meta = load_checkpoint(Path(tmp) / "runs" / "p9" / "weights" / "last.ckpt")
+        saved = state_dict_from_jax({"params": payload["params"], "batch_stats": payload["batch_stats"]})
+        diff = max((saved[k] - v.detach().cpu()).abs().max().item() for k, v in second.state.params.items())
+        print(f"last.ckpt (epoch {meta['epoch']}) reloads into the trainer's params: max abs difference {diff}")
+        if diff != 0 or meta["epoch"] != 2:
+            raise SystemExit("last.ckpt does not hold the trainer's final parameters")
+
+        ds = YOLODataset(str(Path(tmp) / "ds" / "images" / "train"), imgsz=IMGSZ, augment=True, hyp=vars(first.args), max_gt=first.args.max_gt)
+        cpu_loader = DataLoader(ds, P9_BATCH, shuffle=True, seed=3, workers=0)
+        cpu_loader.set_epoch(0)
+        want = next(iter(cpu_loader))
+        got = {k: v.cpu() for k, v in first.first_batch.items()}  # as the train step received it on the card
+        same = set(got) == set(want) and torch.equal(got["img"], torch.from_numpy(want["img"]).permute(0, 3, 1, 2))
+        same = same and all(np.array_equal(got[k].numpy(), want[k]) for k in want if k != "img")
+        print(f"first batch the card's train step received equals the CPU loader's batch (seed 3, epoch 0), byte "
+              f"for byte: {same}")
+        if not same:
+            raise SystemExit("the card trainer's first batch differs from the CPU loader's")
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, row):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
             "shape": row["shape"], "call_ms": row["call_ms"], "plain_call_ms": row["plain_call_ms"],
-            **({"host_us_per_call": row["host_us_per_call"]} if "host_us_per_call" in row else {})}
+            **({"host_us_per_call": row["host_us_per_call"]} if "host_us_per_call" in row else {}),
+            **({"two_byte_levels": row["two_byte_levels"]} if "two_byte_levels" in row else {})}
 
 
 def main() -> int:
@@ -1422,6 +1629,9 @@ def main() -> int:
     build_kernels()
     box_row = check_decode_kernel(dev)
     xywh_row = check_decode_xywh_kernel(dev)
+    half_rows = check_decode_2_byte_levels(dev)
+    box_row["two_byte_levels"] = half_rows["decode_box_best"]
+    xywh_row["two_byte_levels"] = half_rows["decode_xywh"]
     int8_err = check_int8_kernel(dev)
     host, model, frames = make_models(dev)
     predict_launches = predict_path(dev, host, model, frames)
@@ -1433,9 +1643,12 @@ def main() -> int:
     model.model.load_state_dict(seeded)  # 7b starts from the seeded weights too
     state = train_path(dev, model)
     val_launches = val_path(dev, host, model, state)
+    del state
+    trainer_launches = trainer_path(dev, frames)
     kernels_line = {"kernels": [
         kernel_entry("decode_box_best", "bsyolo_tpu_torch/kernels/csrc/decode.cu", "bsyolo_tpu/kernels/decode.py:124",
-                     predict_launches["decode_box_best"] + val_launches["decode_box_best"], box_row),
+                     predict_launches["decode_box_best"] + val_launches["decode_box_best"]
+                     + trainer_launches["decode_box_best"], box_row),
         kernel_entry("decode_xywh", "bsyolo_tpu_torch/kernels/csrc/decode.cu",
                      "bsyolo_tpu/kernels/decode.py:34",
                      tta_launches["decode_xywh"] + tiled_launches["decode_xywh"], xywh_row),

@@ -497,3 +497,126 @@ def test_validator_on_the_card_launches_the_box_kernel_once_per_batch(cuda_devic
     want = DetectionValidator(host, spec, device="cpu")(None, batches)
     np.testing.assert_allclose(list(got.results_dict.values()), list(want.results_dict.values()), rtol=1e-6, atol=1e-9)
     np.testing.assert_array_equal(got.confusion_matrix.matrix, want.confusion_matrix.matrix)
+
+
+# (B, level sizes, strides, nc) for 2-byte levels: the predict shape; a P6 pyramid whose 5 x 5 level has odd
+# H * W (plain loads); 6 x 6 and 2 x 2 levels of even H * W not a multiple of 8 (2-byte pairs)
+HALF_SHAPES = {
+    "b4-640": (4, *_square(640), 12),
+    "p6-odd": (2, ((40, 40), (20, 20), (10, 10), (5, 5)), (8, 16, 32, 64), 12),
+    "pairs": (2, ((12, 12), (6, 6), (2, 2)), (8, 16, 32), 80),
+}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("shape", list(HALF_SHAPES))
+def test_decode_kernels_take_2_byte_levels(cuda_device, shape, dtype):
+    """bfloat16 and float16 levels: both kernels against their plain versions on the same levels
+    (the plain versions cast to float32 first), at the f32 tolerances; float32 outputs."""
+    from bsyolo_tpu_torch.kernels.decode import (box_best_cuda, box_best_reference, decode_xywh_cuda,
+                                                 decode_xywh_reference)
+
+    b, sizes, strides, nc = HALF_SHAPES[shape]
+    levels = [f.to(getattr(torch, dtype)) for f in _levels(np.random.default_rng(b + nc), b, sizes, nc)]
+    on_card = [f.to(cuda_device) for f in levels]
+    boxes, best, cls = box_best_cuda(on_card, strides, nc)
+    want_boxes, want_best, want_cls = box_best_reference(levels, strides, nc)
+    assert boxes.dtype == best.dtype == cls.dtype == torch.float32
+    np.testing.assert_allclose(boxes.cpu().numpy(), want_boxes.numpy(), rtol=1e-5, atol=2e-3)
+    np.testing.assert_array_equal(best.cpu().numpy(), want_best.numpy())
+    np.testing.assert_array_equal(cls.cpu().numpy(), want_cls.numpy())
+    got = decode_xywh_cuda(on_card, strides, nc).cpu().numpy()
+    want = decode_xywh_reference(levels, strides, nc).numpy()
+    np.testing.assert_allclose(got[..., :4], want[..., :4], rtol=1e-5, atol=2e-3)
+    np.testing.assert_allclose(got[..., 4:], want[..., 4:], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_decode_kernels_read_misaligned_2_byte_levels(cuda_device, dtype):
+    """2-byte levels that start 2 bytes past a 16-byte boundary: the 16-byte and 4-byte copies
+    are both out of reach, so every level takes the plain loads."""
+    from bsyolo_tpu_torch.kernels.decode import (box_best_cuda, box_best_reference, decode_xywh_cuda,
+                                                 decode_xywh_reference)
+
+    levels = [f.to(getattr(torch, dtype)) for f in _levels(np.random.default_rng(4), 2, _square(256)[0], 12)]
+    shifted = []
+    for f in levels:
+        buf = torch.empty(f.numel() + 1, dtype=f.dtype, device=cuda_device)
+        shifted.append(buf[1:].view(f.shape).copy_(f))
+        assert shifted[-1].data_ptr() % 16 == 2
+    boxes, best, cls = box_best_cuda(shifted, (8, 16, 32), 12)
+    want_boxes, want_best, want_cls = box_best_reference(levels, (8, 16, 32), 12)
+    np.testing.assert_allclose(boxes.cpu().numpy(), want_boxes.numpy(), rtol=1e-5, atol=2e-3)
+    np.testing.assert_array_equal(best.cpu().numpy(), want_best.numpy())
+    np.testing.assert_array_equal(cls.cpu().numpy(), want_cls.numpy())
+    got = decode_xywh_cuda(shifted, (8, 16, 32), 12).cpu().numpy()
+    want = decode_xywh_reference(levels, (8, 16, 32), 12).numpy()
+    np.testing.assert_allclose(got[..., :4], want[..., :4], rtol=1e-5, atol=2e-3)
+    np.testing.assert_allclose(got[..., 4:], want[..., 4:], rtol=1e-5, atol=0)
+
+
+def _png_dataset(root, n_train=16, n_val=6, size=64, seed=0):
+    """A seeded 2-class PNG dataset (filled rectangles) in the images/ and labels/ layout."""
+    from bsyolo_tpu_torch.data.imread import imwrite_png
+
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("val", n_val)):
+        (root / "images" / split).mkdir(parents=True)
+        (root / "labels" / split).mkdir(parents=True)
+        for i in range(n):
+            img = rng.integers(0, 60, (size, size, 3), dtype=np.uint8)
+            rows = []
+            for _ in range(int(rng.integers(1, 3))):
+                w = int(rng.integers(12, 28))
+                x0, y0, c = int(rng.integers(0, size - w)), int(rng.integers(0, size - w)), int(rng.integers(0, 2))
+                img[y0 : y0 + w, x0 : x0 + w] = (220, 60, 60) if c == 0 else (60, 220, 60)
+                rows.append(f"{c} {(x0 + w / 2) / size} {(y0 + w / 2) / size} {w / size} {w / size}")
+            imwrite_png(root / "images" / split / f"{i:03d}.png", img)
+            (root / "labels" / split / f"{i:03d}.txt").write_text("\n".join(rows) + "\n")
+    (root / "data.yaml").write_text(f"path: {root}\ntrain: images/train\nval: images/val\nnames:\n  0: a\n  1: b\n")
+    return root / "data.yaml"
+
+
+def test_yolo_train_one_epoch_on_the_card(cuda_device, tmp_path):
+    """YOLO.train on tiny.yaml at 64 px for one epoch on the card: finite losses, a results.csv row,
+    best.ckpt and last.ckpt written; the validation launched decode_box once per val batch and the
+    plain decode never; the trained weights stay on the card."""
+    from pathlib import Path
+
+    from bsyolo_tpu_torch import YOLO, kernels
+    from bsyolo_tpu_torch.kernels import decode
+
+    data = _png_dataset(tmp_path / "ds")
+    m = YOLO(str(Path(__file__).parent / "fixtures" / "tiny.yaml"))
+    plain, calls = decode.box_best_reference, []
+    decode.box_best_reference = lambda *a, **k: calls.append(1) or plain(*a, **k)
+    try:
+        kernels.reset_launch_counts()
+        m.train(data=str(data), epochs=1, imgsz=64, batch=8, nbs=8, workers=0, amp=False, plots=False,
+                project=str(tmp_path / "runs"), name="card")
+        counts = kernels.launch_counts()
+    finally:
+        decode.box_best_reference = plain
+    assert counts == {"decode_box_best": 1, "decode_xywh": 0, "int8_matmul": 0} and not calls  # 6 val images, batch 8
+    rows = (tmp_path / "runs" / "card" / "results.csv").read_text().splitlines()
+    assert len(rows) == 2 and all(np.isfinite(float(x)) for x in rows[1].split(","))
+    assert (tmp_path / "runs" / "card" / "weights" / "best.ckpt").exists()
+    assert next(m.model.parameters()).device == cuda_device and m.trainer.state.step == 2
+
+
+def test_yolo_val_launches_the_box_kernel_once_per_batch(cuda_device, tmp_path):
+    """YOLO(<ckpt>).val on the card: one decode_box launch per validation batch (6 images at batch 4:
+    2 batches); metrics equal the CPU's."""
+    from pathlib import Path
+
+    from bsyolo_tpu_torch import YOLO, kernels
+
+    data = _png_dataset(tmp_path / "ds")
+    host = YOLO(str(Path(__file__).parent / "fixtures" / "tiny.yaml"), device="cpu")  # seeded weights, 2 classes
+    path = host.save(tmp_path / "w.ckpt")
+    card = YOLO(path)
+    kernels.reset_launch_counts()
+    got = card.val(data=str(data), batch=4, imgsz=64)
+    assert kernels.launch_counts() == {"decode_box_best": 2, "decode_xywh": 0, "int8_matmul": 0}
+    want = YOLO(path, device="cpu").val(data=str(data), batch=4, imgsz=64)
+    np.testing.assert_allclose(list(got.results_dict.values()), list(want.results_dict.values()), atol=1e-6)
