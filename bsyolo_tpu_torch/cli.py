@@ -1,8 +1,8 @@
 """Command line of the port (counterpart of ``bsyolo_tpu/cli.py``), modes train, val and predict:
 
-    python -m bsyolo_tpu_torch train data=car.yaml model=yolo11n.yaml epochs=100 amp=False plots=False
+    python -m bsyolo_tpu_torch train data=car.yaml model=yolo11n.yaml epochs=100 plots=False
     python -m bsyolo_tpu_torch val model=runs/detect/train/weights/best.ckpt data=car.yaml
-    python -m bsyolo_tpu_torch predict model=best.ckpt source=images/ conf=0.25
+    python -m bsyolo_tpu_torch predict model=best.ckpt source=images/ conf=0.25 half=True
 
 Arguments are ``key=value`` pairs of ``cfg/default.yaml`` plus ``model``, ``data`` and
 ``source``; ``device=cpu`` runs on the host (the card is the default). Every other

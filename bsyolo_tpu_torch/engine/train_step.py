@@ -15,6 +15,10 @@ on the card, so a step reads nothing back; read ``metrics["loss"]`` only when
 logging.
 
 Train mode runs every Conv in float: the int8 mode applies in eval mode only.
+The amp step is this step over a graph whose compute dtype is bfloat16
+(``nn.model.set_compute_dtype``): the convolutions cast their float32
+weights, so the gradients, slots, EMA and BatchNorm statistics stay float32,
+and the loss casts the head's maps to float32; no loss scaling.
 """
 
 from __future__ import annotations

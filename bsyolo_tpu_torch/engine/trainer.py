@@ -13,9 +13,15 @@ other's ``last.ckpt``.
 Batches leave the loader as numpy; each is copied to the card through pinned
 memory and permuted to NCHW uint8 there.
 
+``amp=True``, the default, builds the graph with a bfloat16 compute dtype
+(``nn.model.set_compute_dtype``), as the JAX trainer builds its
+``dtype=bfloat16`` graph: parameters, gradients, optimizer slots, EMA,
+BatchNorm statistics and checkpoints stay float32, with no loss scaling, and
+validation runs the same bf16 graph over the float32 EMA parameters.
+``assigner_bf16=True`` runs the TAL ranking math in bfloat16.
+
 Options not ported yet raise ``NotImplementedError`` naming their ROADMAP
-item: ``amp=True`` (item 17; the JAX default, so pass ``amp=False``),
-``plots=True`` and ``profile=True`` and ``batch=-1`` (item 16),
+item: ``plots=True`` and ``profile=True`` and ``batch=-1`` (item 16),
 ``chunk_steps > 1`` (item 22), more than one process (item 14).
 """
 
@@ -48,11 +54,6 @@ from bsyolo_tpu_torch.utils.weights import _tree_to_port, jax_paths, load_refere
 
 def refuse_unported(args) -> None:
     """Raise NotImplementedError for the training options the port does not have yet."""
-    if args.amp:
-        raise NotImplementedError("amp=True (the bf16 graph) is not ported yet (ROADMAP queue 1, item 17); "
-                                  "pass amp=False")
-    if getattr(args, "assigner_bf16", False):
-        raise NotImplementedError("assigner_bf16=True is not ported yet (ROADMAP queue 1, item 17)")
     if args.plots:
         raise NotImplementedError("plots=True is not ported yet (ROADMAP queue 1, item 16); pass plots=False")
     if args.profile:
@@ -118,7 +119,8 @@ class DetectionTrainer:
             d["names"] = data["names"]
         self.spec = parse_model_yaml(d, scale=d.get("scale", ""))
         torch.manual_seed(args.seed)
-        self.model = build_model(self.spec, self.device, args.seed)
+        dtype = torch.bfloat16 if args.amp else torch.float32
+        self.model = build_model(self.spec, self.device, args.seed, dtype=dtype)
         self.paths = jax_paths(self.model)
         if isinstance(args.pretrained, str) and args.pretrained.lower() not in ("true", "false", ""):
             self._load_pretrained(args.pretrained)
@@ -141,7 +143,8 @@ class DetectionTrainer:
         wd = opt.weight_decay * args.batch * accumulate / args.nbs
         loss_cfg = DetectionLossConfig(nc=self.spec.nc, strides=self.spec.head_strides, reg_max=self.spec.reg_max,
                                        box=args.box, cls=args.cls, dfl=args.dfl, nwd_loss=args.nwdloss,
-                                       iou_ratio=args.iou_ratio)
+                                       iou_ratio=args.iou_ratio,
+                                       assigner_bf16=bool(getattr(args, "assigner_bf16", False)))
         nw = max(round(opt.warmup_epochs * nb), 100) if opt.warmup_epochs > 0 else 0
         self.step_cfg = StepConfig(loss=loss_cfg, optim=opt, batch_size=args.batch, nb=nb, nw=nw,
                                    use_adamw=opt.name in ("AdamW", "Adam", "NAdam", "RAdam"), weight_decay=wd,

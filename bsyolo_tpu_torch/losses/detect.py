@@ -8,7 +8,8 @@ arrive padded to ``M`` rows with a validity mask.
 
 Head maps are the port's NCHW levels (B, 4 * reg_max + nc, H, W); anchors are
 flattened level by level, row-major within a level, as in the JAX package's
-NHWC maps, so anchor ``a`` is the same cell in both.
+NHWC maps, so anchor ``a`` is the same cell in both. Maps of the bf16 graph
+are cast to float32 on entry, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ class DetectionLossConfig(NamedTuple):
     tal_topk: int = 10
     ema_decay: float = 0.4  # EMASlideLoss decay
     ema_tau: float = 2000.0
+    assigner_bf16: bool = False  # the TAL ranking math in bfloat16 (its targets stay float32)
 
 
 @dataclass
@@ -125,6 +127,7 @@ def detection_loss(
         num_classes=nc,
         alpha=0.5,
         beta=6.0,
+        bf16=cfg.assigner_bf16,
     )
     target_bboxes, target_scores, fg_mask = assign.target_bboxes, assign.target_scores, assign.fg_mask
     target_scores_sum = target_scores.sum().clamp(min=1.0)

@@ -10,6 +10,13 @@ anchor is a candidate where its metric is ``>=`` that k-th value and ``> 0``.
 Tied anchors are all kept, and a row with fewer than k distinct values keeps
 every positive anchor. ``torch.topk(...).values[..., k - 1]`` counts
 duplicates and would keep other anchors on ties.
+
+``bf16=True`` runs the dense (b, M, A) ranking math in bfloat16, as the JAX
+option does: the centre-inside test stays float32, target boxes and labels
+are gathered from the float32 inputs, and ``target_scores`` come back in the
+scores' dtype. Selection can differ from float32 only where two anchors'
+metrics agree to bfloat16 precision; the threshold keeps every anchor tied at
+the k-th bfloat16 value, as the JAX threshold does.
 """
 
 from __future__ import annotations
@@ -59,13 +66,18 @@ def task_aligned_assign(
     alpha: float = 0.5,
     beta: float = 6.0,
     eps: float = 1e-9,
+    bf16: bool = False,
 ) -> AssignResult:
     """Static-shape task-aligned assignment; carries no gradient."""
+    out_dtype = pd_scores.dtype
+    gt_bboxes_full = gt_bboxes
     b, A, nc = pd_scores.shape
     M = gt_bboxes.shape[1]
     mask_gt = mask_gt.bool()
 
     mask_valid = _select_candidates_in_gts(anc_points, gt_bboxes) & mask_gt[:, :, None]  # (b, M, A)
+    if bf16:  # only the ranking math: the centre test above and the gathered targets stay float32
+        pd_scores, pd_bboxes, gt_bboxes = (t.to(torch.bfloat16) for t in (pd_scores, pd_bboxes, gt_bboxes))
 
     # alignment metric: score[gt label] ** alpha * CIoU ** beta
     labels = gt_labels.long().clamp(0, nc - 1)
@@ -87,12 +99,12 @@ def task_aligned_assign(
     target_gt_idx = mask_pos.to(torch.uint8).argmax(1)  # (b, A); argmax does not take bool
 
     target_labels = labels.gather(1, target_gt_idx)
-    target_bboxes = gt_bboxes.gather(1, target_gt_idx[..., None].expand(b, A, 4))
-    target_scores = F.one_hot(target_labels, nc).to(pd_scores.dtype) * fg_mask[..., None]
+    target_bboxes = gt_bboxes_full.gather(1, target_gt_idx[..., None].expand(b, A, 4))
+    target_scores = F.one_hot(target_labels, nc).to(out_dtype) * fg_mask[..., None]
 
     # normalize by each ground truth's largest alignment
     align_metric = align_metric * mask_pos
     pos_align = align_metric.amax(-1, keepdim=True)  # (b, M, 1)
     pos_overlaps = (overlaps * mask_pos).amax(-1, keepdim=True)  # (b, M, 1)
-    norm = (align_metric * pos_overlaps / (pos_align + eps)).amax(-2)  # (b, A)
+    norm = (align_metric * pos_overlaps / (pos_align + eps)).amax(-2).to(out_dtype)  # (b, A)
     return AssignResult(target_labels, target_bboxes, target_scores * norm[..., None], fg_mask, target_gt_idx)

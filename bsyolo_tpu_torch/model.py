@@ -4,10 +4,18 @@
     m = YOLO("yolo11n.yaml")                  # BS-YOLO graph on cuda:0, seeded init
     m = YOLO("yolo11n.yaml").load("w.pt")     # reference torch state_dict
     m = YOLO("runs/detect/train/weights/best.ckpt")  # a checkpoint of either package
-    m.train(data="car.yaml", epochs=100, amp=False, plots=False)
+    m.train(data="car.yaml", epochs=100, plots=False)  # amp=True (default): the bf16 graph
     metrics = m.val(data="car.yaml", batch=16)
+    metrics = m.val(data="car.yaml", half=True)  # the bf16 graph over bf16 weights
     results = m.predict(frames, imgsz=640, batch=8, conf=0.25)
     results = m.predict(frames, augment=True)  # test-time augmentation
+    results = m.predict(frames, half=True)     # the bf16 graph over bf16 weights
+
+``half=True`` runs a bfloat16 copy of the graph (``YOLO.half_graph``, built by
+``nn.model.cast_inference_graph``: convolution weights cast once and kept until
+they or the int8 mode change, BatchNorm statistics float32). After ``train(amp=True)`` the facade holds the
+trainer's bf16 graph, so ``predict()`` runs bf16 without ``half``, as the JAX
+facade does.
 
 Int8 inference is a mode of the graph, not a predict argument: calibrate
 static activation scales on a few float NCHW batches (letterboxed, /255),
@@ -32,16 +40,17 @@ import torch
 from bsyolo_tpu_torch import select_device
 from bsyolo_tpu_torch.cfg import model_yaml_path
 from bsyolo_tpu_torch.engine.predictor import DetectionPredictor
-from bsyolo_tpu_torch.nn.model import build_model
+from bsyolo_tpu_torch.nn.model import build_model, cast_inference_graph
+from bsyolo_tpu_torch.nn.modules import Conv, cast_convs
 from bsyolo_tpu_torch.nn.parser import load_model_yaml, parse_model_yaml
 from bsyolo_tpu_torch.utils import LOGGER
 from bsyolo_tpu_torch.utils.ckpt import load_checkpoint, load_weights, save_checkpoint
 from bsyolo_tpu_torch.utils.weights import jax_paths, load_reference_state_dict
 
-_PREDICT_ARGS = {"conf", "iou", "imgsz", "batch", "max_det", "classes", "agnostic_nms", "augment", "verbose"}
+_PREDICT_ARGS = {"conf", "iou", "imgsz", "batch", "max_det", "classes", "agnostic_nms", "augment", "verbose", "half"}
 # predict options of the JAX package that the port does not have yet -> the ROADMAP item that brings them
 _NOT_PORTED = {
-    **dict.fromkeys(("half", "vid_stride", "stream_buffer", "save", "save_txt", "save_conf",
+    **dict.fromkeys(("vid_stride", "stream_buffer", "save", "save_txt", "save_conf",
                      "save_crop", "show", "visualize", "embed"), "queue 1, item 17"),
     "retina_masks": "queue 1, item 12",
 }
@@ -70,6 +79,7 @@ class YOLO:
         self.ckpt_meta = None
         self._callbacks = None
         self._img_size = 640
+        self._half = None  # (key, bf16 inference graph) of half_graph
         if suffix == ".ckpt":
             self._load_ckpt(self.model_path, seed)
         else:
@@ -106,6 +116,18 @@ class YOLO:
             LOGGER.warning(f"weight import: {n_missing} params not found in {weights}")
         return self
 
+    def half_graph(self) -> torch.nn.Module:
+        """The bf16 inference graph that predict and val ``half=True`` run (shared, so the two
+        cannot diverge), e.g. for ``predict_tiled(m.half_graph(), m.spec, frame)``: built once,
+        and again when a convolution weight (by storage and version) or the int8 mode changes;
+        the graph runs eagerly, so no input size enters the key."""
+        convs = cast_convs(self.model)
+        key = (id(self.model), tuple((p.data_ptr(), p._version) for m in convs for p in m.parameters()),
+               tuple((m.int8, m.act_absmax) for m in self.model.modules() if isinstance(m, Conv)))
+        if self._half is None or self._half[0] != key:
+            self._half = (key, cast_inference_graph(self.model))
+        return self._half[1]
+
     @property
     def names(self) -> Dict[int, str]:
         return dict(enumerate(self.spec.names))
@@ -116,7 +138,8 @@ class YOLO:
 
     def predict(self, source, stream: bool = False, **kwargs):
         """Detect in ``source`` (a uint8 BGR frame, a list of them, an image file or
-        a directory); a list of ``Results``, or a generator with ``stream=True``."""
+        a directory); a list of ``Results``, or a generator with ``stream=True``.
+        ``half=True`` runs the bf16 graph over bf16 weights."""
         for k, v in kwargs.items():
             if k in _NOT_PORTED and v:
                 raise NotImplementedError(f"predict({k}=...) is not ported yet (ROADMAP {_NOT_PORTED[k]})")
@@ -124,7 +147,7 @@ class YOLO:
                 raise TypeError(f"predict() got an unexpected keyword argument {k!r}")
         conf = kwargs.get("conf")
         predictor = DetectionPredictor(
-            self.model,
+            self.half_graph() if kwargs.get("half") else self.model,
             self.spec,
             self._device,
             conf=0.25 if conf is None else conf,
@@ -146,7 +169,8 @@ class YOLO:
     def train(self, **kwargs):
         """Train with ``DetectionTrainer`` (overrides as in ``cfg/default.yaml``; the graph is this
         model's unless ``model=`` names another), on this model's device unless ``device=`` names
-        another; then adopt the trained EMA weights. Returns the last validation's metrics."""
+        another; then adopt the trained EMA weights and the trainer's graph (the bf16 graph under
+        ``amp=True``, the default). Returns the last validation's metrics."""
         from bsyolo_tpu_torch.engine.trainer import DetectionTrainer
 
         overrides = dict(kwargs)
@@ -156,7 +180,7 @@ class YOLO:
         self.metrics = trainer.train()
         # a copy of the trained graph with the EMA weights and the live BatchNorm statistics; the
         # trainer's state keeps its own parameters
-        self.spec, self.model, self._device = trainer.spec, copy.deepcopy(trainer.model), trainer.device
+        self.spec, self.model, self._device = trainer.spec, copy.deepcopy(trainer.model).eval(), trainer.device
         with torch.no_grad():
             for name, p in self.model.named_parameters():
                 p.copy_(trainer.state.ema_params[name])
@@ -166,15 +190,14 @@ class YOLO:
     def val(self, data: Optional[str] = None, batch: int = 16, imgsz: Optional[int] = None, **kwargs):
         """Detection metrics of this model on ``data``'s ``split`` (val by default), letterboxed to
         ``imgsz`` (square, or three aspect buckets with ``rect=True``); NMS at conf 0.001, IoU 0.7
-        unless ``conf``, ``iou``, ``max_det`` say otherwise."""
+        unless ``conf``, ``iou``, ``max_det`` say otherwise; ``half=True`` on the bf16 graph."""
         from bsyolo_tpu_torch.data import DataLoader, YOLODataset, load_dataset_yaml
         from bsyolo_tpu_torch.engine.trainer import val_batches
         from bsyolo_tpu_torch.engine.validator import DetectionValidator
 
-        for k in ("half", "save_json", "save_txt", "plots"):
+        for k in ("save_json", "save_txt", "plots"):
             if kwargs.get(k):
-                item = "17" if k == "half" else "20"
-                raise NotImplementedError(f"val({k}=True) is not ported yet (ROADMAP queue 1, item {item})")
+                raise NotImplementedError(f"val({k}=True) is not ported yet (ROADMAP queue 1, item 20)")
         data = data or (self.trainer.args.data if self.trainer is not None else None)
         if data is None:
             raise ValueError("val() needs data=<dataset yaml>")
@@ -189,7 +212,8 @@ class YOLO:
         vkw = {k: kwargs[k] for k in ("conf", "iou", "max_det") if kwargs.get(k) is not None}
         if kwargs.get("classes"):
             vkw["classes"] = list(kwargs["classes"])
-        validator = DetectionValidator(self.model, self.spec, names=d.get("names"), single_cls=single_cls,
+        model = self.half_graph() if kwargs.get("half") else self.model
+        validator = DetectionValidator(model, self.spec, names=d.get("names"), single_cls=single_cls,
                                        device=self._device, **vkw)
         self.metrics = validator(None, val_batches(loader, self._device))
         return self.metrics

@@ -14,12 +14,13 @@ import torch
 import torch.nn as nn
 
 from bsyolo_tpu_torch.kernels.decode import decode_xywh
-from bsyolo_tpu_torch.nn.modules import Conv, DWConv
+from bsyolo_tpu_torch.nn.modules import Conv, Conv2d, DWConv
 
 
 class Detect(nn.Module):
     """Anchor-free decoupled head: a box branch (two 3x3 convs, 1x1 to 4 * reg_max)
-    and a depthwise-separable class branch per level."""
+    and a depthwise-separable class branch per level. Its levels are in the
+    graph's compute dtype (bfloat16 levels from the bf16 graph), contiguous."""
 
     def __init__(self, nc: int, ch: Tuple[int, ...], strides: Tuple[int, ...], reg_max: int = 16):
         super().__init__()
@@ -27,13 +28,13 @@ class Detect(nn.Module):
         c2 = max(16, ch[0] // 4, reg_max * 4)
         c3 = max(ch[0], min(nc, 100))
         self.cv2 = nn.ModuleList(
-            nn.Sequential(Conv(x, c2, 3), Conv(c2, c2, 3), nn.Conv2d(c2, 4 * reg_max, 1)) for x in ch
+            nn.Sequential(Conv(x, c2, 3), Conv(c2, c2, 3), Conv2d(c2, 4 * reg_max, 1)) for x in ch
         )
         self.cv3 = nn.ModuleList(
             nn.Sequential(
                 nn.Sequential(DWConv(x, x, 3), Conv(x, c3, 1)),
                 nn.Sequential(DWConv(c3, c3, 3), Conv(c3, c3, 1)),
-                nn.Conv2d(c3, nc, 1),
+                Conv2d(c3, nc, 1),
             )
             for x in ch
         )

@@ -8,6 +8,8 @@ outputs the save-list names for later layers. Its layers live in
 
 from __future__ import annotations
 
+import copy
+import itertools
 from typing import Dict, List
 
 import torch
@@ -83,15 +85,60 @@ class DetectionGraph(nn.Module):
         return x
 
 
-def build_model(spec: ModelSpec, device, seed: int = 0) -> DetectionGraph:
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def build_model(spec: ModelSpec, device, seed: int = 0, dtype: torch.dtype = torch.float32) -> DetectionGraph:
     """Build the graph with weights drawn from a seeded ``torch.Generator`` on the
     host, then move it to ``device`` in eval mode: the same seed gives the same
-    weights on every device."""
+    weights on every device. ``dtype`` is the compute dtype (``set_compute_dtype``);
+    the parameters are float32 either way."""
     model = DetectionGraph(spec)
     g = torch.Generator().manual_seed(seed)
     M.reset_parameters(model, g)
     model.model[-1].bias_init()
+    set_compute_dtype(model, dtype)
     return model.to(device).eval()
+
+
+def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Run every convolution of ``model`` in ``dtype``, float32 or bfloat16: the JAX package's
+    ``DetectionGraph(dtype=...)``. Parameters, gradients and BatchNorm statistics stay float32;
+    the Detect head's levels come out in ``dtype``. Returns ``model``."""
+    if dtype not in COMPUTE_DTYPES:
+        raise TypeError(f"compute dtype must be float32 or bfloat16, got {dtype}")
+    for m in M.cast_convs(model):
+        m.compute_dtype = None if dtype == torch.float32 else dtype  # float32: the weights' own dtype, no cast
+    return model
+
+
+def compute_dtype(model: nn.Module) -> torch.dtype:
+    """The compute dtype of ``model``'s convolutions."""
+    conv = M.cast_convs(model)[0]
+    return conv.compute_dtype or conv.weight.dtype
+
+
+def cast_inference_graph(model: nn.Module, dtype: torch.dtype = torch.bfloat16) -> nn.Module:
+    """An inference copy of ``model`` computing in ``dtype`` with its convolution weights and
+    biases stored in ``dtype`` once (the counterpart of the JAX package's
+    ``cast_inference_params``: weights cast once, not per call). Every other tensor is
+    shared with ``model``: BatchNorm's statistics and affine parameters and ELA's fusion
+    weights stay float32, so the copy sees later updates of them; a change of the
+    convolution weights needs a new copy. The int8 mode and its scales are copied; hooks
+    registered on ``model`` are not."""
+    shared = {id(t): t for t in itertools.chain(model.parameters(), model.buffers())}
+    graph = copy.deepcopy(model, shared)
+    for m in M.cast_convs(graph):
+        m.weight = nn.Parameter(m.weight.detach().to(dtype), requires_grad=False)
+        if m.bias is not None:
+            m.bias = nn.Parameter(m.bias.detach().to(dtype), requires_grad=False)
+    for m in graph.modules():
+        m._forward_hooks.clear()
+        m._forward_pre_hooks.clear()
+        if isinstance(m, M.Conv):
+            m._int8_cache = None
+            m._calib_hook = None
+    return set_compute_dtype(graph, dtype).eval()
 
 
 def count_params(model: nn.Module) -> int:

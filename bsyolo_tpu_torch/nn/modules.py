@@ -6,6 +6,16 @@ through ``utils/weights.py``. BatchNorm uses eps 1e-3 and momentum 0.03 like
 the reference; convolution weights are drawn from torch's default
 kaiming-uniform, U(+-1/sqrt(fan_in)), and biases start at zero, as in the JAX
 package (``TORCH_INIT``).
+
+Compute dtype (the JAX package's ``dtype=jnp.bfloat16`` graph, ``amp`` and
+``half``): every convolution is a ``Conv2d``/``Conv1d`` whose
+``compute_dtype`` (None, no cast, unless ``nn.model.set_compute_dtype``
+says bfloat16) its input, weight and bias are cast to, as flax casts them
+in ``nn.Conv(dtype=...)``; parameters stay as they are. The rest follows the
+flax graph's dtypes by type promotion: BatchNorm and GroupNorm reduce in
+float32 and return their input's dtype, ``Attention`` forms q·k and its
+softmax in float32 and casts to v's dtype, and ELA's float32 fusion weights
+make its output float32.
 """
 
 from __future__ import annotations
@@ -31,6 +41,12 @@ def autopad(k: int, p: Optional[int] = None, d: int = 1) -> int:
     return k // 2 if p is None else p
 
 
+def at_least_f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32 where it is a 2-byte float (the bf16 graph's reductions and attention
+    logits run in float32), else as it is (a float64 copy of the graph stays float64)."""
+    return t.float() if t.element_size() < 4 else t
+
+
 def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Draw every conv weight from U(+-1/sqrt(fan_in)) with ``generator``; zero
     conv biases; norms start at identity; ELA's fusion weights at zero."""
@@ -50,10 +66,39 @@ def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
                     p.zero_()
 
 
+class _CastConv:
+    """The convolution in ``compute_dtype``: input, weight and bias cast to it (``.to`` carries
+    the gradient back to a float32 weight). None, the default, casts nothing: the float32
+    graph, or a copy of it made float64 with ``.double()``."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt, b = self.compute_dtype, self.bias
+        if dt is None:
+            return super().forward(x)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), None if b is None else b.to(dt))
+
+
+class Conv2d(_CastConv, nn.Conv2d):
+    """``nn.Conv2d`` that computes in ``compute_dtype``."""
+
+
+class Conv1d(_CastConv, nn.Conv1d):
+    """``nn.Conv1d`` that computes in ``compute_dtype``."""
+
+
+def cast_convs(model: nn.Module):
+    """Every convolution of ``model`` that takes a compute dtype."""
+    return [m for m in model.modules() if isinstance(m, _CastConv)]
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm whose train mode follows flax ``nn.BatchNorm``, the JAX package's.
 
-    Eval mode is stock. In train mode the batch is normalized by its own mean and
+    Eval mode is stock. Either mode takes a bfloat16 input with float32 statistics
+    and affine parameters, computes in float32 and returns bfloat16, as flax's
+    ``nn.BatchNorm(dtype=bfloat16)`` does. In train mode the batch is normalized by its own mean and
     biased variance (stock torch does the same), and the running statistics take
     ``running = 0.97 * running + (1 - 0.97) * batch`` with the batch's *biased*
     variance, E[x^2] - E[x]^2 clipped at 0, as flax computes it. Stock
@@ -83,13 +128,15 @@ class Conv(nn.Module):
     ``_RawConv`` (``bsyolo_tpu/nn/modules.py:150-171``): the input quantized per
     tensor (static scale from calibration, else the batch's abs-max), the
     weight per output channel, int8 x int8 summed in int32 by the int8 matmul
-    kernel, dequantized by ``sx * sw`` into the same BN + SiLU tail.
+    kernel, dequantized by ``sx * sw`` into the same BN + SiLU tail. The
+    kernel's epilogue writes the conv's compute dtype (bfloat16 in the bf16
+    graph, as the JAX branch's ``.astype(self.dtype)``).
     """
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: Optional[int] = None, g: int = 1, d: int = 1,
                  act: bool = True):
         super().__init__()
-        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), dilation=d, groups=g, bias=False)
+        self.conv = Conv2d(c1, c2, k, s, autopad(k, p, d), dilation=d, groups=g, bias=False)
         self.bn = BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = nn.SiLU() if act else nn.Identity()
         self.int8 = False  # int8 inference mode, set by set_int8_inference
@@ -150,7 +197,8 @@ class Conv(nn.Module):
         # one copy into rows at a 16-byte pitch, which the kernel reads in place whatever K is
         cols = empty_rows(B * oh * ow, weight.k, xq.device)
         cols.view(src.shape).copy_(src)
-        y = int8_matmul_prepared(cols, weight, sx, torch.float32)  # (B * OH * OW, Cout), channels last
+        out_dtype = conv.compute_dtype or torch.float32
+        y = int8_matmul_prepared(cols, weight, sx, out_dtype)  # (B * OH * OW, Cout), channels last
         return y.view(B, oh, ow, -1).permute(0, 3, 1, 2).contiguous()
 
 
@@ -373,7 +421,9 @@ class Attention(nn.Module):
         kd = self.key_dim
         qkv = self.qkv(x).view(B, self.num_heads, 2 * kd + self.head_dim, H * W)
         q, k, v = qkv.split([kd, kd, self.head_dim], dim=2)
-        attn = ((q.transpose(-2, -1) @ k) * self.scale).softmax(dim=-1)  # (B, heads, N, N)
+        # q·k and the softmax (B, heads, N, N) in float32 in the bf16 graph (the JAX einsum's
+        # preferred_element_type), the weights cast to v's dtype
+        attn = ((at_least_f32(q).transpose(-2, -1) @ at_least_f32(k)) * self.scale).softmax(dim=-1).to(v.dtype)
         out = (v @ attn.transpose(-2, -1)).reshape(B, C, H, W)
         return self.proj(out + self.pe(v.reshape(B, C, H, W)))
 
@@ -407,8 +457,8 @@ class C2PSA(nn.Module):
         return self.cv2(torch.cat([a, self.m(b)], 1))
 
 
-def _dw(d: int, k: Tuple[int, int]) -> nn.Conv2d:
-    return nn.Conv2d(d, d, k, padding=(k[0] // 2, k[1] // 2), groups=d, bias=True)
+def _dw(d: int, k: Tuple[int, int]) -> Conv2d:
+    return Conv2d(d, d, k, padding=(k[0] // 2, k[1] // 2), groups=d, bias=True)
 
 
 class _SE(nn.Module):
@@ -416,7 +466,7 @@ class _SE(nn.Module):
 
     def __init__(self, d: int):
         super().__init__()
-        self.conv = nn.Sequential(nn.Conv2d(d, d, 1))
+        self.conv = nn.Sequential(Conv2d(d, d, 1))
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         return self.conv(t.mean((2, 3), keepdim=True))
@@ -437,9 +487,9 @@ class MSCAAttention(nn.Module):
         for name, k in (("conv0", 5), ("conv1", 7), ("conv2", 11), ("conv3", 21)):
             setattr(self, f"{name}_1", _dw(d, (1, k)))
             setattr(self, f"{name}_2", _dw(d, (k, 1)))
-        self.dilconv = nn.Conv2d(d, d, 1, groups=d, bias=True)
+        self.dilconv = Conv2d(d, d, 1, groups=d, bias=True)
         self.SE1, self.SE2, self.SE3, self.SE4 = (_SE(d) for _ in range(4))
-        self.conv4 = nn.Conv2d(d, d, 1)
+        self.conv4 = Conv2d(d, d, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         attn = self.conv0(x)
@@ -466,19 +516,22 @@ class ELA(nn.Module):
         ks = int(abs((math.log(channel, 2) + b) / gamma))
         ks = ks if ks % 2 else ks + 1
         c = channel
-        self.spatial_conv = nn.Conv1d(c, c, ks, padding=ks - 1, dilation=2, groups=c, bias=False)
+        self.spatial_conv = Conv1d(c, c, ks, padding=ks - 1, dilation=2, groups=c, bias=False)
         self.gn = nn.GroupNorm(max(1, c // 16), c, eps=1e-5)
         self.ch_att = nn.Sequential(
-            nn.AdaptiveAvgPool2d(1), nn.Flatten(2), nn.Conv1d(c, c, ks, padding=(ks - 1) // 2, groups=c, bias=False)
+            nn.AdaptiveAvgPool2d(1), nn.Flatten(2), Conv1d(c, c, ks, padding=(ks - 1) // 2, groups=c, bias=False)
         )
         self.ch_weight = nn.Parameter(torch.zeros(1))
         self.sp_weight = nn.Parameter(torch.zeros(1))
         self.res_weight = nn.Parameter(torch.zeros(1))
 
+    def _gn(self, t: torch.Tensor) -> torch.Tensor:
+        return self.gn(at_least_f32(t)).to(t.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ch = torch.sigmoid(self.ch_att(x))[..., None]  # (B, C, 1, 1)
-        h_att = torch.sigmoid(self.gn(self.spatial_conv(x.mean(3))))[..., None]  # (B, C, H, 1)
-        w_att = torch.sigmoid(self.gn(self.spatial_conv(x.mean(2))))[:, :, None, :]  # (B, C, 1, W)
+        h_att = torch.sigmoid(self._gn(self.spatial_conv(x.mean(3))))[..., None]  # (B, C, H, 1)
+        w_att = torch.sigmoid(self._gn(self.spatial_conv(x.mean(2))))[:, :, None, :]  # (B, C, 1, W)
         att = torch.sigmoid(self.ch_weight) * ch + torch.sigmoid(self.sp_weight) * (h_att * w_att)
         return x * att + torch.sigmoid(self.res_weight) * x
 

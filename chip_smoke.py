@@ -74,14 +74,34 @@ non-zero without them. Phases, each of which fails the run on its own:
    trainer's parameters exactly; ms per step, img/s and the loader-wait share
    per epoch, and over the epochs after each run's first (whose spawned
    workers start up); peak memory, validation ms per image.
+10. the bf16 graph (``half`` and ``amp``), at the same width: (a)
+   ``predict(half=True)`` at batch 4 over phase 3's frames: the head levels
+   bfloat16, the box decode kernel once per batch on them and no plain
+   decode; float32 and bf16 in turns, device work and busy share; the
+   kernel's device time on that head beside its bound; the bf16 head on the
+   card against the CPU's, and the decoded box and best logit of every
+   anchor against the CPU's (the rows after NMS are printed only); (b) TTA
+   (three xywh decodes per batch) and ``predict_tiled`` on ``half_graph()``
+   (one per call) on bf16 levels; (c) int8 on the half graph: the int8
+   matmul kernel 74 times per forward through its bf16 epilogue (the
+   profiler's kernel names), rows against the CPU's as in phase 6; (d) the
+   amp train step: its gradient at batch 4 against phase 7a's float64
+   referee, phase 7b's 30 steps on the bf16 graph beside 7b's figures, and
+   float32 and amp steps in turns; (e) ``YOLO("yolo11n.yaml").train`` with
+   its default ``amp=True`` on phase 9's dataset, 2 epochs at batch 16,
+   then ``YOLO(best.ckpt).val(half=True)``: the box decode kernel once per
+   validation batch on bf16 levels, ms per step of epoch 1, the loader-wait
+   share, peak memory.
 
-Every launch counter is set to 0 just before a path is driven and read just
+Phases 10a to 10c run right after phase 6, on the float graph phases 3 to 6
+used; 10d and 10e after phase 9. Each phase prints its seconds. Every launch counter is set to 0 just before a path is driven and read just
 after, so each path shows the kernels it went through.
 
 TF32 is off for convolutions and matrix products throughout, so the card and
 the CPU compute the same float32 function (cuDNN would otherwise run float32
 convolutions in TF32). The last two lines are the kernels JSON and
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``; in the kernels line each kernel carries its
+launches on phase 10's bf16 paths (``bf16_launches``) among all its launches.
 """
 
 from __future__ import annotations
@@ -93,7 +113,9 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -441,12 +463,13 @@ def check_decode_2_byte_levels(dev):
     return rows
 
 
-def head_outputs(model, run):
-    """The Detect head's level maps of every forward that ``run()`` makes, as the path made them."""
+def head_outputs(graph, run):
+    """The Detect head's level maps of every forward of ``graph`` (a DetectionGraph: a facade's
+    ``model``, or its ``half_graph()``) that ``run()`` makes, as the path made them."""
     import torch
 
     captured = []
-    hook = model.model.model[-1].register_forward_hook(lambda mod, args, out: captured.append(out))
+    hook = graph.model[-1].register_forward_hook(lambda mod, args, out: captured.append(out))
     try:
         run()
         torch.cuda.synchronize()
@@ -455,25 +478,37 @@ def head_outputs(model, run):
     return captured
 
 
-def check_decode_stage(label, decode, feats, reps: int = 50):
+def check_decode_stage(label, decode, feats, reps: int = 50, counter=None):
     """``decode(feats)``, the decode stage as the path calls it, on head maps the path made
     (in L2, as when the head has just written them): fails unless each call runs exactly
-    one device kernel, the decode kernel; prints its device time (torch.profiler) and
-    host time per call."""
+    one device kernel, the decode kernel; prints its device time (torch.profiler, per
+    recorded launch) and host time per call. With ``counter`` (a function reading the
+    wrapper's launch count) the launches per call are the counter's and the profiler must
+    see no other device item: in phase 10 its sessions recorded 43 to 49 of 50 launches
+    (the same calls alone record 50 of 50)."""
     import torch
     from torch.autograd import DeviceType
 
     repeat(decode, [(feats,)], 3)()
     torch.cuda.synchronize()
-    events = [e for e in profiled(repeat(decode, [(feats,)], reps)).events() if e.device_type == DeviceType.CUDA]
+    calls, launches = repeat(decode, [(feats,)], reps), []
+
+    def run():  # profiled() may run a session again: the launches of the session it returns are the last
+        before = counter() if counter else 0
+        calls()
+        launches.append(counter() - before if counter else 0)
+
+    events = [e for e in profiled(run).events() if e.device_type == DeviceType.CUDA]
+    launched = launches[-1] if counter else len(events)
     others = sorted({e.name for e in events if "decode_kernel" not in e.name})
-    device_us = sum(e.time_range.end - e.time_range.start for e in events) / reps
+    device_us = sum(e.time_range.end - e.time_range.start for e in events) / max(len(events), 1)
     call_us = host_us(decode, [(feats,)])
-    print(f"decode stage, {label}: {len(events) / reps:g} device kernels per call, {device_us:.2f} us of device "
-          f"time per call, {call_us:.2f} us of host time per call; other device items: {others or 'none'}")
-    if len(events) != reps or others:
-        raise SystemExit(f"the {label} decode stage ran {len(events)} device items in {reps} calls "
-                         f"(expected {reps}, all the decode kernel): {others}")
+    print(f"decode stage, {label}: {launched / reps:g} decode launches per call ({len(events)} recorded by the "
+          f"profiler), {device_us:.2f} us of device time per launch, {call_us:.2f} us of host time per call; other "
+          f"device items: {others or 'none'}")
+    if launched != reps or others or not events:
+        raise SystemExit(f"the {label} decode stage ran {launched} decode launches and {others} in {reps} calls "
+                         f"(expected {reps}, all the decode kernel)")
     return device_us
 
 
@@ -719,7 +754,7 @@ def predict_path(dev, host, model, frames):
     profile_once("predict, one batch of 4", lambda: model.predict(frames[:4], imgsz=IMGSZ, batch=4, conf=CONF),
                  batch_ms[4])
     spec = model.spec
-    for feats in head_outputs(model, lambda: model.predict(frames[:4], imgsz=IMGSZ, batch=4, conf=CONF)):
+    for feats in head_outputs(model.model, lambda: model.predict(frames[:4], imgsz=IMGSZ, batch=4, conf=CONF)):
         check_decode_stage(f"predict, batch of 4 (box_best, as detect_postprocess calls it), levels "
                            f"{[tuple(f.shape[2:]) for f in feats]}",
                            lambda f: box_best(f, spec.head_strides, spec.nc, spec.reg_max), feats)
@@ -788,7 +823,8 @@ def tta_path(host, model, frames):
     profile_once("TTA predict, one batch of 4",
                  lambda: model.predict(frames[:4], imgsz=IMGSZ, batch=4, conf=CONF, augment=True), batch_ms)
     spec = model.spec
-    passes = head_outputs(model, lambda: model.predict(frames[:4], imgsz=IMGSZ, batch=4, conf=CONF, augment=True))
+    passes = head_outputs(model.model, lambda: model.predict(frames[:4], imgsz=IMGSZ, batch=4, conf=CONF,
+                                                             augment=True))
     if len(passes) != 3:
         raise SystemExit(f"one TTA batch ran the head {len(passes)} times, expected 3")
     for i, feats in enumerate(passes):
@@ -838,7 +874,7 @@ def tiled_path(host, model):
               f"{len(got[label])} detections")
     launches = expect_launches("tiled", {"decode_box_best": 0, "decode_xywh": reps * len(big), "int8_matmul": 0})
     profile_once("tiled, one 1080x1920 frame", lambda: run(model, big["1080x1920"]), frame_ms["1080x1920"])
-    for feats in head_outputs(model, lambda: run(model, big["1080x1920"])):
+    for feats in head_outputs(model.model, lambda: run(model, big["1080x1920"])):
         check_decode_stage(f"tiled 1080x1920 (decode_detections), B={feats[0].shape[0]}, levels "
                            f"{[tuple(f.shape[2:]) for f in feats]}",
                            lambda f: decode_detections(f, model.spec.head_strides, model.spec.nc, model.spec.reg_max),
@@ -1273,7 +1309,7 @@ def compare_step(label, got, want, check=True):
 
 def train_step_against_cpu(dev, host, model):
     """Phase 7a: one step at batch 4, card against CPU; beside it, a second card run and one
-    with cuDNN's deterministic algorithms."""
+    with cuDNN's deterministic algorithms. Returns the batch and the float64 graph's gradient."""
     import torch
 
     batch = synthetic_batch(np.random.default_rng(SEED + 10), TRAIN_CPU_BATCH, (IMGSZ, IMGSZ), len(model.names))
@@ -1307,6 +1343,7 @@ def train_step_against_cpu(dev, host, model):
     against_float64("CPU", want["grads"], ref_grads)
     if failures or want["updated"] != 1:
         raise SystemExit(f"train step on the card differs from the CPU in: {failures}")
+    return batch, ref_grads
 
 
 def expected_updates(n_steps: int, nw: int, nbs_over_batch: float):
@@ -1320,8 +1357,9 @@ def expected_updates(n_steps: int, nw: int, nbs_over_batch: float):
     return flags
 
 
-def train_path(dev, model):
-    """Phase 7b: TRAIN_STEPS steps at batch 16 on the card on a repeated batch; returns the state."""
+def train_path(dev, model, label: str = "train"):
+    """Phase 7b (and 10d on the bf16 graph): TRAIN_STEPS steps at batch 16 on the card on a repeated
+    batch; returns the state and the run's figures."""
     import torch
 
     from bsyolo_tpu_torch import kernels
@@ -1361,14 +1399,14 @@ def train_path(dev, model):
     kern = device_kernels(profiled(profiled_steps))  # a session the profiler runs again adds steps: all are checked
     busy_ms = sum(us for _, us, _ in kern) / 1e3
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    expect_launches("train", {name: 0 for name in kernels.KERNELS})
+    expect_launches(label, {name: 0 for name in kernels.KERNELS})
 
     losses = torch.stack([m["loss"] for m in metrics]).cpu().numpy()  # the one readback of the run
     updated = [m["updated"] for m in metrics]
     want = expected_updates(len(metrics), cfg.nw, cfg.optim.nbs / cfg.batch_size)
     n_prof = TRAIN_STEPS - 20
     first, last = losses[:5].mean(), losses[-5:].mean()
-    print(f"train {TRAIN_STEPS} steps, batch {TRAIN_BATCH} at {IMGSZ} (SGD lr0 {cfg.optim.lr0}, nbs {cfg.optim.nbs}, "
+    print(f"{label} {TRAIN_STEPS} steps, batch {TRAIN_BATCH} at {IMGSZ} (SGD lr0 {cfg.optim.lr0}, nbs {cfg.optim.nbs}, "
           f"warmup {cfg.nw} iterations): updated {''.join(map(str, updated))} (host's rule "
           f"{''.join(map(str, want))}); loss first 5 mean {first:.4g}, last 5 mean {last:.4g}; "
           f"losses {np.array2string(losses, precision=4, max_line_width=400)}")
@@ -1384,7 +1422,8 @@ def train_path(dev, model):
         raise SystemExit(f"train losses not finite or not falling: first 5 mean {first}, last 5 mean {last}")
     if want[:2] != [1, 1] or 0 not in want:
         raise SystemExit("the configuration does not take the accumulation count from 1 to 2 within the run")
-    return state
+    return state, {"ms": timed_ms, "device_ms": busy_ms / n_prof, "busy": busy_ms / walls[-1], "peak_gb": peak_gb,
+                   "kernels": {name: us / n_prof for name, us, _ in kern}}
 
 
 def val_batches():
@@ -1402,15 +1441,16 @@ def val_batches():
 
 @contextlib.contextmanager
 def plain_decode_calls():
-    """A list that gets one entry per call of the box decode's plain version while the block runs."""
+    """A list that gets one entry per call of either decode's plain version while the block runs."""
     from bsyolo_tpu_torch.kernels import decode
 
-    calls, plain = [], decode.box_best_reference
-    decode.box_best_reference = lambda *a, **k: calls.append(1) or plain(*a, **k)
+    calls, box, xywh = [], decode.box_best_reference, decode.decode_xywh_reference
+    decode.box_best_reference = lambda *a, **k: calls.append("box") or box(*a, **k)
+    decode.decode_xywh_reference = lambda *a, **k: calls.append("xywh") or xywh(*a, **k)
     try:
         yield calls
     finally:
-        decode.box_best_reference = plain
+        decode.box_best_reference, decode.decode_xywh_reference = box, xywh
 
 
 def val_path(dev, host, model, state):
@@ -1495,10 +1535,10 @@ def write_png_dataset(root, names, seed: int):
     return yaml
 
 
-def trainer_path(dev, frames):
-    """Phase 9: YOLO.train (2 epochs, then a resume to 3), YOLO(best.ckpt).val and .predict on the card."""
+def trainer_path(dev, frames, root):
+    """Phase 9: YOLO.train (2 epochs, then a resume to 3), YOLO(best.ckpt).val and .predict on the card,
+    on a dataset written under ``root``; returns the launches and the dataset YAML."""
     import csv
-    import tempfile
     from pathlib import Path
 
     import torch
@@ -1510,105 +1550,458 @@ def trainer_path(dev, frames):
     from bsyolo_tpu_torch.utils.weights import state_dict_from_jax
 
     names = [str(read_yaml(CFG_ROOT / "datasets" / "car.yaml")["names"][i]) for i in range(12)]
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_p9_") as tmp:
-        t0 = time.perf_counter()
-        data = write_png_dataset(Path(tmp) / "ds", names, SEED + 20)
-        print(f"phase 9 dataset: {P9_TRAIN} train + {P9_VAL} val PNG frames {P9_HW[0]}x{P9_HW[1]}, {len(names)} "
-              f"car.yaml classes, written in {time.perf_counter() - t0:.2f} s")
-        run = dict(data=str(data), imgsz=IMGSZ, batch=P9_BATCH, amp=False, plots=False, workers=P9_WORKERS, seed=3,
-                   project=str(Path(tmp) / "runs"), name="p9", exist_ok=True)
+    t0 = time.perf_counter()
+    data = write_png_dataset(Path(root) / "ds", names, SEED + 20)
+    print(f"phase 9 dataset: {P9_TRAIN} train + {P9_VAL} val PNG frames {P9_HW[0]}x{P9_HW[1]}, {len(names)} "
+          f"car.yaml classes, written in {time.perf_counter() - t0:.2f} s")
+    run = dict(data=str(data), imgsz=IMGSZ, batch=P9_BATCH, amp=False, plots=False, workers=P9_WORKERS, seed=3,
+               project=str(Path(root) / "runs"), name="p9", exist_ok=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with plain_decode_calls() as plain_calls:
+        kernels.reset_launch_counts()
+        model = YOLO("yolo11n.yaml")
+        if model.device != dev:
+            raise SystemExit(f"YOLO() built its graph on {model.device}, not on {dev}")
+        t1 = time.perf_counter()
+        model.train(epochs=2, close_mosaic=1, **run)
+        first = model.trainer
+        t2 = time.perf_counter()
+        resumed = YOLO("yolo11n.yaml")
+        resumed.train(epochs=3, close_mosaic=1, resume=True, **run)
+        second = resumed.trainer
+        t3 = time.perf_counter()
+        train_launches = kernels.launch_counts()["decode_box_best"]
+        best = Path(root) / "runs" / "p9" / "weights" / "best.ckpt"
+        loaded = YOLO(best)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        with plain_decode_calls() as plain_calls:
-            kernels.reset_launch_counts()
-            model = YOLO("yolo11n.yaml")
-            if model.device != dev:
-                raise SystemExit(f"YOLO() built its graph on {model.device}, not on {dev}")
-            t1 = time.perf_counter()
-            model.train(epochs=2, close_mosaic=1, **run)
-            first = model.trainer
-            t2 = time.perf_counter()
-            resumed = YOLO("yolo11n.yaml")
-            resumed.train(epochs=3, close_mosaic=1, resume=True, **run)
-            second = resumed.trainer
-            t3 = time.perf_counter()
-            train_launches = kernels.launch_counts()["decode_box_best"]
-            best = Path(tmp) / "runs" / "p9" / "weights" / "best.ckpt"
-            loaded = YOLO(best)
-            torch.cuda.synchronize()
-            t4 = time.perf_counter()
-            metrics = loaded.val(data=str(data), batch=P9_BATCH)
-            torch.cuda.synchronize()
-            val_s = time.perf_counter() - t4
-            val_launches = kernels.launch_counts()["decode_box_best"] - train_launches
-            results = loaded.predict(frames, imgsz=IMGSZ, batch=4, conf=CONF)
-            torch.cuda.synchronize()
-            n_val_batches = -(-P9_VAL // P9_BATCH)
-            expected = {"decode_box_best": 3 * n_val_batches + n_val_batches + -(-len(frames) // 4),
-                        "decode_xywh": 0, "int8_matmul": 0}
-            launches = expect_launches("the trainer and the facade", expected)
-        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-        if plain_calls:
-            raise SystemExit(f"phase 9 ran the decode's plain version {len(plain_calls)} times on the card")
-        if first.start_epoch != 0 or second.start_epoch != 2 or second.state.step != 3 * first.nb:
-            raise SystemExit(f"the resume started at epoch {second.start_epoch}, step {second.state.step}")
-        # the first epoch of each run waits for its spawned worker pool to start (and epoch 0 for cuDNN's
-        # autotuning): the per-step figure reads only the later epochs, with warm workers
-        epochs = first.loader_wait + second.loader_wait
-        cold = {0, len(first.loader_wait)}
-        for e, (wait, wall, n) in enumerate(epochs):
-            print(f"  epoch {e}: {n} steps in {wall:.2f} s, {wall * 1e3 / n:.1f} ms per step, "
-                  f"{P9_BATCH * n / wall:.1f} img/s, loader-wait share {wait / wall:.3f} (host clock)"
-                  + (", first epoch of its run: the pool starts" if e in cold else ""))
-        warm = [e for e in range(len(epochs)) if e not in cold]
-        steps = sum(epochs[e][2] for e in warm)
-        ms = sum(epochs[e][1] for e in warm) * 1e3 / steps
-        print(f"phase 9 train: {ms:.1f} ms per step, {P9_BATCH * 1e3 / ms:.1f} img/s over the {steps} steps of epochs "
-              f"{warm}, the epochs with warm workers (host clock, loader in the loop, {P9_WORKERS} workers); "
-              f"loader-wait share {sum(epochs[e][0] for e in warm) / sum(epochs[e][1] for e in warm):.3f}; peak memory "
-              f"allocated {peak_gb:.2f} GB; run 1 {t2 - t1:.1f} s, run 2 (resume) {t3 - t2:.1f} s")
-        print(f"phase 9 val: {val_s * 1e3 / P9_VAL:.2f} ms per image over {P9_VAL} images (host clock, loader to "
-              f"metrics); {', '.join(f'{k} {v:.4f}' for k, v in metrics.results_dict.items())}")
-        print(f"phase 9 decode_box launches {launches['decode_box_best']} (expected {expected['decode_box_best']}: "
-              f"{n_val_batches} per validation of 3 epochs, {n_val_batches} in val, {-(-len(frames) // 4)} predict "
-              f"batches), val {val_launches}, plain-version calls {len(plain_calls)}; predict "
-              f"{sum(len(r) for r in results)} detections over {len(results)} frames")
+        t4 = time.perf_counter()
+        metrics = loaded.val(data=str(data), batch=P9_BATCH)
+        torch.cuda.synchronize()
+        val_s = time.perf_counter() - t4
+        val_launches = kernels.launch_counts()["decode_box_best"] - train_launches
+        results = loaded.predict(frames, imgsz=IMGSZ, batch=4, conf=CONF)
+        torch.cuda.synchronize()
+        n_val_batches = -(-P9_VAL // P9_BATCH)
+        expected = {"decode_box_best": 3 * n_val_batches + n_val_batches + -(-len(frames) // 4),
+                    "decode_xywh": 0, "int8_matmul": 0}
+        launches = expect_launches("the trainer and the facade", expected)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if plain_calls:
+        raise SystemExit(f"phase 9 ran the decode's plain version {len(plain_calls)} times on the card")
+    if first.start_epoch != 0 or second.start_epoch != 2 or second.state.step != 3 * first.nb:
+        raise SystemExit(f"the resume started at epoch {second.start_epoch}, step {second.state.step}")
+    # the first epoch of each run waits for its spawned worker pool to start (and epoch 0 for cuDNN's
+    # autotuning): the per-step figure reads only the later epochs, with warm workers
+    epochs = first.loader_wait + second.loader_wait
+    cold = {0, len(first.loader_wait)}
+    for e, (wait, wall, n) in enumerate(epochs):
+        print(f"  epoch {e}: {n} steps in {wall:.2f} s, {wall * 1e3 / n:.1f} ms per step, "
+              f"{P9_BATCH * n / wall:.1f} img/s, loader-wait share {wait / wall:.3f} (host clock)"
+              + (", first epoch of its run: the pool starts" if e in cold else ""))
+    warm = [e for e in range(len(epochs)) if e not in cold]
+    steps = sum(epochs[e][2] for e in warm)
+    ms = sum(epochs[e][1] for e in warm) * 1e3 / steps
+    print(f"phase 9 train: {ms:.1f} ms per step, {P9_BATCH * 1e3 / ms:.1f} img/s over the {steps} steps of epochs "
+          f"{warm}, the epochs with warm workers (host clock, loader in the loop, {P9_WORKERS} workers); "
+          f"loader-wait share {sum(epochs[e][0] for e in warm) / sum(epochs[e][1] for e in warm):.3f}; peak memory "
+          f"allocated {peak_gb:.2f} GB; run 1 {t2 - t1:.1f} s, run 2 (resume) {t3 - t2:.1f} s")
+    print(f"phase 9 val: {val_s * 1e3 / P9_VAL:.2f} ms per image over {P9_VAL} images (host clock, loader to "
+          f"metrics); {', '.join(f'{k} {v:.4f}' for k, v in metrics.results_dict.items())}")
+    print(f"phase 9 decode_box launches {launches['decode_box_best']} (expected {expected['decode_box_best']}: "
+          f"{n_val_batches} per validation of 3 epochs, {n_val_batches} in val, {-(-len(frames) // 4)} predict "
+          f"batches), val {val_launches}, plain-version calls {len(plain_calls)}; predict "
+          f"{sum(len(r) for r in results)} detections over {len(results)} frames")
 
-        with open(Path(tmp) / "runs" / "p9" / "results.csv") as f:
-            rows = list(csv.DictReader(f))
-        losses = [float(r[k]) for r in rows for k in ("box_loss", "cls_loss", "dfl_loss", "loss")]
-        print(f"results.csv: {len(rows)} rows, columns {list(rows[0])}")
-        if len(rows) != 3 or not np.isfinite(losses).all():
-            raise SystemExit(f"results.csv has {len(rows)} rows or loss items that are not finite: {losses}")
+    with open(Path(root) / "runs" / "p9" / "results.csv") as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r[k]) for r in rows for k in ("box_loss", "cls_loss", "dfl_loss", "loss")]
+    print(f"results.csv: {len(rows)} rows, columns {list(rows[0])}")
+    if len(rows) != 3 or not np.isfinite(losses).all():
+        raise SystemExit(f"results.csv has {len(rows)} rows or loss items that are not finite: {losses}")
 
-        payload, meta = load_checkpoint(Path(tmp) / "runs" / "p9" / "weights" / "last.ckpt")
-        saved = state_dict_from_jax({"params": payload["params"], "batch_stats": payload["batch_stats"]})
-        diff = max((saved[k] - v.detach().cpu()).abs().max().item() for k, v in second.state.params.items())
-        print(f"last.ckpt (epoch {meta['epoch']}) reloads into the trainer's params: max abs difference {diff}")
-        if diff != 0 or meta["epoch"] != 2:
-            raise SystemExit("last.ckpt does not hold the trainer's final parameters")
+    payload, meta = load_checkpoint(Path(root) / "runs" / "p9" / "weights" / "last.ckpt")
+    saved = state_dict_from_jax({"params": payload["params"], "batch_stats": payload["batch_stats"]})
+    diff = max((saved[k] - v.detach().cpu()).abs().max().item() for k, v in second.state.params.items())
+    print(f"last.ckpt (epoch {meta['epoch']}) reloads into the trainer's params: max abs difference {diff}")
+    if diff != 0 or meta["epoch"] != 2:
+        raise SystemExit("last.ckpt does not hold the trainer's final parameters")
 
-        ds = YOLODataset(str(Path(tmp) / "ds" / "images" / "train"), imgsz=IMGSZ, augment=True, hyp=vars(first.args), max_gt=first.args.max_gt)
-        cpu_loader = DataLoader(ds, P9_BATCH, shuffle=True, seed=3, workers=0)
-        cpu_loader.set_epoch(0)
-        want = next(iter(cpu_loader))
-        got = {k: v.cpu() for k, v in first.first_batch.items()}  # as the train step received it on the card
-        same = set(got) == set(want) and torch.equal(got["img"], torch.from_numpy(want["img"]).permute(0, 3, 1, 2))
-        same = same and all(np.array_equal(got[k].numpy(), want[k]) for k in want if k != "img")
-        print(f"first batch the card's train step received equals the CPU loader's batch (seed 3, epoch 0), byte "
-              f"for byte: {same}")
-        if not same:
-            raise SystemExit("the card trainer's first batch differs from the CPU loader's")
+    ds = YOLODataset(str(Path(root) / "ds" / "images" / "train"), imgsz=IMGSZ, augment=True, hyp=vars(first.args), max_gt=first.args.max_gt)
+    cpu_loader = DataLoader(ds, P9_BATCH, shuffle=True, seed=3, workers=0)
+    cpu_loader.set_epoch(0)
+    want = next(iter(cpu_loader))
+    got = {k: v.cpu() for k, v in first.first_batch.items()}  # as the train step received it on the card
+    same = set(got) == set(want) and torch.equal(got["img"], torch.from_numpy(want["img"]).permute(0, 3, 1, 2))
+    same = same and all(np.array_equal(got[k].numpy(), want[k]) for k in want if k != "img")
+    print(f"first batch the card's train step received equals the CPU loader's batch (seed 3, epoch 0), byte "
+          f"for byte: {same}")
+    if not same:
+        raise SystemExit("the card trainer's first batch differs from the CPU loader's")
+    return launches, data
+
+
+# phase 10: the bf16 graph (predict and val half=True, the amp train step, YOLO.train with its default amp)
+# card vs CPU, bf16 graph: cuDNN's bf16 convolutions (tensor cores) and the CPU's round apart, so the head levels
+# are held to a bf16-sized norm-relative gap, and rows are compared per anchor after the decode (the box decode's
+# xyxy box and best class logit for every anchor): with draw_weights' head the top 300 detections all sit in one
+# or two bf16 steps of saturated score, so which of them survive is a tie-break, not a measure (printed only)
+HALF_HEAD_NORM = 1e-2
+HALF_BOX_PX, HALF_LOGIT, HALF_ANCHOR_MIN = 1.0, 0.1, 0.99
+# the amp gradient against the float64 graph's (phase 7a's referee): with these random weights bf16 rounding,
+# carried through train-mode BatchNorm over the whole depth, moves the gradient far (on the CPU at 128 px, the JAX
+# package's own bf16 gradient is 0.616 of the float64 norm away, the port's 0.68: tests/test_torch_amp.py
+# test_amp_gradient_noise_matches_jax). Measured on an NVIDIA H100 80GB HBM3 at 700 W: 0.927 away, cosine 0.519.
+# The card's amp gradient must still point the float64 gradient's way
+AMP_GRAD_F64_RTOL, AMP_GRAD_F64_COS = 1.2, 0.25
+
+
+def decode_bound(feats, nc: int, out_floats: int, ops_per_anchor: int):
+    """(bound ms, bound_by) of one decode call on these levels: the levels read once, float32 outputs written once."""
+    b, a = feats[0].shape[0], sum(f.shape[2] * f.shape[3] for f in feats)
+    return bound(sum(f.nbytes for f in feats) + b * a * out_floats * 4, b * a * ops_per_anchor, PEAK_F32_OPS_PER_S)
+
+
+BOX_OPS = 4 * (6 * 16 + 1) + 12 + 8  # per anchor at nc 12, as check_decode_kernel counts them
+XYWH_OPS = 4 * (6 * 16 + 1) + 10 + 4 * 12
+
+
+def half_head(label, graph, run):
+    """The head levels of every forward of ``graph`` in ``run()``; fails unless all are bfloat16 and contiguous."""
+    import torch
+
+    heads = head_outputs(graph, run)
+    dtypes = sorted({str(f.dtype) for feats in heads for f in feats})
+    print(f"{label}: {len(heads)} forwards of the bf16 graph, head level dtypes {dtypes}")
+    if not heads or dtypes != [str(torch.bfloat16)] or not all(f.is_contiguous() for feats in heads for f in feats):
+        raise SystemExit(f"{label}: the half graph's head is not bfloat16 contiguous levels ({dtypes})")
+    return heads
+
+
+def half_predict_path(dev, host, model, frames):
+    """Phase 10a: predict(half=True) at batch 4: decode_box once per batch on bf16 levels, the plain
+    decode never; float32 and bf16 in turns; the bf16 graph on the card against the CPU's."""
+    import torch
+
+    from bsyolo_tpu_torch import kernels
+    from bsyolo_tpu_torch.kernels.decode import box_best, flatten_levels
+    from bsyolo_tpu_torch.ops.letterbox import letterbox
+
+    kw = dict(imgsz=IMGSZ, batch=4, conf=CONF)
+    model.predict(frames[:4], half=True, **kw)  # warm-up: the bf16 copy of the weights, cuDNN's bf16 plans
+    torch.cuda.synchronize()
+    heads = half_head("predict(half=True), one batch of 4", model.half_graph(),
+                      lambda: model.predict(frames[:4], half=True, **kw))
+    n_batches = math.ceil(N_FRAMES / 4)
+    with plain_decode_calls() as plain_calls:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = model.predict(frames, half=True, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = expect_launches("half predict", {"decode_box_best": n_batches, "decode_xywh": 0, "int8_matmul": 0})
+    if plain_calls:
+        raise SystemExit(f"predict(half=True) ran a decode's plain version {len(plain_calls)} times on the card")
+    batch_ms = wall * 1e3 / n_batches
+    print(f"predict(half=True) batch 4: {N_FRAMES / wall:.1f} img/s, {batch_ms:.1f} ms per batch (host clock, "
+          f"letterbox to Results), detections per frame {[len(r) for r in res]}")
+    check_finite("half predict", [r.boxes.data for r in res])
+    turns = []
+    for half in (False, True, True, False):
+        model.predict(frames[:4], half=half, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.predict(frames, half=half, **kw)
+        torch.cuda.synchronize()
+        turns.append((time.perf_counter() - t0) * 1e3 / n_batches)
+    print(f"float32 and bf16 predict in turns, ms per batch of 4 (host clock): float32 {turns[0]:.1f}, bf16 "
+          f"{turns[1]:.1f}, bf16 {turns[2]:.1f}, float32 {turns[3]:.1f}")
+    profile_once("predict(half=True), one batch of 4", lambda: model.predict(frames[:4], half=True, **kw), batch_ms)
+    profile_once("predict (float32, phase 3's path) in turn, one batch of 4", lambda: model.predict(frames[:4], **kw),
+                 min(turns[0], turns[3]))
+    # the graph alone (NMS iterations depend on the scores, so the whole path's device work mixes both)
+    xb = torch.stack([letterbox(f, (IMGSZ, IMGSZ), dev) for f in frames[:4]]).float() / 255.0
+    with torch.inference_mode():
+        for graph, what in ((model.half_graph(), "bf16"), (model.model, "float32")):
+            graph(xb)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            graph(xb)
+            torch.cuda.synchronize()
+            profile_once(f"the {what} graph alone, one batch of 4", lambda: graph(xb), (time.perf_counter() - t0) * 1e3)
+    spec = model.spec
+    feats = heads[0]
+    us = check_decode_stage(f"predict(half=True), batch of 4 (box_best on bf16 levels) "
+                            f"{[tuple(f.shape[2:]) for f in feats]}",
+                            lambda f: box_best(f, spec.head_strides, spec.nc, spec.reg_max), feats,
+                            counter=lambda: kernels.launch_counts()["decode_box_best"])
+    bound_ms, bound_by = decode_bound(feats, spec.nc, 5 + spec.nc, BOX_OPS)
+    print(f"  decode_box on that bf16 head: {us:.2f} us against a {bound_ms * 1e3:.2f} us bound ({bound_by})")
+
+    x = torch.stack([letterbox(f, (IMGSZ, IMGSZ), "cpu") for f in frames[:4]]).float() / 255.0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want = host.half_graph()(x)
+        got = model.half_graph()(x.to(dev))
+        f32 = flatten_levels(model.model(x.to(dev)))
+    errs = [((g.float().cpu() - w.float()).norm() / w.float().norm()).item() for g, w in zip(got, want)]
+    gap = ((flatten_levels(got).float() - f32).norm() / f32.norm()).item()
+    print(f"bf16 head levels card vs CPU (batch of 4; CPU {time.perf_counter() - t0:.1f} s): "
+          f"{', '.join(f'{e:.3g}' for e in errs)} of the norm (tol {HALF_HEAD_NORM}); the card's bf16 head is {gap:.3g} "
+          f"of the norm from its float32 head")
+    if max(errs) > HALF_HEAD_NORM or any(g.dtype != torch.bfloat16 for g in got):
+        raise SystemExit("the bf16 head on the card is not the CPU's bf16 head within the tolerance")
+    with torch.inference_mode():
+        gb, gbest, _ = box_best(got, spec.head_strides, spec.nc, spec.reg_max)
+        wb, wbest, _ = box_best(want, spec.head_strides, spec.nc, spec.reg_max)
+    box_err = (gb.cpu() - wb).abs().amax(-1)
+    logit_err = (gbest.cpu() - wbest).abs()
+    ok = ((box_err <= HALF_BOX_PX) & (logit_err <= HALF_LOGIT)).float().mean().item()
+    print(f"  decoded anchor rows card vs CPU ({box_err.numel()} anchors): {ok:.5f} with |box| <= {HALF_BOX_PX} px and "
+          f"|best logit| <= {HALF_LOGIT} (needs {HALF_ANCHOR_MIN}); box err p50/p99/max "
+          f"{np.quantile(box_err.numpy(), [0.5, 0.99, 1.0]).round(4).tolist()} px, best-logit err p50/p99/max "
+          f"{np.quantile(logit_err.numpy(), [0.5, 0.99, 1.0]).round(4).tolist()}")
+    if ok < HALF_ANCHOR_MIN:
+        raise SystemExit("the card's bf16 decoded rows differ from the CPU's beyond the tolerance")
+    compare_with_cpu("predict(half=True), 4 frames, printed only", [r.boxes.data for r in res[:4]],
+                     [r.boxes.data for r in host.predict(frames[:4], half=True, **kw)], 1.0, 1e-2, min_fraction=0.0)
+    return launches, {"device_us": us, "bound_ms": bound_ms, "bound_by": bound_by, "shape": "B4 640 bf16 head"}
+
+
+def half_tta_tiled_path(model, frames):
+    """Phase 10b: TTA and tiled predict on the half graph: decode_xywh three times per TTA batch and
+    once per tiled call, on bf16 levels, the plain decode never."""
+    import torch
+
+    from bsyolo_tpu_torch import kernels
+    from bsyolo_tpu_torch.engine.tiled import predict_tiled, tile_grid
+    from bsyolo_tpu_torch.nn.heads import decode_detections
+
+    kw = dict(imgsz=IMGSZ, batch=4, conf=CONF, half=True, augment=True)
+    big = np.random.default_rng(SEED + 1).integers(0, 256, (1080, 1920, 3), dtype=np.uint8)
+
+    def tiled():
+        return predict_tiled(model.half_graph(), model.spec, big, tile=IMGSZ, conf=CONF)
+
+    model.predict(frames[:4], **kw)  # warm-up: the 544 and 448 px plans in bf16
+    tiled()
+    torch.cuda.synchronize()
+    passes = half_head("TTA predict(half=True), one batch of 4", model.half_graph(),
+                       lambda: model.predict(frames[:4], **kw))
+    if len(passes) != 3:
+        raise SystemExit(f"one TTA batch ran the half graph {len(passes)} times, expected 3")
+    half_head("predict_tiled on the half graph, 1080x1920", model.half_graph(), tiled)
+    n_batches = math.ceil(N_FRAMES / 4)
+    with plain_decode_calls() as plain_calls:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = model.predict(frames, **kw)
+        torch.cuda.synchronize()
+        tta_ms = (time.perf_counter() - t0) * 1e3 / n_batches
+        t0 = time.perf_counter()
+        dets = tiled()
+        tiled_ms = (time.perf_counter() - t0) * 1e3
+        launches = expect_launches("half TTA and tiled predict",
+                                   {"decode_box_best": 0, "decode_xywh": 3 * n_batches + 1, "int8_matmul": 0})
+    if plain_calls:
+        raise SystemExit(f"TTA or tiled on the half graph ran a decode's plain version {len(plain_calls)} times")
+    check_finite("half TTA predict", [r.boxes.data for r in res])
+    check_finite("tiled on the half graph", [dets])
+    print(f"TTA predict(half=True) batch 4: {tta_ms:.1f} ms per batch; tiled on the half graph, 1080x1920 "
+          f"({len(tile_grid(1080, 1920, IMGSZ))} tiles): {tiled_ms:.1f} ms per frame, {len(dets)} detections (host clock)")
+    spec = model.spec
+    feats = passes[0]
+    us = check_decode_stage(f"TTA pass 1 of 3 on bf16 levels (decode_detections) {[tuple(f.shape[2:]) for f in feats]}",
+                            lambda f: decode_detections(f, spec.head_strides, spec.nc, spec.reg_max), feats,
+                            counter=lambda: kernels.launch_counts()["decode_xywh"])
+    bound_ms, bound_by = decode_bound(feats, spec.nc, 4 + spec.nc, XYWH_OPS)
+    print(f"  decode_xywh on that bf16 head: {us:.2f} us against a {bound_ms * 1e3:.2f} us bound ({bound_by})")
+    return launches, {"device_us": us, "bound_ms": bound_ms, "bound_by": bound_by, "shape": "B4 640 bf16 head"}
+
+
+def half_int8_path(dev, host, model, frames):
+    """Phase 10c: int8 on the half graph, batch 4: int8_matmul 74 times per forward with its bf16
+    epilogue (the profiler's kernel names), int8 rows against the CPU's as phase 6 holds them."""
+    import torch
+
+    from bsyolo_tpu_torch import kernels
+    from bsyolo_tpu_torch.nn.modules import quantizable_convs, set_int8_inference
+    from bsyolo_tpu_torch.nn.quant import calibrate_int8
+    from bsyolo_tpu_torch.ops.letterbox import letterbox
+
+    kw = dict(imgsz=IMGSZ, batch=4, conf=CONF, half=True)
+    batches = [torch.stack([letterbox(f, (IMGSZ, IMGSZ), dev) for f in frames[i : i + 4]]).float() / 255.0
+               for i in range(0, N_FRAMES, 4)]
+    scales = calibrate_int8(model.model, batches)
+    n_convs = len(quantizable_convs(model.model))
+    set_int8_inference(model.model, True, scales)
+    set_int8_inference(host.model, True, scales)
+    try:
+        model.predict(frames[:4], **kw)  # warm-up: a new bf16 copy with the int8 mode, its weight codes
+        torch.cuda.synchronize()
+        half = model.half_graph()
+        conv_out = []
+        first = next(m for _, m in quantizable_convs(half))
+        hook = first.bn.register_forward_pre_hook(lambda m, args: conv_out.append(args[0].dtype))
+        try:
+            heads = half_head("int8 predict(half=True), one batch of 4", half, lambda: model.predict(frames[:4], **kw))
+        finally:
+            hook.remove()
+        n_batches = math.ceil(N_FRAMES / 4)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = model.predict(frames, **kw)
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t0) * 1e3 / n_batches
+        launches = expect_launches("int8 predict on the half graph",
+                                   {"decode_box_best": n_batches, "decode_xywh": 0, "int8_matmul": n_convs * n_batches})
+        print(f"int8 predict(half=True) batch 4: {batch_ms:.1f} ms per batch (host clock); the first int8 conv "
+              f"writes {conv_out[0]}; {len(heads)} forward(s) checked")
+        kern = profile_once("int8 predict(half=True), one batch of 4", lambda: model.predict(frames[:4], **kw),
+                            batch_ms)
+        int8 = [(name, n) for name, _, n in kern if "int8_matmul_kernel" in name]
+        bf16 = sum(n for name, n in int8 if "bfloat16" in name)
+        print(f"  int8_matmul kernels the profiler recorded in that batch: {sum(n for _, n in int8)} (the launch "
+              f"counter: {n_convs} per forward), {bf16} of them the bf16 epilogue: {sorted({name[:90] for name, _ in int8})}")
+        if conv_out[0] != torch.bfloat16 or not int8 or bf16 != sum(n for _, n in int8):
+            raise SystemExit("the int8 convs of the half graph did not write bfloat16 through the kernel's bf16 epilogue")
+        got = [r.boxes.data for r in res]
+        check_finite("int8 predict(half=True)", got)
+        want = [r.boxes.data for r in host.predict(frames[:4], **kw)]
+        compare_with_cpu("int8 predict(half=True), 4 frames", got[:4], want, INT8_MATCH_BOX_PX, INT8_MATCH_SCORE,
+                         INT8_MATCH_MIN_FRACTION)
+    finally:
+        set_int8_inference(model.model, False)
+        set_int8_inference(host.model, False)
     return launches
 
 
-def kernel_entry(name, source, replaces, launches, row):
+def amp_step_path(dev, model, seeded, f32_figures, referee):
+    """Phase 10d: the amp train step (phase 7b on the bf16 graph): 30 steps at batch 16, its figures
+    beside phase 7b's, float32 and amp in turns; one amp gradient against phase 7a's float64 referee."""
+    import torch
+
+    from bsyolo_tpu_torch.engine.train_step import init_train_state, make_train_step
+    from bsyolo_tpu_torch.nn.model import set_compute_dtype
+
+    batch4, ref_grads = referee
+    model.model.load_state_dict(seeded)
+    set_compute_dtype(model.model, torch.bfloat16)
+    try:
+        _, grads = loss_gradients(model.model, model.spec, on_device(batch4, dev), dev)
+        whole = against_float64("card, amp", grads, ref_grads)
+        cos = (sum((grads[n].double() * g).sum().item() for n, g in ref_grads.items())
+               / (_whole_norm(grads.values()) * _whole_norm(ref_grads.values())))
+        print(f"  the amp gradient is {whole:.3g} of the float64 gradient's norm away (tol {AMP_GRAD_F64_RTOL}), cosine "
+              f"{cos:.3f} (at least {AMP_GRAD_F64_COS})")
+        if not (whole <= AMP_GRAD_F64_RTOL and cos >= AMP_GRAD_F64_COS):
+            raise SystemExit("the amp step's gradient is too far from the float64 graph's")
+        model.model.load_state_dict(seeded)
+        state, amp = train_path(dev, model, label="amp train")
+        del state
+        for key, what in (("ms", "ms per step"), ("device_ms", "ms of device work per step"), ("busy", "device busy"),
+                          ("peak_gb", "GB peak memory allocated")):
+            print(f"  amp vs float32 (phase 7b): {amp[key]:.3f} vs {f32_figures[key]:.3f} {what}")
+        top = sorted(set(amp["kernels"]) | set(f32_figures["kernels"]),
+                     key=lambda k: -max(amp["kernels"].get(k, 0), f32_figures["kernels"].get(k, 0)))[:8]
+        for name in top:
+            print(f"  {amp['kernels'].get(name, 0) / 1e3:8.3f} ms amp, {f32_figures['kernels'].get(name, 0) / 1e3:8.3f} "
+                  f"ms float32 per step  {name[:90]}")
+        cfg = train_config(model.spec, TRAIN_BATCH)
+        batch = on_device(synthetic_batch(np.random.default_rng(SEED + 11), TRAIN_BATCH, (IMGSZ, IMGSZ),
+                                          len(model.names)), dev)
+        state = init_train_state(model.model, cfg)
+        step = make_train_step(model.model, cfg)
+        turns = []
+        for dtype in (torch.float32, torch.bfloat16, torch.bfloat16, torch.float32):
+            set_compute_dtype(model.model, dtype)
+            for _ in range(2):
+                state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            for _ in range(8):
+                state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            turns.append(((time.perf_counter() - t0) * 1e3 / 8, torch.cuda.max_memory_allocated(dev) / 1e9))
+        print("float32 and amp steps in turns, batch 16 (ms per step, peak GB): " + ", ".join(
+            f"{name} {ms:.2f} ({gb:.2f})" for name, (ms, gb) in zip(("float32", "amp", "amp", "float32"), turns)))
+    finally:
+        set_compute_dtype(model.model, torch.float32)
+    return amp
+
+
+def amp_trainer_path(dev, data, root):
+    """Phase 10e: YOLO("yolo11n.yaml").train(...) with its default amp=True on phase 9's dataset, 2 epochs
+    at batch 16, then YOLO(best.ckpt).val(half=True): decode_box once per validation batch on bf16 levels."""
+    from pathlib import Path
+
+    import torch
+
+    from bsyolo_tpu_torch import YOLO, kernels
+    from bsyolo_tpu_torch.nn.model import compute_dtype
+
+    run = dict(data=str(data), imgsz=IMGSZ, batch=P9_BATCH, plots=False, workers=P9_WORKERS, seed=3,
+               project=str(Path(root) / "runs"), name="p10", exist_ok=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    n_val_batches = -(-P9_VAL // P9_BATCH)
+    with plain_decode_calls() as plain_calls:
+        kernels.reset_launch_counts()
+        model = YOLO("yolo11n.yaml")
+        t0 = time.perf_counter()
+        model.train(epochs=2, close_mosaic=1, **run)
+        train_s = time.perf_counter() - t0
+        tr = model.trainer
+        if not (tr.args.amp is True and compute_dtype(tr.model) == torch.bfloat16 and compute_dtype(model.model)
+                == torch.bfloat16 and all(p.dtype == torch.float32 for p in tr.model.parameters())):
+            raise SystemExit("YOLO.train with its default arguments did not train the bf16 graph over float32 weights")
+        loaded = YOLO(Path(root) / "runs" / "p10" / "weights" / "best.ckpt")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        heads = head_outputs(loaded.half_graph(), lambda: loaded.val(data=str(data), batch=P9_BATCH, half=True))
+        val_s = time.perf_counter() - t1
+        launches = expect_launches("amp training and val(half=True)",
+                                   {"decode_box_best": 2 * n_val_batches + n_val_batches, "decode_xywh": 0,
+                                    "int8_matmul": 0})
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if plain_calls or not heads or any(f.dtype != torch.bfloat16 for feats in heads for f in feats):
+        raise SystemExit(f"val(half=True) ran a plain decode ({len(plain_calls)}) or a head that is not bfloat16")
+    bound_ms, bound_by = decode_bound(heads[0], loaded.spec.nc, 5 + loaded.spec.nc, BOX_OPS)
+    print(f"  decode_box on the validation batch's bf16 head {tuple(heads[0][0].shape)}...: bound {bound_ms * 1e3:.2f} us "
+          f"({bound_by})")
+    for e, (wait, wall, n) in enumerate(tr.loader_wait):
+        print(f"  amp epoch {e}: {n} steps in {wall:.2f} s, {wall * 1e3 / n:.1f} ms per step, {P9_BATCH * n / wall:.1f} "
+              f"img/s, loader-wait share {wait / wall:.3f} (host clock)" + (", the pool starts" if e == 0 else ""))
+    wait, wall, n = tr.loader_wait[1]
+    losses = [float(v) for v in tr.epoch_metrics.values()]
+    print(f"phase 10e train (amp): {wall * 1e3 / n:.1f} ms per step, {P9_BATCH * n / wall:.1f} img/s over the {n} "
+          f"steps of epoch 1, the epoch with warm workers; loader-wait share {wait / wall:.3f}; peak memory allocated "
+          f"{peak_gb:.2f} GB; {train_s:.1f} s for 2 epochs; val(half=True) {val_s * 1e3 / P9_VAL:.2f} ms per image, "
+          f"{loaded.metrics.results_dict}")
+    if not np.isfinite(losses).all():
+        raise SystemExit(f"amp training gave loss items that are not finite: {tr.epoch_metrics}")
+    return launches
+
+
+def kernel_entry(name, source, replaces, launches, row, bf16_launches, bf16_head=None):
+    """One entry of the kernels line; ``launches`` counts every path's run, ``bf16_launches`` those of
+    phase 10's bf16 paths among them, ``bf16_head`` the kernel on a real forward's bf16 head."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+            "bf16_launches": bf16_launches, **({"bf16_head": bf16_head} if bf16_head else {}),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
             "shape": row["shape"], "call_ms": row["call_ms"], "plain_call_ms": row["plain_call_ms"],
             **({"host_us_per_call": row["host_us_per_call"]} if "host_us_per_call" in row else {}),
             **({"two_byte_levels": row["two_byte_levels"]} if "two_byte_levels" in row else {})}
+
+
+def phase(name: str, fn, *args):
+    """Run one phase of the smoke and print its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name} done in {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -1626,35 +2019,49 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__} CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}, TF32 off")
     t0 = time.perf_counter()
-    build_kernels()
+    phase("1 (build)", build_kernels)
+    t2 = time.perf_counter()
     box_row = check_decode_kernel(dev)
     xywh_row = check_decode_xywh_kernel(dev)
     half_rows = check_decode_2_byte_levels(dev)
     box_row["two_byte_levels"] = half_rows["decode_box_best"]
     xywh_row["two_byte_levels"] = half_rows["decode_xywh"]
     int8_err = check_int8_kernel(dev)
+    print(f"phase 2 done in {time.perf_counter() - t2:.1f} s")
     host, model, frames = make_models(dev)
-    predict_launches = predict_path(dev, host, model, frames)
-    tta_launches = tta_path(host, model, frames)
-    tiled_launches = tiled_path(host, model)
-    int8_launches, int8_row = int8_path(dev, host, model, frames)
+    predict_launches = phase("3", predict_path, dev, host, model, frames)
+    tta_launches = phase("4", tta_path, host, model, frames)
+    tiled_launches = phase("5", tiled_path, host, model)
+    int8_launches, int8_row = phase("6", int8_path, dev, host, model, frames)
+    # 10a to 10c drive the inference paths on the bf16 graph while the float graph is as phases 3 to 6 left it;
+    # 10d and 10e come after the training phases whose figures and dataset they use
+    half_launches, box_half = phase("10a", half_predict_path, dev, host, model, frames)
+    half_xywh_launches, xywh_half = phase("10b", half_tta_tiled_path, model, frames)
+    half_int8_launches = phase("10c", half_int8_path, dev, host, model, frames)
     seeded = {k: v.clone() for k, v in model.model.state_dict().items()}
-    train_step_against_cpu(dev, host, model)
+    referee = phase("7a", train_step_against_cpu, dev, host, model)
     model.model.load_state_dict(seeded)  # 7b starts from the seeded weights too
-    state = train_path(dev, model)
-    val_launches = val_path(dev, host, model, state)
+    state, f32_step = phase("7b", train_path, dev, model)
+    val_launches = phase("8", val_path, dev, host, model, state)
     del state
-    trainer_launches = trainer_path(dev, frames)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        trainer_launches, data = phase("9", trainer_path, dev, frames, Path(root))
+        phase("10d", amp_step_path, dev, model, seeded, f32_step, referee)
+        amp_launches = phase("10e", amp_trainer_path, dev, data, root)
+    bf16 = {k: half_launches[k] + half_xywh_launches[k] + half_int8_launches[k] + amp_launches[k]
+            for k in half_launches}
     kernels_line = {"kernels": [
         kernel_entry("decode_box_best", "bsyolo_tpu_torch/kernels/csrc/decode.cu", "bsyolo_tpu/kernels/decode.py:124",
                      predict_launches["decode_box_best"] + val_launches["decode_box_best"]
-                     + trainer_launches["decode_box_best"], box_row),
+                     + trainer_launches["decode_box_best"] + bf16["decode_box_best"], box_row,
+                     bf16["decode_box_best"], box_half),
         kernel_entry("decode_xywh", "bsyolo_tpu_torch/kernels/csrc/decode.cu",
                      "bsyolo_tpu/kernels/decode.py:34",
-                     tta_launches["decode_xywh"] + tiled_launches["decode_xywh"], xywh_row),
+                     tta_launches["decode_xywh"] + tiled_launches["decode_xywh"] + bf16["decode_xywh"], xywh_row,
+                     bf16["decode_xywh"], xywh_half),
         kernel_entry("int8_matmul", "bsyolo_tpu_torch/kernels/csrc/int8_matmul.cu",
-                     "bsyolo_tpu/kernels/int8_matmul.py:38", int8_launches["int8_matmul"],
-                     dict(max_abs_err=int8_err, **int8_row)),
+                     "bsyolo_tpu/kernels/int8_matmul.py:38", int8_launches["int8_matmul"] + bf16["int8_matmul"],
+                     dict(max_abs_err=int8_err, **int8_row), bf16["int8_matmul"]),
     ]}
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(card)

@@ -620,3 +620,130 @@ def test_yolo_val_launches_the_box_kernel_once_per_batch(cuda_device, tmp_path):
     assert kernels.launch_counts() == {"decode_box_best": 2, "decode_xywh": 0, "int8_matmul": 0}
     want = YOLO(path, device="cpu").val(data=str(data), batch=4, imgsz=64)
     np.testing.assert_allclose(list(got.results_dict.values()), list(want.results_dict.values()), atol=1e-6)
+
+
+# --- the bf16 graph (half, amp) ------------------------------------------------------------------
+
+HALF_HEAD_NORM = 1e-2  # bf16 head levels, card against CPU: cuDNN's and the CPU's bf16 convolutions round apart
+
+
+def _seeded_yolo11n(device):
+    """yolo11n with seeded weights that spread the head's logits (the default init ties every score)."""
+    from bsyolo_tpu_torch import YOLO
+
+    m = YOLO("yolo11n.yaml", device="cpu")
+    g = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for name, t in m.model.state_dict().items():
+            if t.dim() >= 2:
+                t.copy_(torch.empty(t.shape).uniform_(-1, 1, generator=g) * (3.0 / t[0].numel()) ** 0.5)
+            elif name.endswith(("running_var", "bn.weight")):
+                t.copy_(torch.empty(t.shape).uniform_(0.5, 1.5, generator=g))
+            elif t.is_floating_point():
+                t.copy_(torch.empty(t.shape).uniform_(-0.1, 0.1, generator=g))
+    card = YOLO("yolo11n.yaml", device=device)
+    card.model.load_state_dict(m.model.state_dict())
+    return m, card
+
+
+def test_bf16_graph_on_the_card_matches_the_cpu(cuda_device):
+    """The facade's bf16 graph (half_graph) on the card against the same graph on the CPU: bfloat16
+    head levels, each within HALF_HEAD_NORM of the CPU's, norm-relative."""
+    host, card = _seeded_yolo11n(cuda_device)
+    x = torch.from_numpy(np.random.default_rng(5).uniform(0, 1, (2, 3, 128, 128)).astype(np.float32))
+    with torch.inference_mode():
+        want = host.half_graph()(x)
+        got = card.half_graph()(x.to(cuda_device))
+    for g, w in zip(got, want):
+        err = ((g.float().cpu() - w.float()).norm() / w.float().norm()).item()
+        print(f"bf16 level {tuple(g.shape)}: card vs CPU {err:.3g} of the norm")
+        assert g.dtype == w.dtype == torch.bfloat16 and g.is_contiguous() and err <= HALF_HEAD_NORM
+
+
+def test_half_predict_launches_the_decode_kernels_on_bf16_levels(cuda_device):
+    """predict(half=True): decode_box once per batch, on the bf16 head, never the plain version; with
+    augment, decode_xywh three times per batch; predict_tiled on the half graph, decode_xywh once.
+    The kernels' outputs on that head equal their plain versions' on the same levels."""
+    from bsyolo_tpu_torch import kernels
+    from bsyolo_tpu_torch.engine.tiled import predict_tiled
+    from bsyolo_tpu_torch.kernels import decode
+
+    _, card = _seeded_yolo11n(cuda_device)
+    frames = [np.random.default_rng(i).integers(0, 256, (96, 128, 3), dtype=np.uint8) for i in range(3)]
+    heads = []
+    half = card.half_graph()
+    half.model[-1].register_forward_hook(lambda m, a, out: heads.append(out))
+    calls = []
+    plain_box, plain_xywh = decode.box_best_reference, decode.decode_xywh_reference
+    decode.box_best_reference = lambda *a, **k: calls.append(1) or plain_box(*a, **k)
+    decode.decode_xywh_reference = lambda *a, **k: calls.append(1) or plain_xywh(*a, **k)
+    try:
+        kernels.reset_launch_counts()
+        res = card.predict(frames, imgsz=128, conf=0.001, batch=2, half=True)
+        assert kernels.launch_counts() == {"decode_box_best": 2, "decode_xywh": 0, "int8_matmul": 0}
+        kernels.reset_launch_counts()
+        card.predict(frames, imgsz=128, conf=0.001, batch=2, half=True, augment=True)
+        assert kernels.launch_counts() == {"decode_box_best": 0, "decode_xywh": 6, "int8_matmul": 0}
+        kernels.reset_launch_counts()
+        tiled = predict_tiled(card.half_graph(), card.spec, np.zeros((200, 300, 3), np.uint8) + 90, tile=128,
+                              conf=0.001)
+        assert kernels.launch_counts() == {"decode_box_best": 0, "decode_xywh": 1, "int8_matmul": 0}
+    finally:
+        decode.box_best_reference, decode.decode_xywh_reference = plain_box, plain_xywh
+    assert not calls and all(f.dtype == torch.bfloat16 for feats in heads for f in feats)
+    assert all(np.isfinite(r.boxes.data).all() for r in res) and np.isfinite(tiled).all()
+    spec, feats = card.spec, heads[0]
+    boxes, best, cls = decode.box_best_cuda(feats, spec.head_strides, spec.nc)
+    wb, wbest, wcls = plain_box(feats, spec.head_strides, spec.nc)
+    np.testing.assert_allclose(boxes.cpu().numpy(), wb.cpu().numpy(), rtol=1e-5, atol=2e-3)
+    assert torch.equal(best, wbest) and torch.equal(cls, wcls)
+    xywh, want = decode.decode_xywh_cuda(feats, spec.head_strides, spec.nc), plain_xywh(feats, spec.head_strides, spec.nc)
+    np.testing.assert_allclose(xywh.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=2e-3)
+
+
+@pytest.mark.parametrize("k,s,static", [(1, 1, False), (3, 2, True)])
+def test_int8_conv_on_the_half_graph_returns_bf16(cuda_device, k, s, static):
+    """An int8 Conv computing in bfloat16: the kernel's bf16 epilogue on the card equals the plain
+    version's bf16 epilogue on the CPU exactly (the same codes, int32 sums, one rounding), and the
+    Conv returns bfloat16."""
+    from bsyolo_tpu_torch.kernels.int8_matmul import int8_matmul_cuda
+    from bsyolo_tpu_torch.nn.model import set_compute_dtype
+    from bsyolo_tpu_torch.nn.modules import Conv, set_int8_inference
+
+    rng = np.random.default_rng(k * 10 + s)
+    torch.manual_seed(k * 10 + s)
+    host = set_compute_dtype(Conv(48, 64, k, s).eval(), torch.bfloat16)
+    card = set_compute_dtype(Conv(48, 64, k, s).to(cuda_device).eval(), torch.bfloat16)
+    card.load_state_dict(host.state_dict())
+    x = torch.from_numpy(rng.normal(0, 1, (4, 48, 40, 40)).astype(np.float32)).to(torch.bfloat16)
+    scales = {"conv": 0.9 * x.float().abs().max().item()} if static else None
+    set_int8_inference(host, True, scales)
+    set_int8_inference(card, True, scales)
+    before = int8_matmul_cuda.launches
+    with torch.inference_mode():
+        want, got = host._int8_conv(x), card._int8_conv(x.to(cuda_device))
+        out = card(x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert int8_matmul_cuda.launches == before + 2
+    assert got.dtype == want.dtype == out.dtype == torch.bfloat16
+    assert torch.equal(got.cpu(), want)
+
+
+def test_yolo_train_with_the_default_amp_on_the_card(cuda_device, tmp_path):
+    """YOLO.train with amp left at its default (True) on tiny.yaml at 64 px: the bf16 graph, float32
+    parameters, finite losses; the validation launches decode_box once on bf16 levels."""
+    from pathlib import Path
+
+    from bsyolo_tpu_torch import YOLO, kernels
+    from bsyolo_tpu_torch.nn.model import compute_dtype
+
+    data = _png_dataset(tmp_path / "ds")
+    m = YOLO(str(Path(__file__).parent / "fixtures" / "tiny.yaml"))
+    kernels.reset_launch_counts()
+    m.train(data=str(data), epochs=1, imgsz=64, batch=8, nbs=8, workers=0, plots=False,
+            project=str(tmp_path / "runs"), name="amp")
+    assert kernels.launch_counts() == {"decode_box_best": 1, "decode_xywh": 0, "int8_matmul": 0}
+    assert m.trainer.args.amp is True and compute_dtype(m.model) == torch.bfloat16
+    assert all(p.dtype == torch.float32 and p.device == cuda_device for p in m.model.parameters())
+    rows = (tmp_path / "runs" / "amp" / "results.csv").read_text().splitlines()
+    assert len(rows) == 2 and all(np.isfinite(float(x)) for x in rows[1].split(","))

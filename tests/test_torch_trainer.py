@@ -224,14 +224,30 @@ def test_cli_train_val_predict(legs, tmp_path):
 
 
 @pytest.mark.parametrize("option,item", [
-    ({"amp": True}, "item 17"), ({"plots": True}, "item 16"), ({"profile": True}, "item 16"),
-    ({"batch": -1}, "item 16"), ({"chunk_steps": 4}, "item 22"), ({"assigner_bf16": True}, "item 17"),
+    ({"plots": True}, "item 16"), ({"profile": True}, "item 16"), ({"batch": -1}, "item 16"),
+    ({"chunk_steps": 4}, "item 22"),
 ])
 def test_unported_options_raise_naming_their_item(option, item):
     from bsyolo_tpu_torch.engine.trainer import DetectionTrainer
 
     with pytest.raises(NotImplementedError, match=item):
         DetectionTrainer(overrides=dict(COMMON, data="x.yaml", device="cpu", **option))
+
+
+@pytest.mark.parametrize("option", [{"amp": True}, {"assigner_bf16": True}], ids=["amp", "assigner_bf16"])
+def test_bf16_options_run(option, legs):
+    """amp and assigner_bf16, refused until the bf16 graph was ported, set up and take a step."""
+    import torch
+
+    from bsyolo_tpu_torch.engine.trainer import DetectionTrainer, to_device
+    from bsyolo_tpu_torch.nn.model import compute_dtype
+
+    tr = DetectionTrainer(overrides=dict(COMMON, data=str(legs["data"]), device="cpu", **option))
+    tr.setup()
+    assert compute_dtype(tr.model) == (torch.bfloat16 if option.get("amp") else torch.float32)
+    assert tr.step_cfg.loss.assigner_bf16 == bool(option.get("assigner_bf16"))
+    tr.state, m = tr.train_step(tr.state, to_device(next(iter(tr.train_loader)), tr.device))
+    assert torch.isfinite(m["loss"]) and m["updated"] == 1
 
 
 def test_unported_processes_modes_tasks_and_formats_raise(monkeypatch):
@@ -252,8 +268,9 @@ def test_unported_processes_modes_tasks_and_formats_raise(monkeypatch):
 
 
 @pytest.mark.parametrize("mode,option,item", [
-    ("val", "half=True", "item 17"), ("val", "save_json=True", "item 20"), ("val", "plots=True", "item 20"),
-    ("predict", "half=True", "item 17"), ("predict", "save=True", "item 17"), ("predict", "visualize=True", "item 17"),
+    ("val", "save_txt=True", "item 20"), ("val", "save_json=True", "item 20"), ("val", "plots=True", "item 20"),
+    ("predict", "vid_stride=2", "item 17"), ("predict", "save=True", "item 17"), ("predict", "visualize=True", "item 17"),
+    ("predict", "show=True", "item 17"), ("predict", "embed=True", "item 17"),
 ])
 def test_cli_passes_unported_val_and_predict_options_to_the_facade(mode, option, item, tmp_path):
     from bsyolo_tpu_torch.cli import main
