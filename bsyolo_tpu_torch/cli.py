@@ -1,12 +1,13 @@
-"""Command line of the port (counterpart of ``bsyolo_tpu/cli.py``), modes train, val and predict:
+"""Command line of the port (counterpart of ``bsyolo_tpu/cli.py``), modes train, val, predict and track:
 
     python -m bsyolo_tpu_torch train data=car.yaml model=yolo11n.yaml epochs=100 plots=False
     python -m bsyolo_tpu_torch val model=runs/detect/train/weights/best.ckpt data=car.yaml
     python -m bsyolo_tpu_torch predict model=best.ckpt source=images/ conf=0.25 half=True
+    python -m bsyolo_tpu_torch track model=best.ckpt source=clip.mp4 tracker=bytetrack.yaml
 
 Arguments are ``key=value`` pairs of ``cfg/default.yaml`` plus ``model``, ``data`` and
 ``source``; ``device=cpu`` runs on the host (the card is the default). Every other
-key goes on to ``YOLO.train``, ``YOLO.val`` or ``YOLO.predict``, which raise on the
+key goes on to ``YOLO.train``, ``YOLO.val``, ``YOLO.predict`` or ``YOLO.track``, which raise on the
 options the port does not have yet. The task, if given, is ``detect``. Other modes
 and tasks raise, naming the ROADMAP item that brings them.
 """
@@ -20,8 +21,8 @@ from typing import Dict, List
 from bsyolo_tpu_torch.cfg import DEFAULT_CFG_DICT, check_dict_alignment
 from bsyolo_tpu_torch.utils import LOGGER
 
-MODES = {"train", "val", "predict"}
-_NOT_PORTED_MODES = {"track": "item 11", "export": "item 15", "benchmark": "item 15"}
+MODES = {"train", "val", "predict", "track"}
+_NOT_PORTED_MODES = {"export": "item 15", "benchmark": "item 15"}
 _NOT_PORTED_TASKS = {"segment": "item 12", "pose": "item 12", "obb": "item 12", "classify": "item 12"}
 
 
@@ -87,8 +88,9 @@ def main(argv=None) -> int:
     else:
         source = overrides.pop("source", None)
         if source is None:
-            raise SyntaxError("predict requires source=<path>")
-        results = model.predict(source, **{k: v for k, v in overrides.items() if v is not None})
+            raise SyntaxError(f"{mode} requires source=<path>")
+        fn = model.track if mode == "track" else model.predict
+        results = fn(source, **{k: v for k, v in overrides.items() if v is not None})
         LOGGER.info(f"{len(results)} frames processed")
         print(f"{len(results)} frames, {sum(len(r) for r in results)} detections")
     return 0

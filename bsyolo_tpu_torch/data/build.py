@@ -26,6 +26,7 @@ import threading
 from typing import Dict, Iterator, Optional
 
 import numpy as np
+import torch
 
 from bsyolo_tpu_torch.data.dataset import YOLODataset
 
@@ -35,6 +36,7 @@ _WORKER_LOADER = None
 def _worker_init(loader):
     global _WORKER_LOADER
     _WORKER_LOADER = loader
+    torch.set_num_threads(1)  # data/cv.py resize runs on torch: one thread per worker, as in torch's own loader
 
 
 def _worker_assemble(args):

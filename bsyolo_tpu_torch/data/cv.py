@@ -14,10 +14,10 @@ here, on uint8 (h, w[, c]) images:
 | ``rgb2gray`` | ``cv2.cvtColor`` RGB2GRAY (OpenCV's 15-bit fixed-point weights) |
 | ``clahe`` | ``cv2.createCLAHE(...).apply`` on the L channel of ``cv2.cvtColor`` RGB2LAB |
 
-``lut``, ``blur``, ``median_blur``, ``rgb2gray``, ``bgr2hsv`` and ``rgb2lab``
-compute what OpenCV computes, byte for byte. The others compute the same function in floating
-point where OpenCV uses fixed point or other roundings, and may differ from
-it by a grey level on some bytes; ``tests/test_torch_data.py`` measures each
+``lut``, ``blur``, ``median_blur``, ``rgb2gray``, ``bgr2hsv``, ``rgb2lab`` and the
+INTER_LINEAR ``resize`` compute what OpenCV computes, byte for byte. The others compute
+the same function in floating point where OpenCV uses fixed point or other roundings,
+and may differ from it by a grey level on some bytes; ``tests/test_torch_data.py`` measures each
 op's residue against the installed OpenCV (ROADMAP, "Known differences").
 """
 
@@ -27,6 +27,9 @@ import math
 from typing import Tuple
 
 import numpy as np
+import torch
+
+from bsyolo_tpu_torch.ops.resize import resize_linear_u8
 
 INTER_LINEAR, INTER_AREA = 1, 3
 
@@ -36,22 +39,6 @@ def _round_u8(x: np.ndarray) -> np.ndarray:
 
 
 # --- resize ------------------------------------------------------------------------------------------
-
-
-def _linear_weights(n_out: int, n_in: int) -> np.ndarray:
-    """(n_out, n_in) bilinear weights, pixel centres aligned (OpenCV's INTER_LINEAR), edges clamped."""
-    scale = n_in / n_out
-    f = (np.arange(n_out) + 0.5) * scale - 0.5
-    i0 = np.floor(f).astype(np.int64)
-    t = (f - i0).astype(np.float32)
-    t = np.where(i0 < 0, 0.0, t)
-    i0 = np.clip(i0, 0, n_in - 1)
-    i1 = np.minimum(i0 + 1, n_in - 1)
-    t = np.where(i0 >= n_in - 1, 0.0, t)
-    wts = np.zeros((n_out, n_in), np.float32)
-    np.add.at(wts, (np.arange(n_out), i0), 1 - t)
-    np.add.at(wts, (np.arange(n_out), i1), t)
-    return wts
 
 
 def _area_weights(n_out: int, n_in: int) -> np.ndarray:
@@ -66,21 +53,23 @@ def _area_weights(n_out: int, n_in: int) -> np.ndarray:
 
 
 def resize(img: np.ndarray, dsize: Tuple[int, int], interpolation: int = INTER_LINEAR) -> np.ndarray:
-    """``cv2.resize(img, (w, h), interpolation=...)``: INTER_LINEAR, or INTER_AREA when
-    shrinking (INTER_AREA when enlarging falls back to INTER_LINEAR here)."""
+    """``cv2.resize(img, (w, h), interpolation=...)``: INTER_LINEAR (``ops/resize.py resize_linear_u8``,
+    OpenCV's 8-bit fixed-point arithmetic), or INTER_AREA when shrinking (INTER_AREA when enlarging
+    falls back to INTER_LINEAR here)."""
     w, h = int(dsize[0]), int(dsize[1])
     h0, w0 = img.shape[:2]
     if (h, w) == (h0, w0):
         return img.copy()
-    area = interpolation == INTER_AREA and h <= h0 and w <= w0
-    if interpolation == INTER_LINEAR and h0 == 2 * h and w0 == 2 * w:
-        area = True  # OpenCV takes the area path for an exact halving
-    wy = _area_weights(h, h0) if area else _linear_weights(h, h0)
-    wx = _area_weights(w, w0) if area else _linear_weights(w, w0)
+    if interpolation != INTER_AREA or h > h0 or w > w0:
+        x = torch.from_numpy(np.ascontiguousarray(img))
+        x = x.permute(2, 0, 1) if img.ndim == 3 else x
+        out = resize_linear_u8(x, (h, w))
+        return np.ascontiguousarray((out.permute(1, 2, 0) if img.ndim == 3 else out).numpy())
+    wy, wx = _area_weights(h, h0), _area_weights(w, w0)
     c = img.shape[2] if img.ndim == 3 else 1
     x = (wy @ img.reshape(h0, w0 * c).astype(wy.dtype)).reshape(h, w0, c)  # rows, then columns
     out = (x.transpose(0, 2, 1) @ wx.T).transpose(0, 2, 1)
-    if area and h0 % h == 0 and w0 % w == 0:  # OpenCV's integer-factor path rounds halves up
+    if h0 % h == 0 and w0 % w == 0:  # OpenCV's integer-factor path rounds halves up
         return np.clip(np.floor(out + 0.5), 0, 255).astype(np.uint8).reshape((h, w) + img.shape[2:])
     return _round_u8(out).reshape((h, w) + img.shape[2:])
 
@@ -155,13 +144,13 @@ def warp_perspective(img: np.ndarray, m: np.ndarray, dsize: Tuple[int, int],
 # --- colour ------------------------------------------------------------------------------------------
 
 _HSV_SHIFT = 12
-_SDIV = np.concatenate([[0], np.rint((255 << _HSV_SHIFT) / np.arange(1, 256, dtype=np.float64))]).astype(np.int64)
-_HDIV = np.concatenate([[0], np.rint((180 << _HSV_SHIFT) / (6.0 * np.arange(1, 256)))]).astype(np.int64)
+_SDIV = np.concatenate([[0], np.rint((255 << _HSV_SHIFT) / np.arange(1, 256, dtype=np.float64))]).astype(np.int32)
+_HDIV = np.concatenate([[0], np.rint((180 << _HSV_SHIFT) / (6.0 * np.arange(1, 256)))]).astype(np.int32)
 
 
 def bgr2hsv(img: np.ndarray) -> np.ndarray:
     """``cv2.cvtColor(img, cv2.COLOR_BGR2HSV)`` on uint8: H in [0, 180), OpenCV's integer tables."""
-    b, g, r = (img[..., i].astype(np.int64) for i in range(3))
+    b, g, r = (img[..., i].astype(np.int32) for i in range(3))  # products stay below 2**28
     v = np.maximum(np.maximum(b, g), r)
     diff = v - np.minimum(np.minimum(b, g), r)
     s = (diff * _SDIV[v] + (1 << (_HSV_SHIFT - 1))) >> _HSV_SHIFT

@@ -1,6 +1,8 @@
 """Detection predictor (counterpart of ``bsyolo_tpu/engine/predictor.py``, detect branch).
 
-Sources (numpy frames, lists of them, image files and directories) ->
+Sources (numpy frames, lists of them, image files, directories, globs, video
+files and URLs read with OpenCV every ``vid_stride``-th frame, webcam indices
+and ``.streams`` lists through ``data/streams.py LoadStreams``) ->
 letterbox on the model's device -> uint8 batches of ``batch`` frames (the
 last one padded by repeating its last frame, so every batch has one shape)
 -> /255, graph, fused decode and NMS on the device -> boxes scaled back to
@@ -25,26 +27,32 @@ import torch
 import torch.nn.functional as F
 
 from bsyolo_tpu_torch.data.imread import imread
+from bsyolo_tpu_torch.data.streams import LoadStreams
 from bsyolo_tpu_torch.engine.results import Results
 from bsyolo_tpu_torch.kernels.postprocess import detect_postprocess
 from bsyolo_tpu_torch.nn.heads import decode_detections
 from bsyolo_tpu_torch.ops.boxes import scale_boxes
 from bsyolo_tpu_torch.ops.letterbox import letterbox
 from bsyolo_tpu_torch.ops.nms import non_max_suppression
+from bsyolo_tpu_torch.utils import CV2_VIDEO, import_cv2
 
 IMG_SUFFIXES = {".bmp", ".jpeg", ".jpg", ".png", ".tif", ".tiff", ".webp"}
 VID_SUFFIXES = {".mp4", ".avi", ".mov", ".mkv", ".m4v", ".mpg", ".mpeg", ".wmv", ".webm"}
 
 
-def iter_source(source) -> Iterator[tuple]:
+def iter_source(source, vid_stride: int = 1, stream_buffer: bool = False) -> Iterator[tuple]:
     """Yield (BGR frame, path) from an array (uint8, or float32 on the 0-255 scale), a list,
-    an image file, a directory or a glob pattern (``*``, ``**`` recursive), in sorted order."""
+    an image file, a directory or a glob pattern (``*``, ``**`` recursive), in sorted order; from a
+    video file or an rtsp/http(s) URL every ``vid_stride``-th frame (path ``<source>#frame<n>``);
+    from a webcam index or a ``.streams`` list the streams' lock-step frames (``LoadStreams``, every
+    frame with ``stream_buffer``, else the latest). Video and streams are decoded with OpenCV;
+    closing the generator releases them."""
     if isinstance(source, np.ndarray):
         yield source, "array"
         return
     if isinstance(source, (list, tuple)):
         for s in source:
-            yield from iter_source(s)
+            yield from iter_source(s, vid_stride, stream_buffer)
         return
     p = Path(str(source))
     if p.is_dir():
@@ -61,8 +69,28 @@ def iter_source(source) -> Iterator[tuple]:
             if im is not None:
                 yield im, f
         return
-    if p.suffix.lower() in VID_SUFFIXES or s.endswith(".streams") or s.isnumeric() or "://" in s:
-        raise NotImplementedError(f"video and stream sources ({s}) are not ported yet (ROADMAP queue 1, item 17)")
+    if s.endswith(".streams") or (isinstance(source, str) and source.isnumeric()):
+        streams = LoadStreams(source, vid_stride=vid_stride, buffer=stream_buffer)
+        try:
+            for frames, paths in streams:
+                yield from zip(frames, paths)
+        finally:
+            streams.close()
+        return
+    if p.suffix.lower() in VID_SUFFIXES or s.startswith(("rtsp://", "http://", "https://")):
+        cap = import_cv2("reading video", CV2_VIDEO).VideoCapture(s)
+        n = 0
+        try:
+            while True:
+                ok, frame = cap.read()
+                if not ok:
+                    break
+                if n % vid_stride == 0:
+                    yield frame, f"{source}#frame{n}"
+                n += 1
+        finally:
+            cap.release()
+        return
     im = imread(p)
     if im is None:
         raise FileNotFoundError(f"cannot read source: {source}")
@@ -107,6 +135,7 @@ class DetectionPredictor:
         names: Optional[Dict[int, str]] = None,
         batch: int = 1,
         augment: bool = False,
+        stream_buffer: bool = False,
     ):
         self.model = model
         self.spec = spec
@@ -120,6 +149,7 @@ class DetectionPredictor:
         self.names = names or {i: n for i, n in enumerate(spec.names)}
         self.batch = max(int(batch), 1)
         self.augment = augment  # the port has only the plain Detect head, the one head that takes TTA
+        self.stream_buffer = stream_buffer
 
     @torch.inference_mode()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -158,34 +188,44 @@ class DetectionPredictor:
             agnostic=self.agnostic_nms,
         )
 
-    def _batches(self, source):
+    def _batches(self, source, vid_stride: int = 1):
         frames, paths, lbs, t_pre = [], [], [], 0.0
-        for frame, path in iter_source(source):
-            t0 = time.perf_counter()
-            lbs.append(letterbox(frame, (self.imgsz, self.imgsz), self.device))
-            t_pre += time.perf_counter() - t0
-            frames.append(frame)
-            paths.append(path)
-            if len(frames) == self.batch:
-                yield frames, paths, _stack(lbs), t_pre
-                frames, paths, lbs, t_pre = [], [], [], 0.0
+        src = iter_source(source, vid_stride, self.stream_buffer)
+        try:
+            for frame, path in src:
+                t0 = time.perf_counter()
+                lbs.append(letterbox(frame, (self.imgsz, self.imgsz), self.device))
+                t_pre += time.perf_counter() - t0
+                frames.append(frame)
+                paths.append(path)
+                if len(frames) == self.batch:
+                    yield frames, paths, _stack(lbs), t_pre
+                    frames, paths, lbs, t_pre = [], [], [], 0.0
+        finally:
+            src.close()  # a consumer that stops early releases the video or the streams here
         if frames:
             lbs += [lbs[-1]] * (self.batch - len(frames))
             yield frames, paths, _stack(lbs), t_pre
 
-    def stream(self, source, verbose: bool = False) -> Iterator[Results]:
-        for frames, paths, x, t_pre in self._batches(source):
-            t1 = time.perf_counter()
-            dets = self.forward(x).cpu().numpy()  # the copy waits for the device
-            inf_ms = (time.perf_counter() - t1) * 1000 / len(frames)
-            pre_ms = t_pre * 1000 / len(frames)
-            for i, (frame, path) in enumerate(zip(frames, paths)):
-                t2 = time.perf_counter()
-                res = self._to_results(dets[i], frame, path)
-                res.speed = {"preprocess": pre_ms, "inference": inf_ms, "postprocess": (time.perf_counter() - t2) * 1000}
-                if verbose:
-                    print(f"{path}: {res.verbose_line} ({inf_ms:.1f} ms)")
-                yield res
+    def stream(self, source, vid_stride: int = 1, verbose: bool = False) -> Iterator[Results]:
+        """``Results`` per frame, in order; closing the generator closes the source (video, streams)."""
+        batches = self._batches(source, vid_stride)
+        try:
+            for frames, paths, x, t_pre in batches:
+                t1 = time.perf_counter()
+                dets = self.forward(x).cpu().numpy()  # the copy waits for the device
+                inf_ms = (time.perf_counter() - t1) * 1000 / len(frames)
+                pre_ms = t_pre * 1000 / len(frames)
+                for i, (frame, path) in enumerate(zip(frames, paths)):
+                    t2 = time.perf_counter()
+                    res = self._to_results(dets[i], frame, path)
+                    res.speed = {"preprocess": pre_ms, "inference": inf_ms,
+                                 "postprocess": (time.perf_counter() - t2) * 1000}
+                    if verbose:
+                        print(f"{path}: {res.verbose_line} ({inf_ms:.1f} ms)")
+                    yield res
+        finally:
+            batches.close()
 
     def _to_results(self, dets: np.ndarray, frame: np.ndarray, path: str) -> Results:
         d = dets[dets[:, 4] > 0]

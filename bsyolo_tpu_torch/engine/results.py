@@ -1,7 +1,8 @@
 """Results API, detect subset (counterpart of ``bsyolo_tpu/engine/results.py``).
 
 Host numpy containers: by the time results exist, the device work is done.
-Drawing and saving need OpenCV, which is imported only when they are called.
+Drawing and saving need OpenCV, which is imported only when they are called
+(without it they raise ImportError naming the ROADMAP item).
 """
 
 from __future__ import annotations
@@ -11,15 +12,19 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from bsyolo_tpu_torch.utils import CV2_DRAWING, import_cv2
+
 
 class Boxes:
-    """Detection boxes; ``data`` is (n, 6): x1, y1, x2, y2, conf, cls."""
+    """Detection boxes; ``data`` is (n, 6): x1, y1, x2, y2, conf, cls, or (n, 7) after tracking:
+    x1, y1, x2, y2, track_id, conf, cls."""
 
     def __init__(self, data: np.ndarray, orig_shape):
         if data.ndim == 1:
             data = data[None]
         self.data = data
         self.orig_shape = orig_shape
+        self.is_track = data.shape[-1] == 7
 
     def __len__(self):
         return len(self.data)
@@ -38,6 +43,10 @@ class Boxes:
     @property
     def cls(self):
         return self.data[:, -1]
+
+    @property
+    def id(self):
+        return self.data[:, -3] if self.is_track else None
 
     @property
     def xywh(self):
@@ -89,8 +98,8 @@ class Results:
 
     def plot(self, line_width: Optional[int] = None, font_scale: float = 0.5, conf: bool = True,
              labels: bool = True) -> np.ndarray:
-        """Draw the boxes on a copy of the original (BGR) image."""
-        import cv2
+        """Draw the boxes (with ``id:`` labels on tracked boxes) on a copy of the original (BGR) image."""
+        cv2 = import_cv2("Results.plot", CV2_DRAWING)
 
         img = self.orig_img.copy()
         lw = line_width or max(round(sum(img.shape[:2]) / 2 * 0.003), 2)
@@ -100,13 +109,14 @@ class Results:
             color = _class_color(cls)
             cv2.rectangle(img, (x1, y1), (x2, y2), color, lw)
             if labels:
-                label = f"{self.names.get(cls, cls)}" + (f" {cf:.2f}" if conf else "")
+                tid = f"id:{int(row[4])} " if self.boxes.is_track else ""
+                label = f"{tid}{self.names.get(cls, cls)}" + (f" {cf:.2f}" if conf else "")
                 cv2.putText(img, label, (x1, max(y1 - 4, 12)), cv2.FONT_HERSHEY_SIMPLEX, font_scale, color,
                             max(lw - 1, 1))
         return img
 
     def save(self, filename: str, **plot_kwargs):
-        import cv2
+        cv2 = import_cv2("Results.save", CV2_DRAWING)
 
         Path(filename).parent.mkdir(parents=True, exist_ok=True)
         cv2.imwrite(str(filename), self.plot(**plot_kwargs))

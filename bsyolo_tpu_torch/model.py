@@ -10,6 +10,8 @@
     results = m.predict(frames, imgsz=640, batch=8, conf=0.25)
     results = m.predict(frames, augment=True)  # test-time augmentation
     results = m.predict(frames, half=True)     # the bf16 graph over bf16 weights
+    results = m.predict("clip.mp4", vid_stride=2)  # video (OpenCV), webcam "0", "cams.streams"
+    results = m.track("clip.mp4", persist=True, tracker="bytetrack.yaml")  # boxes carry track ids
 
 ``half=True`` runs a bfloat16 copy of the graph (``YOLO.half_graph``, built by
 ``nn.model.cast_inference_graph``: convolution weights cast once and kept until
@@ -47,11 +49,11 @@ from bsyolo_tpu_torch.utils import LOGGER
 from bsyolo_tpu_torch.utils.ckpt import load_checkpoint, load_weights, save_checkpoint
 from bsyolo_tpu_torch.utils.weights import jax_paths, load_reference_state_dict
 
-_PREDICT_ARGS = {"conf", "iou", "imgsz", "batch", "max_det", "classes", "agnostic_nms", "augment", "verbose", "half"}
+_PREDICT_ARGS = {"conf", "iou", "imgsz", "batch", "max_det", "classes", "agnostic_nms", "augment", "verbose", "half",
+                 "vid_stride", "stream_buffer"}
 # predict options of the JAX package that the port does not have yet -> the ROADMAP item that brings them
 _NOT_PORTED = {
-    **dict.fromkeys(("vid_stride", "stream_buffer", "save", "save_txt", "save_conf",
-                     "save_crop", "show", "visualize", "embed"), "queue 1, item 17"),
+    **dict.fromkeys(("save", "save_txt", "save_conf", "save_crop", "show", "visualize", "embed"), "queue 1, item 17"),
     "retina_masks": "queue 1, item 12",
 }
 
@@ -80,6 +82,7 @@ class YOLO:
         self._callbacks = None
         self._img_size = 640
         self._half = None  # (key, bf16 inference graph) of half_graph
+        self._tracker = None  # the tracker that track(persist=True) goes on with
         if suffix == ".ckpt":
             self._load_ckpt(self.model_path, seed)
         else:
@@ -137,9 +140,11 @@ class YOLO:
         return self._device
 
     def predict(self, source, stream: bool = False, **kwargs):
-        """Detect in ``source`` (a uint8 BGR frame, a list of them, an image file or
-        a directory); a list of ``Results``, or a generator with ``stream=True``.
-        ``half=True`` runs the bf16 graph over bf16 weights."""
+        """Detect in ``source`` (a uint8 BGR frame, a list of them, an image file, a directory,
+        a glob, a video file or URL, a webcam index or a ``.streams`` list; video through OpenCV);
+        a list of ``Results``, or a generator with ``stream=True``. ``half=True`` runs the bf16
+        graph over bf16 weights; ``vid_stride`` keeps every n-th video frame, ``stream_buffer``
+        keeps every stream frame (else the latest)."""
         for k, v in kwargs.items():
             if k in _NOT_PORTED and v:
                 raise NotImplementedError(f"predict({k}=...) is not ported yet (ROADMAP {_NOT_PORTED[k]})")
@@ -159,8 +164,10 @@ class YOLO:
             names=self.names,
             batch=int(kwargs.get("batch") or 1),
             augment=bool(kwargs.get("augment", False)),
+            stream_buffer=bool(kwargs.get("stream_buffer", False)),
         )
-        gen = predictor.stream(source, verbose=kwargs.get("verbose", False))
+        gen = predictor.stream(source, vid_stride=int(kwargs.get("vid_stride") or 1),
+                               verbose=kwargs.get("verbose", False))
         return gen if stream else list(gen)
 
     def __call__(self, source, stream: bool = False, **kwargs):
@@ -243,8 +250,22 @@ class YOLO:
     def reset_callbacks(self):
         self._callbacks = None
 
-    def track(self, *args, **kwargs):
-        raise NotImplementedError("tracking is not ported yet (ROADMAP queue 1, item 11)")
+    def track(self, source, persist: bool = False, tracker: Optional[str] = None, stream: bool = False, **kwargs):
+        """Detect as ``predict`` does (``conf`` 0.1 unless given) and track across the frames: each
+        ``Results``' boxes carry their track id (7 columns: x1, y1, x2, y2, id, conf, cls). ``tracker``
+        is a tracker YAML (``bytetrack.yaml``, ``botsort.yaml`` or a path; the cfg's ``tracker`` key by
+        default); ``persist=True`` goes on with the tracker of the last call, else a new one starts.
+        A list in, a list out; ``stream=True`` or a stream source read lazily, a generator."""
+        from bsyolo_tpu_torch.cfg import DEFAULT_CFG_DICT
+        from bsyolo_tpu_torch.trackers import create_tracker, track_results
+
+        if not persist or self._tracker is None:
+            self._tracker = create_tracker(tracker or DEFAULT_CFG_DICT.get("tracker") or "botsort.yaml")
+        kwargs.setdefault("conf", 0.1)  # the reference's track default
+        results = self.predict(source, stream=stream, **kwargs)
+        if isinstance(results, list):
+            return [track_results(self._tracker, r) for r in results]
+        return (track_results(self._tracker, r) for r in results)
 
     def export(self, **kwargs):
         raise NotImplementedError("export is not ported yet (ROADMAP queue 1, item 15)")

@@ -78,7 +78,11 @@ def _to_torch_layout(a: np.ndarray, leaf: str) -> np.ndarray:
 
 def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """JAX variables ``{'params': …, 'batch_stats': …}`` as nested dicts of numpy
-    arrays -> a torch state_dict for ``load_state_dict(..., strict=True)``."""
+    arrays -> a torch state_dict for ``load_state_dict(..., strict=True)``. It carries the
+    detector's variables and, under the name ``grfb_unet_state_dict_from_jax``, those of
+    ``bsyolo_tpu/app/grfb_unet.py`` (``down1/grfb/b1_1/conv/kernel`` -> ``down1.grfb.b1.1.conv.weight``;
+    HWIO kernels, grouped ones (3, 3, 1, O) too, to OIHW; BatchNorm scale, bias, mean and var to
+    weight, bias, running_mean and running_var)."""
     sd = {}
     for collection, tree in variables.items():
         for path, v in _flatten(tree):
@@ -87,6 +91,10 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
                 raise ValueError(f"two JAX variables map onto {key}")
             sd[key] = torch.from_numpy(np.ascontiguousarray(_to_torch_layout(np.asarray(v), path[-1])))
     return sd
+
+
+# The port's GRFB-UNet modules carry the flax names, so the same rules carry its variables across
+grfb_unet_state_dict_from_jax = state_dict_from_jax
 
 
 def scales_from_jax(scales: Mapping[str, float]) -> Dict[str, float]:

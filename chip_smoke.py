@@ -39,7 +39,10 @@ non-zero without them. Phases, each of which fails the run on its own:
    version and ``torch._int_mm`` timed over the 74 products of one forward,
    with the kernel's tile at each, its host time per call, and the share of
    the device time that is not the kernel (which must be 0: the operands are
-   laid out as the conv path lays them out, so the wrapper copies nothing).
+   laid out as the conv path lays them out, so the wrapper copies nothing);
+   the same 74 products through the kernel's bf16 epilogue beside
+   ``torch._int_mm`` with a dequantization to bf16, and their bound with
+   bf16 output.
 
 7. the train step at the same width (``make_train_step``, SGD, lr0 0.01, nbs
    64, the default warmup), on seeded synthetic batches in the padded-label
@@ -93,15 +96,38 @@ non-zero without them. Phases, each of which fails the run on its own:
    validation batch on bf16 levels, ms per step of epoch 1, the loader-wait
    share, peak memory.
 
+11. the parking-violation product path at full width: yolo11n (nc 12,
+   imgsz 640, ``draw_weights``) and the application's GRFB-UNet segmenter
+   (base_c 32, 2 classes, short side 565; seeded weights, the second class's
+   bias balanced on the background frame), on a seeded synthetic 720x1280
+   clip of 48 frames at a 25 fps video clock (a grey road with a yellow strip
+   of tactile paving, three moving rectangles, one of which stops across the
+   strip; frame 0 empty, through ``prepare_background``): (a) the segmenter
+   on 4 frames on the card and on the CPU, its input equal, its logits on the
+   same input and its masks held to the CPU's; (b) the pipeline's decision
+   step (``ParkingViolationPipeline.decide``: ``YOLO.track`` with ByteTrack
+   at conf 0.25, the segmenter, the occlusion rule, the dwell timer) over the
+   clip on the card: the box decode kernel once per frame and its plain
+   version never, well-formed events, tracked rows on most frames; ms per
+   frame split into track, segment and rule, the device busy share over the
+   clip and peak memory; (c) its first 8 frames against the port on the
+   CPU: the detections before tracking paired as in phase 3, then the ids:
+   tracked rows paired with the same ids, or a replay of the card's
+   detections through a fresh CPU tracker; (d) ``YOLO.track`` with
+   BoT-SORT (ReID on, no camera-motion compensation) over 8 frames,
+   ``persist=True``: the decode kernel once per frame.
+
 Phases 10a to 10c run right after phase 6, on the float graph phases 3 to 6
-used; 10d and 10e after phase 9. Each phase prints its seconds. Every launch counter is set to 0 just before a path is driven and read just
+used; 10d and 10e after phase 9, 11 last. Each phase prints its seconds. Every launch counter is set to 0 just before a path is driven and read just
 after, so each path shows the kernels it went through.
 
 TF32 is off for convolutions and matrix products throughout, so the card and
 the CPU compute the same float32 function (cuDNN would otherwise run float32
 convolutions in TF32). The last two lines are the kernels JSON and
 ``{"ok": true, "device": {...}}``; in the kernels line each kernel carries its
-launches on phase 10's bf16 paths (``bf16_launches``) among all its launches.
+launches on phase 10's bf16 paths (``bf16_launches``) and on phase 11's
+product path (``product_launches``) among all its launches, and
+``int8_matmul`` its bf16 epilogue's figures (``bf16_out``).
 """
 
 from __future__ import annotations
@@ -478,28 +504,33 @@ def head_outputs(graph, run):
     return captured
 
 
-def check_decode_stage(label, decode, feats, reps: int = 50, counter=None):
+def check_decode_stage(label, decode, feats, kernel: str, reps: int = 50):
     """``decode(feats)``, the decode stage as the path calls it, on head maps the path made
-    (in L2, as when the head has just written them): fails unless each call runs exactly
-    one device kernel, the decode kernel; prints its device time (torch.profiler, per
-    recorded launch) and host time per call. With ``counter`` (a function reading the
-    wrapper's launch count) the launches per call are the counter's and the profiler must
-    see no other device item: in phase 10 its sessions recorded 43 to 49 of 50 launches
-    (the same calls alone record 50 of 50)."""
+    (in L2, as when the head has just written them): fails unless each call launches the
+    ``kernel`` wrapper's kernel exactly once (its launch count) and the profiler sees no
+    other device item; prints its device time (torch.profiler, per recorded launch) and
+    host time per call. The launches are counted by the wrapper, not by the profiler: its
+    sessions drop device events (43 to 49 of 50 recorded in phase 10, 6 of 50 in one run
+    of phase 5's tiled stage on an NVIDIA H100 80GB HBM3 at 700 W)."""
     import torch
     from torch.autograd import DeviceType
+
+    from bsyolo_tpu_torch import kernels
+
+    def counter():
+        return kernels.launch_counts()[kernel]
 
     repeat(decode, [(feats,)], 3)()
     torch.cuda.synchronize()
     calls, launches = repeat(decode, [(feats,)], reps), []
 
     def run():  # profiled() may run a session again: the launches of the session it returns are the last
-        before = counter() if counter else 0
+        before = counter()
         calls()
-        launches.append(counter() - before if counter else 0)
+        launches.append(counter() - before)
 
     events = [e for e in profiled(run).events() if e.device_type == DeviceType.CUDA]
-    launched = launches[-1] if counter else len(events)
+    launched = launches[-1]
     others = sorted({e.name for e in events if "decode_kernel" not in e.name})
     device_us = sum(e.time_range.end - e.time_range.start for e in events) / max(len(events), 1)
     call_us = host_us(decode, [(feats,)])
@@ -544,9 +575,17 @@ def int8_library(x, w, sw, sx):
     return torch._int_mm(x, w).float() * (sx * sw)
 
 
-def int8_bytes_ops(m, k, n):
-    """Bytes the product must move (each input once, the float32 output once) and its operations."""
-    return m * k + k * n + 4 * n + 4 + 4 * m * n, 2 * m * n * k
+def int8_library_bf16(x, w, sw, sx):
+    """The library yardstick of the bf16 epilogue: torch._int_mm and the dequantization to bfloat16."""
+    import torch
+
+    return (torch._int_mm(x, w).float() * (sx * sw)).to(torch.bfloat16)
+
+
+def int8_bytes_ops(m, k, n, out_bytes: int = 4):
+    """Bytes the product must move (each input once, the output once: float32, or bf16 with ``out_bytes``
+    2) and its operations."""
+    return m * k + k * n + 4 * n + 4 + out_bytes * m * n, 2 * m * n * k
 
 
 def check_int8_kernel(dev):
@@ -618,13 +657,13 @@ def draw_weights(model, seed: int) -> None:
             branch[-1].weight.mul_(HEAD_GAIN)
 
 
-def match_detections(got: np.ndarray, want: np.ndarray, box_px: float = MATCH_BOX_PX, score_tol: float = MATCH_SCORE):
+def match_pairs(got: np.ndarray, want: np.ndarray, box_px: float = MATCH_BOX_PX, score_tol: float = MATCH_SCORE):
     """Greedy match of each ``want`` row to the nearest unused ``got`` row of the
     same class, distance max(|box diff| / box_px, |score diff| / score_tol),
-    accepted at distance <= 1; returns the (box err, score err) of every matched pair."""
+    accepted at distance <= 1; returns (got row, want row, box err, score err) of every matched pair."""
     used = np.zeros(len(got), bool)
-    errs = []
-    for row in want:
+    pairs = []
+    for j, row in enumerate(want):
         cand = np.flatnonzero(~used & (got[:, 5] == row[5]))
         if not len(cand):
             continue
@@ -634,8 +673,8 @@ def match_detections(got: np.ndarray, want: np.ndarray, box_px: float = MATCH_BO
         k = int(np.argmin(dist))
         if dist[k] <= 1.0:
             used[cand[k]] = True
-            errs.append((float(box[k]), float(score[k])))
-    return errs
+            pairs.append((int(cand[k]), j, float(box[k]), float(score[k])))
+    return pairs
 
 
 def make_models(dev):
@@ -699,12 +738,12 @@ def check_finite(label: str, dets) -> None:
 
 def compare_with_cpu(label: str, got, want, box_px: float = MATCH_BOX_PX, score_tol: float = MATCH_SCORE,
                      min_fraction: float = MATCH_MIN_FRACTION) -> float:
-    """Card detections against the CPU's, frame by frame, with match_detections; fails below
+    """Card detections against the CPU's, frame by frame, paired by match_pairs; fails below
     ``min_fraction`` of the rows matched; returns the fraction."""
     n_want = n_got = same_frames = 0
     errs = []
     for g_, w in zip(got, want):
-        e = match_detections(g_, w, box_px, score_tol)
+        e = [(b, s) for _, _, b, s in match_pairs(g_, w, box_px, score_tol)]
         n_want, n_got, errs = n_want + len(w), n_got + len(g_), errs + e
         same_frames += len(e) == len(w) == len(g_)
     frac = len(errs) / max(n_want, n_got)
@@ -757,7 +796,7 @@ def predict_path(dev, host, model, frames):
     for feats in head_outputs(model.model, lambda: model.predict(frames[:4], imgsz=IMGSZ, batch=4, conf=CONF)):
         check_decode_stage(f"predict, batch of 4 (box_best, as detect_postprocess calls it), levels "
                            f"{[tuple(f.shape[2:]) for f in feats]}",
-                           lambda f: box_best(f, spec.head_strides, spec.nc, spec.reg_max), feats)
+                           lambda f: box_best(f, spec.head_strides, spec.nc, spec.reg_max), feats, "decode_box_best")
 
     # host-clock split of one batch of 4, synchronised after each stage; median of 5
     split = []
@@ -829,7 +868,8 @@ def tta_path(host, model, frames):
         raise SystemExit(f"one TTA batch ran the head {len(passes)} times, expected 3")
     for i, feats in enumerate(passes):
         check_decode_stage(f"TTA pass {i + 1} of 3 (decode_detections), levels {[tuple(f.shape[2:]) for f in feats]}",
-                           lambda f: decode_detections(f, spec.head_strides, spec.nc, spec.reg_max), feats)
+                           lambda f: decode_detections(f, spec.head_strides, spec.nc, spec.reg_max), feats,
+                           "decode_xywh")
 
     got = [r.boxes.data for r in res]
     check_finite("TTA predict", got)
@@ -878,7 +918,7 @@ def tiled_path(host, model):
         check_decode_stage(f"tiled 1080x1920 (decode_detections), B={feats[0].shape[0]}, levels "
                            f"{[tuple(f.shape[2:]) for f in feats]}",
                            lambda f: decode_detections(f, model.spec.head_strides, model.spec.nc, model.spec.reg_max),
-                           feats)
+                           feats, "decode_xywh")
 
     check_finite("tiled", list(got.values()))
     compare_with_cpu("tiled, 2 frames", list(got.values()), [run(host, f) for f in big.values()])
@@ -982,6 +1022,19 @@ def time_path_products(dev, shapes):
     call_ms, ms, kern = per_forward(int8_matmul_prepared, prepared, 5)
     plain_call_ms, plain_ms, _ = per_forward(int8_matmul_reference, operands, 2)
     lib_call_ms, lib_ms, _ = per_forward(int8_library, library_ops, 5)
+    # the bf16 epilogue (int8 on the half graph): the same products writing bfloat16
+    bf16_call_ms, bf16_ms, bf16_kern = per_forward(lambda x, w, sx: int8_matmul_prepared(x, w, sx, torch.bfloat16),
+                                                   prepared, 5)
+    lib16_call_ms, lib16_ms, _ = per_forward(int8_library_bf16, library_ops, 5)
+    bf16_bound_ms, bf16_bound_by = bound(sum(int8_bytes_ops(*s, out_bytes=2)[0] for s in shapes),
+                                         sum(int8_bytes_ops(*s)[1] for s in shapes), PEAK_INT8_OPS_PER_S)
+    bf16_names = sorted({name for name, _, _ in bf16_kern})
+    print(f"int8_matmul through the bf16 epilogue over the same {len(shapes)} products: kernel {bf16_ms:.4f} ms on the "
+          f"device per forward, {bf16_call_ms:.3f} ms host to host; torch._int_mm + dequantization to bf16 "
+          f"{lib16_ms:.4f} ms on the device, {lib16_call_ms:.3f} ms host to host; bound {bf16_bound_ms:.4f} ms "
+          f"({bf16_bound_by}, bf16 out); device items {[n[:60] for n in bf16_names]}")
+    if any("int8_matmul_kernel" not in n or "bfloat16" not in n for n in bf16_names):
+        raise SystemExit(f"the bf16 epilogue ran other device work or another instantiation: {bf16_names}")
     # host time per call in turns (prepared weight, as the conv path calls it; int8_matmul_cuda, which
     # prepares the weight on every call; torch._int_mm + dequantization), twice each
     turns = [(label, host_us(fn, inputs, 5)) for _ in range(2) for label, fn, inputs in (
@@ -1011,7 +1064,9 @@ def time_path_products(dev, shapes):
     torch.cuda.empty_cache()
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by, call_ms=call_ms,
                 plain_call_ms=plain_call_ms, host_us_per_call=host["prepared"],
-                shape=f"the {len(shapes)} products of one forward, batch 4, {IMGSZ} px")
+                shape=f"the {len(shapes)} products of one forward, batch 4, {IMGSZ} px",
+                bf16_out=dict(ms=bf16_ms, call_ms=bf16_call_ms, bound_ms=bf16_bound_ms, bound_by=bf16_bound_by,
+                              library_ms=lib16_ms, library_call_ms=lib16_call_ms))
 
 
 def check_int8_convs_against_cpu(dev, host, model, frames):
@@ -1733,8 +1788,7 @@ def half_predict_path(dev, host, model, frames):
     feats = heads[0]
     us = check_decode_stage(f"predict(half=True), batch of 4 (box_best on bf16 levels) "
                             f"{[tuple(f.shape[2:]) for f in feats]}",
-                            lambda f: box_best(f, spec.head_strides, spec.nc, spec.reg_max), feats,
-                            counter=lambda: kernels.launch_counts()["decode_box_best"])
+                            lambda f: box_best(f, spec.head_strides, spec.nc, spec.reg_max), feats, "decode_box_best")
     bound_ms, bound_by = decode_bound(feats, spec.nc, 5 + spec.nc, BOX_OPS)
     print(f"  decode_box on that bf16 head: {us:.2f} us against a {bound_ms * 1e3:.2f} us bound ({bound_by})")
 
@@ -1813,7 +1867,7 @@ def half_tta_tiled_path(model, frames):
     feats = passes[0]
     us = check_decode_stage(f"TTA pass 1 of 3 on bf16 levels (decode_detections) {[tuple(f.shape[2:]) for f in feats]}",
                             lambda f: decode_detections(f, spec.head_strides, spec.nc, spec.reg_max), feats,
-                            counter=lambda: kernels.launch_counts()["decode_xywh"])
+                            "decode_xywh")
     bound_ms, bound_by = decode_bound(feats, spec.nc, 4 + spec.nc, XYWH_OPS)
     print(f"  decode_xywh on that bf16 head: {us:.2f} us against a {bound_ms * 1e3:.2f} us bound ({bound_by})")
     return launches, {"device_us": us, "bound_ms": bound_ms, "bound_by": bound_by, "shape": "B4 640 bf16 head"}
@@ -1984,16 +2038,380 @@ def amp_trainer_path(dev, data, root):
     return launches
 
 
-def kernel_entry(name, source, replaces, launches, row, bf16_launches, bf16_head=None):
+# phase 11: the product path (YOLO.track, the GRFB-UNet segmenter, the occlusion rule and the dwell timer)
+P11_HW, P11_FRAMES, P11_FPS = (720, 1280), 48, 25
+P11_CONF, P11_DWELL_S = 0.25, 0.5  # the pipeline's default conf; a dwell the 1.92 s clip can reach
+# random weights box most of the frame, where a car hides a few per cent of the paving mask at most: a low
+# occlusion threshold (the application's is 0.7) makes the rule and the dwell timer fire within the clip
+P11_OCCLUSION = 0.02
+P11_SEG = dict(num_classes=2, base_c=32, resize=565)  # the application's segmenter (sys/videobytetrack.py:220)
+P11_CPU_FRAMES = 8  # frames of the decision step run again on the CPU
+# frames of the decision step under torch.profiler: the segmenter's cuDNN convolutions launch about 33,000
+# kernels per frame, and the profiler takes about 10 s per frame to process them
+P11_PROFILE_FRAMES = 4
+P11_LOGIT_NORM = 1e-3  # GRFB-UNet logits, card vs CPU on one input: cuDNN's float32 sums in another order
+# the segmenter's input, card vs CPU: the resize is integer arithmetic (equal); the normalization is 3 float32
+# operations, correctly rounded on both (1 ulp at the largest input, about 23, is 1.9e-6)
+P11_INPUT_ATOL = 2e-6
+# segmenter masks, card vs CPU: the networks' inputs are equal (an integer resize), so masks differ only where
+# the two class logits nearly tie
+P11_MASK_AGREEMENT = 0.999
+# a tracked box is the track's Kalman state, which overshoots a detection clipped at the frame's border by its
+# velocity; a tracked box must meet the frame and stay within a quarter of its short side of it
+P11_BOX_MARGIN_PX = 180
+
+
+def product_clip(seed: int):
+    """P11_FRAMES seeded 720x1280 BGR frames: a grey road of coarse seeded texture with a yellow strip of
+    tactile paving (rows 400 to 470); frame 0 is the empty road, then three filled rectangles move, and the
+    first stops across the strip at frame 20."""
+    rng = np.random.default_rng(seed)
+    h, w = P11_HW
+    road = np.clip(rng.normal(96, 8, (h // 8, w // 8)), 0, 255).astype(np.uint8)
+    road = np.repeat(np.repeat(road, 8, 0), 8, 1)[..., None].repeat(3, 2)
+    road[400:470] = (40, 210, 225)
+    # x0, y0, width, height, px per frame (x), colour (BGR), frame it stops at
+    cars = ((60, 330, 220, 160, 24, (200, 190, 185), 20), (1100, 120, 180, 120, -18, (60, 60, 200), None),
+            (300, 560, 200, 130, 10, (200, 80, 40), None))
+    frames = [road]
+    for i in range(1, P11_FRAMES):
+        f = road.copy()
+        for x0, y0, cw, ch, vx, colour, stop in cars:
+            x = int(x0 + vx * (min(i, stop) if stop else i))
+            f[y0: y0 + ch, max(x, 0): max(x + cw, 0)] = colour
+        frames.append(f)
+    return frames
+
+
+class HostTimer:
+    """Wraps a callable that returns host data (so the device work is done when it returns) and sums
+    the host seconds of its calls."""
+
+    def __init__(self, fn):
+        self.fn, self.seconds, self.calls = fn, 0.0, 0
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return out
+
+
+@contextlib.contextmanager
+def recorded_tracking():
+    """(detections before tracking, tracked rows) of every frame ``YOLO.track`` hands its tracker while
+    the block runs."""
+    from bsyolo_tpu_torch import trackers
+
+    frames, real = [], trackers.track_results
+
+    def record(tracker, result):
+        out = real(tracker, result)
+        frames.append((result.boxes.data.copy(), out.boxes.data.copy()))
+        return out
+
+    trackers.track_results = record
+    try:
+        yield frames
+    finally:
+        trackers.track_results = real
+
+
+def draw_segmenter_weights(host, card, frame, seed: int) -> None:
+    """Seeded weights for the segmenter on the CPU (``draw_weights``' draws: convs at U(+-sqrt(3 / fan_in)),
+    BatchNorm statistics away from the identity), copied to the card's, then the second class's output bias
+    moved in both so that half of ``frame``'s pixels are foreground: random weights otherwise give one class
+    almost everywhere, and a mask of one class holds nothing to compare."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in host.model.state_dict().items():
+            if name.endswith("num_batches_tracked"):
+                continue
+            if p.dim() >= 2:
+                p.copy_(torch.empty(p.shape).uniform_(-1, 1, generator=g) * math.sqrt(3.0 / p[0].numel()))
+            elif name.endswith(("running_var", "bn.weight")):
+                p.copy_(torch.empty(p.shape).uniform_(0.5, 1.5, generator=g))
+            else:
+                p.copy_(torch.empty(p.shape).uniform_(-0.1, 0.1, generator=g))
+        card.model.load_state_dict(host.model.state_dict())
+        logits = card.model(card.network_input(frame))[0]
+        shift = (logits[0] - logits[1]).median().cpu()
+        host.model.out_conv.bias[1] += shift
+        card.model.out_conv.bias[1] += shift.to(card.device)
+
+
+def product_models(dev, frame):
+    """yolo11n with draw_weights and the application's segmenter (draw_segmenter_weights on ``frame``), on
+    the card and on the CPU."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from bsyolo_tpu_torch import YOLO
+    from bsyolo_tpu_torch.app import BlindwaySegmenter
+
+    host = YOLO("yolo11n.yaml", device="cpu", seed=SEED)
+    draw_weights(host.model, SEED + 11)
+    card = YOLO("yolo11n.yaml", seed=SEED)
+    card.model.load_state_dict(host.model.state_dict())
+    seg_host = BlindwaySegmenter(**P11_SEG, seed=SEED, device="cpu")
+    seg_card = BlindwaySegmenter(**P11_SEG, seed=SEED)
+    draw_segmenter_weights(seg_host, seg_card, frame, SEED + 11)
+    if seg_card.device != dev or next(seg_card.model.parameters()).device != dev:
+        raise SystemExit(f"BlindwaySegmenter() built its network on {seg_card.device}, not on {dev}")
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(seg_card.model.state_dict().values(),
+                                                          seg_host.model.state_dict().values())):
+        raise SystemExit("the card's and the CPU's segmenter weights differ")
+    n = sum(p.numel() for p in seg_card.model.parameters())
+    print(f"GRFB-UNet: {n} params (base_c {P11_SEG['base_c']}, {P11_SEG['num_classes']} classes, resize "
+          f"{P11_SEG['resize']}, weights drawn with seed {SEED + 11}); yolo11n with draw_weights (seed {SEED + 11}); "
+          f"clip {P11_FRAMES} frames {P11_HW[0]}x{P11_HW[1]} at {P11_FPS} fps")
+    return SimpleNamespace(host=host, card=card, seg_host=seg_host, seg_card=seg_card)
+
+
+def segmenter_against_cpu(dev, m, frames):
+    """Phase 11a: the segmenter on 4 frames on the card and on the CPU: the networks' inputs within
+    P11_INPUT_ATOL, the logits on the same input within P11_LOGIT_NORM of their norm, the masks within
+    P11_MASK_AGREEMENT; the card's time per frame, one call profiled, its peak memory."""
+    import torch
+
+    agree, errs, in_errs = [], [], []
+    for f in frames[::P11_FRAMES // 4]:
+        x = m.seg_host.network_input(f)
+        x_card = m.seg_card.network_input(f)
+        in_errs.append((x_card.cpu() - x).abs().max().item())
+        if in_errs[-1] > P11_INPUT_ATOL:
+            raise SystemExit(f"the segmenter's input differs between card and CPU by {in_errs[-1]:.3g}")
+        with torch.inference_mode():
+            want = m.seg_host.model(x)
+            got = m.seg_card.model(x_card)
+        errs.append(((got.cpu() - want).norm() / want.norm()).item())
+        mask, ref = m.seg_card(f), m.seg_host.mask_from_logits(want, f.shape[:2])
+        if mask.shape != P11_HW or mask.dtype != np.uint8 or not set(np.unique(mask)) <= {0, 255}:
+            raise SystemExit(f"the segmenter's mask is not a {P11_HW} uint8 {{0, 255}} map: {mask.shape} {mask.dtype}")
+        agree.append((mask == ref).mean())
+    ms = []
+    for f in frames[1:6]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f32_mask = m.seg_card(f)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.reset_peak_memory_stats(dev)
+    m.seg_card(frames[1])
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"phase 11a segmenter, card vs CPU on {len(agree)} frames ({tuple(x.shape[2:])} network input, max |diff| "
+          f"{max(in_errs):.3g}): logits {', '.join(f'{e:.3g}' for e in errs)} of their norm (gate {P11_LOGIT_NORM}); "
+          f"masks agree on {', '.join(f'{a:.6f}' for a in agree)} of the pixels (gate {P11_MASK_AGREEMENT}); "
+          f"foreground share {(mask > 0).mean():.3f}; on the card {', '.join(f'{t:.1f}' for t in ms)} ms per frame "
+          f"(host clock, frame to host mask), peak memory allocated {peak_gb:.2f} GB for one call")
+    if max(errs) > P11_LOGIT_NORM or min(agree) < P11_MASK_AGREEMENT:
+        raise SystemExit("the segmenter on the card disagrees with the CPU beyond its gates")
+    profile_once("the segmenter, one 720x1280 frame", lambda: m.seg_card(frames[1]), float(np.median(ms)))
+    # the same call with TF32 convolutions, PyTorch's default (the smoke keeps TF32 off to compare with the CPU):
+    # cuDNN's heuristics then choose other algorithms
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        m.seg_card(frames[1])
+        tf32 = []
+        for f in frames[1:6]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tf32_mask = m.seg_card(f)
+            tf32.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.reset_peak_memory_stats(dev)
+        m.seg_card(frames[1])
+        tf32_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        print(f"  with TF32 convolutions: {', '.join(f'{t:.1f}' for t in tf32)} ms per frame, peak memory {tf32_gb:.2f} "
+              f"GB for one call, the mask of frame 5 equal to float32's on {(tf32_mask == f32_mask).mean():.6f} of the pixels")
+        profile_once("the segmenter with TF32, one 720x1280 frame", lambda: m.seg_card(frames[1]), float(np.median(tf32)))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def decision_run(detector, segmenter, frames, tracker="bytetrack.yaml", profile_frames: int = 0):
+    """The pipeline's decision step over ``frames`` from a fresh tracker, on the 25 fps video clock:
+    (events, seconds per frame, the detector's and the segmenter's timers, recorded tracking). With
+    ``profile_frames``, only that many frames, under torch.profiler; returns its profile instead of the
+    timers."""
+    from types import SimpleNamespace
+
+    from bsyolo_tpu_torch.app import ParkingViolationPipeline
+
+    detector._tracker = None
+    idx = [0]
+    track, seg = HostTimer(detector.track), HostTimer(segmenter)
+    pipe = ParkingViolationPipeline(SimpleNamespace(track=track, names=detector.names), seg, conf=P11_CONF,
+                                    tracker=tracker, dwell_seconds=P11_DWELL_S, occlusion_threshold=P11_OCCLUSION,
+                                    clock=lambda: idx[0] / P11_FPS)
+    pipe.prepare_background(frames[0])
+    track.seconds = seg.seconds = seg.calls = 0
+    events, walls = [], []
+
+    def run():
+        events.clear()
+        walls.clear()
+        for i, f in enumerate(frames[:profile_frames or None]):
+            idx[0] = i
+            t0 = time.perf_counter()
+            events.append(pipe.decide(f, i)[0])
+            walls.append(time.perf_counter() - t0)
+
+    if profile_frames:
+        return events, walls, profiled(run)
+    with recorded_tracking() as tracked:
+        run()
+    return events, walls, track, seg, tracked
+
+
+def check_events(events):
+    """Boxes that meet the frame, within P11_BOX_MARGIN_PX of it, integer ids, ``elapsed`` not falling while
+    an id's long violation goes on; returns (frames with tracked rows, rows, violations, long flags, the
+    largest overshoot in px)."""
+    h, w = P11_HW
+    last, over = {}, 0
+    for e in events:
+        for t in e["tracks"]:
+            x1, y1, x2, y2 = t["box"]
+            if not (isinstance(t["id"], int) and x1 < x2 and y1 < y2 and x1 < w and y1 < h and x2 > 0 and y2 > 0):
+                raise SystemExit(f"frame {e['frame']}: malformed tracked row {t}")
+            over = max(over, -x1, -y1, x2 - w, y2 - h)
+        for v in e["violations"]:
+            prev = last.get(v["id"])
+            if v["long"] and prev is not None and prev[0] == e["frame"] - 1 and v["elapsed"] < prev[1]:
+                raise SystemExit(f"id {v['id']}: elapsed fell from {prev[1]} to {v['elapsed']} in a long violation")
+            last[v["id"]] = (e["frame"], v["elapsed"]) if v["long"] else (None, 0.0)
+    if over > P11_BOX_MARGIN_PX:
+        raise SystemExit(f"a tracked box lies {over} px outside the frame")
+    n_viol = sum(len(e["violations"]) for e in events)
+    n_long = sum(v["long"] for e in events for v in e["violations"])
+    return sum(bool(e["tracks"]) for e in events), sum(len(e["tracks"]) for e in events), n_viol, n_long, over
+
+
+def tracked_against_cpu(card_tracked, host_tracked):
+    """Phase 11c: the card's tracked rows on the first frames against the CPU's (compare_with_cpu's pairing,
+    and the same id on paired rows), and the replay: the card's detections fed to a fresh CPU BYTETracker
+    give exactly the card's tracked rows. Returns (paired fraction, ids equal on the paired rows, replay
+    exact)."""
+    from bsyolo_tpu_torch.engine.results import Results
+    from bsyolo_tpu_torch.trackers import create_tracker, track_results
+
+    def six(rows):  # x1, y1, x2, y2, id, conf, cls -> x1, y1, x2, y2, conf, cls (a frame without boxes has 6)
+        return rows[:, [0, 1, 2, 3, 5, 6]] if rows.shape[1] == 7 else rows
+
+    n_rows = n_pairs = same_id = 0
+    for (_, got), (_, want) in zip(card_tracked, host_tracked):
+        pairs = match_pairs(six(got), six(want))
+        n_rows += max(len(got), len(want))
+        n_pairs += len(pairs)
+        same_id += sum(got[i, 4] == want[j, 4] for i, j, _, _ in pairs)
+    tracker, replay_exact = create_tracker("bytetrack.yaml"), True
+    for dets, tracked in card_tracked:
+        replay = track_results(tracker, Results(np.zeros((*P11_HW, 3), np.uint8), "replay", {}, boxes=dets))
+        replay_exact &= bool(np.array_equal(replay.boxes.data, tracked))
+    return n_pairs / max(n_rows, 1), same_id / max(n_pairs, 1), replay_exact
+
+
+def product_path(dev):
+    """Phase 11: the parking-violation product path at full width on the card (module docstring)."""
+    import tempfile
+
+    import torch
+    from torch.autograd import DeviceType
+
+    from bsyolo_tpu_torch import kernels
+
+    frames = product_clip(SEED + 11)
+    m = product_models(dev, frames[0])
+    t11 = time.perf_counter()
+    segmenter_against_cpu(dev, m, frames)
+    print(f"  phase 11a in {time.perf_counter() - t11:.1f} s")
+    t11 = time.perf_counter()
+
+    # (b) the decision step over the clip on the card: warm-up on 2 frames, then the counted run
+    decision_run(m.card, m.seg_card, frames[:2])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with plain_decode_calls() as plain_calls:
+        kernels.reset_launch_counts()
+        events, walls, track, seg, card_tracked = decision_run(m.card, m.seg_card, frames)
+        launches = expect_launches("product (decision step)", {"decode_box_best": P11_FRAMES, "decode_xywh": 0,
+                                                               "int8_matmul": 0})
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if plain_calls:
+        raise SystemExit(f"the product path ran the decode's plain version {len(plain_calls)} times on the card")
+    with_rows, n_rows, n_viol, n_long, over = check_events(events)
+    if with_rows < 0.75 * P11_FRAMES or seg.calls < 1:
+        raise SystemExit(f"the product run is vacuous: tracked rows on {with_rows} of {P11_FRAMES} frames, "
+                         f"{seg.calls} segmentations")
+    wall = sum(walls)
+    ms = wall * 1e3 / P11_FRAMES
+    track_ms, seg_ms = track.seconds * 1e3 / P11_FRAMES, seg.seconds * 1e3 / P11_FRAMES
+    _, walls_p, prof = decision_run(m.card, m.seg_card, frames, profile_frames=P11_PROFILE_FRAMES)
+    busy_s = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA) / 1e6
+    print(f"phase 11b decision step on the card ({card_line()}): {P11_FRAMES} frames, {ms:.2f} ms per frame (host "
+          f"clock): track (predict and tracker) {track_ms:.2f}, segment {seg_ms:.2f} ({seg.calls} calls), rule, "
+          f"timer and event {ms - track_ms - seg_ms:.2f}; device busy {busy_s / sum(walls_p):.3f} of the profiled "
+          f"wall time of the clip's first {P11_PROFILE_FRAMES} frames ({busy_s * 1e3:.1f} ms of device work in "
+          f"{sum(walls_p) * 1e3:.1f} ms); peak memory allocated {peak_gb:.2f} GB")
+    print(f"  events: tracked rows on {with_rows} of {P11_FRAMES} frames, {n_rows} rows, "
+          f"{len({t['id'] for e in events for t in e['tracks']})} ids, {n_viol} violations, {n_long} long "
+          f"(occlusion threshold {P11_OCCLUSION}, dwell {P11_DWELL_S} s); largest box overshoot of the frame {over} px; "
+          f"{time.perf_counter() - t11:.1f} s for the three runs")
+
+    t11 = time.perf_counter()
+    # (c) the first frames' tracked rows against the port's on the CPU (YOLO.track as the decision step calls it)
+    m.host._tracker = None
+    with recorded_tracking() as host_tracked:
+        m.host.track(frames[:P11_CPU_FRAMES], persist=True, conf=P11_CONF, tracker="bytetrack.yaml")
+    compare_with_cpu("product, detections before tracking", [d for d, _ in card_tracked[:P11_CPU_FRAMES]],
+                     [d for d, _ in host_tracked])
+    frac, same_id, replay = tracked_against_cpu(card_tracked[:P11_CPU_FRAMES], host_tracked)
+    print(f"phase 11c first {P11_CPU_FRAMES} frames, card vs CPU: {frac:.4f} of the tracked rows paired (same "
+          f"class, |box| <= {MATCH_BOX_PX} px, |score| <= {MATCH_SCORE}), the same id on {same_id:.4f} of the "
+          f"pairs; replay of the card's detections through a fresh CPU BYTETracker: "
+          f"{'exactly the card rows' if replay else 'DIFFERENT rows'}; {time.perf_counter() - t11:.1f} s")
+    if not ((frac >= MATCH_MIN_FRACTION and same_id == 1.0) or replay):  # the ids; the detections are held above
+        raise SystemExit("the card's tracked rows match neither the CPU's nor the replay of its own detections")
+
+    # (d) YOLO.track with BoT-SORT (ReID on, no camera-motion compensation) over 8 frames, persist=True
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bot_") as d:
+        cfg = Path(d) / "botsort_reid.yaml"
+        cfg.write_text("tracker_type: botsort\ntrack_high_thresh: 0.25\ntrack_low_thresh: 0.1\nnew_track_thresh: 0.25"
+                       "\ntrack_buffer: 30\nmatch_thresh: 0.8\nfuse_score: True\ngmc_method: none\n"
+                       "proximity_thresh: 0.5\nappearance_thresh: 0.25\nwith_reid: True\n")
+        m.card._tracker = None
+        with plain_decode_calls() as plain_calls:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            results = m.card.track(frames[16:24], persist=True, tracker=str(cfg))
+            bot_ms = (time.perf_counter() - t0) * 1e3 / 8
+            bot = expect_launches("YOLO.track (BoT-SORT)", {"decode_box_best": 8, "decode_xywh": 0, "int8_matmul": 0})
+    if plain_calls or type(m.card._tracker).__name__ != "BOTSORT" or not m.card._tracker.with_reid:
+        raise SystemExit("YOLO.track(BoT-SORT with ReID) ran a plain decode or another tracker")
+    if not all(r.boxes.is_track and np.isfinite(r.boxes.data).all() for r in results if len(r)) or \
+            sum(len(r) for r in results) == 0:
+        raise SystemExit("YOLO.track(BoT-SORT) gave no tracked rows, or rows that are not finite")
+    print(f"phase 11d YOLO.track(BoT-SORT, ReID, gmc none, persist=True): 8 frames, {bot_ms:.2f} ms per frame (host "
+          f"clock), tracked rows per frame {[len(r) for r in results]}")
+    return {k: launches[k] + bot[k] for k in launches}
+
+
+def kernel_entry(name, source, replaces, launches, row, bf16_launches, bf16_head=None, product_launches=0):
     """One entry of the kernels line; ``launches`` counts every path's run, ``bf16_launches`` those of
-    phase 10's bf16 paths among them, ``bf16_head`` the kernel on a real forward's bf16 head."""
+    phase 10's bf16 paths among them, ``product_launches`` those of phase 11's product path, ``bf16_head``
+    the kernel on a real forward's bf16 head."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
-            "bf16_launches": bf16_launches, **({"bf16_head": bf16_head} if bf16_head else {}),
+            "bf16_launches": bf16_launches, "product_launches": product_launches,
+            **({"bf16_head": bf16_head} if bf16_head else {}),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
             "shape": row["shape"], "call_ms": row["call_ms"], "plain_call_ms": row["plain_call_ms"],
             **({"host_us_per_call": row["host_us_per_call"]} if "host_us_per_call" in row else {}),
-            **({"two_byte_levels": row["two_byte_levels"]} if "two_byte_levels" in row else {})}
+            **({"two_byte_levels": row["two_byte_levels"]} if "two_byte_levels" in row else {}),
+            **({"bf16_out": row["bf16_out"]} if "bf16_out" in row else {})}
 
 
 def phase(name: str, fn, *args):
@@ -2048,13 +2466,15 @@ def main() -> int:
         trainer_launches, data = phase("9", trainer_path, dev, frames, Path(root))
         phase("10d", amp_step_path, dev, model, seeded, f32_step, referee)
         amp_launches = phase("10e", amp_trainer_path, dev, data, root)
+    product_launches = phase("11", product_path, dev)
     bf16 = {k: half_launches[k] + half_xywh_launches[k] + half_int8_launches[k] + amp_launches[k]
             for k in half_launches}
     kernels_line = {"kernels": [
         kernel_entry("decode_box_best", "bsyolo_tpu_torch/kernels/csrc/decode.cu", "bsyolo_tpu/kernels/decode.py:124",
                      predict_launches["decode_box_best"] + val_launches["decode_box_best"]
-                     + trainer_launches["decode_box_best"] + bf16["decode_box_best"], box_row,
-                     bf16["decode_box_best"], box_half),
+                     + trainer_launches["decode_box_best"] + bf16["decode_box_best"]
+                     + product_launches["decode_box_best"], box_row, bf16["decode_box_best"], box_half,
+                     product_launches["decode_box_best"]),
         kernel_entry("decode_xywh", "bsyolo_tpu_torch/kernels/csrc/decode.cu",
                      "bsyolo_tpu/kernels/decode.py:34",
                      tta_launches["decode_xywh"] + tiled_launches["decode_xywh"] + bf16["decode_xywh"], xywh_row,

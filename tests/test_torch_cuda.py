@@ -747,3 +747,67 @@ def test_yolo_train_with_the_default_amp_on_the_card(cuda_device, tmp_path):
     assert all(p.dtype == torch.float32 and p.device == cuda_device for p in m.model.parameters())
     rows = (tmp_path / "runs" / "amp" / "results.csv").read_text().splitlines()
     assert len(rows) == 2 and all(np.isfinite(float(x)) for x in rows[1].split(","))
+
+
+# --- the product path: tracking and the parking-violation application ------------------------------
+
+
+def test_grfb_unet_on_the_card_matches_the_cpu(cuda_device):
+    """GRFB-UNet at the application's width (base_c 32) on an odd 100 x 140 input: the card's logits
+    within 1e-3 of the CPU's norm (TF32 off: cuDNN's float32 convolutions sum in another order)."""
+    from bsyolo_tpu_torch.app import GRFBUNet
+    from bsyolo_tpu_torch.app.grfb_unet import _init_from_generator
+
+    host = GRFBUNet(num_classes=2, base_c=32)
+    _init_from_generator(host, torch.Generator().manual_seed(0))
+    card = GRFBUNet(num_classes=2, base_c=32).to(cuda_device).eval()
+    card.load_state_dict(host.state_dict())
+    x = torch.from_numpy(np.random.default_rng(6).normal(0, 1, (1, 3, 100, 140)).astype(np.float32))
+    with torch.inference_mode():
+        want = host.eval()(x)
+        got = card(x.to(cuda_device)).cpu()
+    err = ((got - want).norm() / want.norm()).item()
+    print(f"GRFB-UNet card vs CPU: {err:.3g} of the norm")
+    assert got.shape == want.shape == (1, 2, 100, 140) and err <= 1e-3
+
+
+def test_segmenter_mask_on_the_card_matches_the_cpu(cuda_device):
+    """BlindwaySegmenter on the card against the CPU on a 240 x 320 frame (resize 128): the networks'
+    inputs within 1 ulp (the resize is integer arithmetic, the normalization three correctly rounded
+    float32 operations), the masks equal but where the two logits nearly tie, at most 1e-3 of the
+    pixels."""
+    from bsyolo_tpu_torch.app import BlindwaySegmenter
+
+    frame = np.random.default_rng(7).integers(0, 256, (240, 320, 3), dtype=np.uint8)
+    host = BlindwaySegmenter(base_c=16, resize=128, device="cpu")
+    card = BlindwaySegmenter(base_c=16, resize=128, device=cuda_device)
+    card.model.load_state_dict(host.model.state_dict())
+    torch.testing.assert_close(card.network_input(frame).cpu(), host.network_input(frame), rtol=0, atol=2e-6)
+    got, want = card(frame), host(frame)
+    assert got.shape == want.shape == (240, 320) and got.dtype == np.uint8
+    assert (got != want).mean() <= 1e-3
+
+
+def test_track_launches_the_box_kernel_once_per_frame(cuda_device):
+    """YOLO.track over 6 frames at batch 1: decode_box once per frame, its plain version never, and
+    every tracked row carries an integer track id."""
+    from pathlib import Path
+
+    from bsyolo_tpu_torch import YOLO, kernels
+    from bsyolo_tpu_torch.kernels import decode
+
+    m = YOLO(str(Path(__file__).parent / "fixtures" / "tiny.yaml"))
+    frames = [np.full((96, 128, 3), 40 + 10 * i, np.uint8) for i in range(6)]
+    plain, calls = decode.box_best_reference, []
+    decode.box_best_reference = lambda *a, **k: calls.append(1) or plain(*a, **k)
+    try:
+        kernels.reset_launch_counts()
+        results = m.track(frames, imgsz=96, conf=0.0001,
+                          tracker=str(Path(__file__).parent / "fixtures" / "trackertest.yaml"))
+        counts = kernels.launch_counts()
+    finally:
+        decode.box_best_reference = plain
+    assert counts == {"decode_box_best": 6, "decode_xywh": 0, "int8_matmul": 0} and not calls
+    assert len(results) == 6 and all(r.boxes.is_track for r in results if len(r))
+    ids = np.concatenate([r.boxes.id for r in results if len(r)])
+    assert len(ids) and np.array_equal(ids, np.round(ids))

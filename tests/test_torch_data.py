@@ -151,6 +151,12 @@ EXACT = {
     "rgb2lab": (lambda im, t: C.rgb2lab(im), lambda im, t: cv2.cvtColor(im, cv2.COLOR_RGB2LAB)),
     "resize-halve": (lambda im, t: C.resize(im, (im.shape[1] // 2, im.shape[0] // 2)),
                      lambda im, t: cv2.resize(im, (im.shape[1] // 2, im.shape[0] // 2), interpolation=cv2.INTER_LINEAR)),
+    "resize-linear-down": (lambda im, t: C.resize(im, (113, 79)),
+                           lambda im, t: cv2.resize(im, (113, 79), interpolation=cv2.INTER_LINEAR)),
+    "resize-linear-up": (lambda im, t: C.resize(im, (251, 190)),
+                         lambda im, t: cv2.resize(im, (251, 190), interpolation=cv2.INTER_LINEAR)),
+    "resize-linear-grey": (lambda im, t: C.resize(im[..., 1], (97, 143)),
+                           lambda im, t: cv2.resize(im[..., 1], (97, 143), interpolation=cv2.INTER_LINEAR)),
 }
 
 

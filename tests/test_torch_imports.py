@@ -43,3 +43,58 @@ def test_port_and_chip_smoke_import_nothing_of_jax_yaml_or_opencv():
     assert out.returncode == 0, out.stderr[-3000:]
     n, leaked = out.stdout.strip().rsplit("\n", 1)[-1].split(" ", 1)
     assert int(n) >= 40 and leaked == "[]", out.stdout
+
+
+_NO_CV2 = r'''
+import importlib.abc, sys
+import numpy as np
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("cv2", "yaml", "jax", "bsyolo_tpu"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+from bsyolo_tpu_torch import YOLO
+from bsyolo_tpu_torch.app import BlindwaySegmenter, ParkingViolationPipeline
+from bsyolo_tpu_torch.trackers import BOTSORT, create_tracker
+from bsyolo_tpu_torch.trackers.gmc import GMC
+
+frame = np.full((64, 64, 3), 60, np.uint8)
+frame[20:40] = (40, 210, 225)
+bot = BOTSORT(with_reid=True, gmc_method="none")
+for i in range(3):
+    out = bot.update(np.float32([[20 + i, 30, 10, 12], [40, 20 - i, 8, 8]]), np.float32([0.9, 0.8]), np.zeros(2), img=frame)
+assert len(out) == 2, out
+assert type(create_tracker("bytetrack.yaml")).__name__ == "BYTETracker"
+model = YOLO("tests/fixtures/tiny.yaml", device="cpu")
+tracked = model.track([frame, frame], imgsz=64, conf=0.0001, tracker="tests/fixtures/trackertest.yaml")
+assert tracked[1].boxes.is_track and len(tracked[1])
+seg = BlindwaySegmenter(base_c=8, resize=48, device="cpu")
+pipe = ParkingViolationPipeline(YOLO("tests/fixtures/tiny.yaml", device="cpu"), seg, conf=0.0001,
+                                tracker="tests/fixtures/trackertest.yaml")
+pipe.prepare_background(frame)
+event, marks = pipe.decide(frame)
+assert len(marks) == len(event["tracks"]) > 0
+refused = []
+for call in (lambda: GMC("sparseOptFlow"), lambda: model.predict("clip.mp4"), lambda: tracked[1].plot(),
+             lambda: pipe.render(frame, 0, event, marks), lambda: pipe.run("clip.mp4")):
+    try:
+        call()
+    except ImportError as e:
+        refused.append(str(e).split("ROADMAP ")[-1])
+print(refused)
+'''
+
+
+def test_product_path_runs_without_opencv_and_its_opencv_calls_name_the_roadmap_item():
+    """The tracker (BoT-SORT with ReID, no GMC), YOLO.track, the segmenter and the pipeline's decision
+    step run with OpenCV refused; video, GMC's OpenCV estimators, drawing and ``run`` raise ImportError
+    naming their ROADMAP item."""
+    out = subprocess.run([sys.executable, "-c", _NO_CV2], cwd=ROOT, capture_output=True, text=True, timeout=300,
+                         env={"PYTHONPATH": str(ROOT), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    refused = out.stdout.strip().rsplit("\n", 1)[-1]
+    assert refused == str(["queue 1, item 24", "queue 1, item 24", "queue 1, item 25", "queue 1, item 25",
+                           "queue 1, item 24"]), out.stdout

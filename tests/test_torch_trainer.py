@@ -258,7 +258,7 @@ def test_unported_processes_modes_tasks_and_formats_raise(monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="item 14"):
         DetectionTrainer(overrides=dict(COMMON, data="x.yaml", device="cpu"))
-    for argv, item in ((["track"], "item 11"), (["export"], "item 15"), (["segment", "train"], "item 12")):
+    for argv, item in ((["benchmark"], "item 15"), (["export"], "item 15"), (["segment", "train"], "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             main(argv)
     with pytest.raises(NotImplementedError, match="item 15"):
@@ -269,7 +269,7 @@ def test_unported_processes_modes_tasks_and_formats_raise(monkeypatch):
 
 @pytest.mark.parametrize("mode,option,item", [
     ("val", "save_txt=True", "item 20"), ("val", "save_json=True", "item 20"), ("val", "plots=True", "item 20"),
-    ("predict", "vid_stride=2", "item 17"), ("predict", "save=True", "item 17"), ("predict", "visualize=True", "item 17"),
+    ("predict", "save_crop=True", "item 17"), ("predict", "save=True", "item 17"), ("predict", "visualize=True", "item 17"),
     ("predict", "show=True", "item 17"), ("predict", "embed=True", "item 17"),
 ])
 def test_cli_passes_unported_val_and_predict_options_to_the_facade(mode, option, item, tmp_path):
