@@ -2,7 +2,9 @@
 
     python -m bsyolo_tpu_torch train data=car.yaml model=yolo11n.yaml epochs=100 plots=False
     python -m bsyolo_tpu_torch val model=runs/detect/train/weights/best.ckpt data=car.yaml
+    python -m bsyolo_tpu_torch val model=best.ckpt data=car.yaml save_json=True save_txt=True save_conf=True
     python -m bsyolo_tpu_torch predict model=best.ckpt source=images/ conf=0.25 half=True
+    python -m bsyolo_tpu_torch predict model=best.ckpt source=images/ save_txt=True save_crop=True name=run1
     python -m bsyolo_tpu_torch track model=best.ckpt source=clip.mp4 tracker=bytetrack.yaml
 
 Arguments are ``key=value`` pairs of ``cfg/default.yaml`` plus ``model``, ``data`` and

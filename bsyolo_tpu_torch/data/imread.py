@@ -9,13 +9,17 @@
   (every pixel of one diagonal at once, each depending only on earlier ones).
 - BMP: uncompressed 8-, 24- and 32-bit files, bottom-up or top-down.
 - ``.npy``: a saved (h, w, 3) or (h, w) uint8 array, taken as BGR.
-- JPEG and the other suffixes go through ``cv2`` where it is importable; else
-  ``imread`` raises ``ImportError`` (ROADMAP queue 1, item 21).
+- JPEG: the port's own codec (``data/jpeg.py``), byte-equal to ``cv2.imread``,
+  the Exif orientation applied.
+- Anything else raises ``ImageFormatError``.
 
 ``imread`` returns (h, w, 3) uint8 BGR like ``cv2.imread`` (alpha dropped,
-grey repeated) or None where the file is missing. ``image_size`` reads
-(h, w) from PNG, BMP and JPEG headers without decoding pixels. ``imwrite_png``
-writes a uint8 BGR or grey array as a PNG (filter None on every row).
+grey repeated) or None where the file is missing; ``imdecode`` does the same
+for the bytes of a file. ``image_size`` reads (h, w) from PNG, BMP and JPEG
+headers without decoding pixels; for a JPEG it is the stored size, before the
+Exif orientation, as PIL reports it. ``imwrite`` writes ``.jpg``/``.jpeg``
+(the codec's encoder, the bytes ``cv2.imwrite`` writes) and ``.png``
+(``imwrite_png``: filter None on every row).
 """
 
 from __future__ import annotations
@@ -27,12 +31,10 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from bsyolo_tpu_torch.data.jpeg import ImageFormatError, decode_jpeg, encode_jpeg, jpeg_info
+
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type -> samples per pixel
-
-
-class ImageFormatError(ValueError):
-    """The file is not an image this reader decodes."""
 
 
 def _png_chunks(data: bytes):
@@ -143,14 +145,15 @@ def decode_bmp(data: bytes) -> np.ndarray:
     return np.ascontiguousarray(img if top_down else img[::-1])
 
 
-def _imread_cv2(path: Path) -> Optional[np.ndarray]:
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError(
-            f"reading {path} needs OpenCV (cv2), which is not installed: without it the port reads PNG, BMP and "
-            ".npy images (JPEG without OpenCV is ROADMAP queue 1, item 21)") from e
-    return cv2.imread(str(path))
+def imdecode(data: bytes) -> np.ndarray:
+    """The bytes of a PNG, BMP or JPEG file -> (h, w, 3) uint8 BGR."""
+    if data[:8] == _PNG_SIG:
+        return decode_png(data)
+    if data[:2] == b"BM":
+        return decode_bmp(data)
+    if data[:2] == b"\xff\xd8":
+        return decode_jpeg(data)
+    raise ImageFormatError("not a PNG, BMP or JPEG file")
 
 
 def imread(path) -> Optional[np.ndarray]:
@@ -158,21 +161,27 @@ def imread(path) -> Optional[np.ndarray]:
     path = Path(path)
     if not path.is_file():
         return None
-    suffix = path.suffix.lower()
-    if suffix == ".npy":
+    if path.suffix.lower() == ".npy":
         im = np.load(path)
         if im.dtype != np.uint8 or im.ndim not in (2, 3):
             raise ImageFormatError(f"{path}: expected a uint8 (h, w[, 3]) array, got {im.dtype} {im.shape}")
         return np.ascontiguousarray(np.repeat(im[..., None], 3, 2) if im.ndim == 2 else im)
-    data = path.read_bytes()
-    if data[:8] == _PNG_SIG:
-        return decode_png(data)
-    if data[:2] == b"BM":
-        try:
-            return decode_bmp(data)
-        except ImageFormatError:
-            return _imread_cv2(path)
-    return _imread_cv2(path)
+    try:
+        return imdecode(path.read_bytes())
+    except ImageFormatError as e:
+        raise ImageFormatError(f"{path}: {e}") from None
+
+
+def imwrite(path, img: np.ndarray, quality: int = 95) -> None:
+    """Write a uint8 (h, w, 3) BGR or (h, w) grey array to ``path``: JPEG at ``quality`` for
+    ``.jpg``/``.jpeg`` (the bytes ``cv2.imwrite`` writes), PNG for ``.png``."""
+    suffix = Path(path).suffix.lower()
+    if suffix in (".jpg", ".jpeg"):
+        Path(path).write_bytes(encode_jpeg(img, quality))
+    elif suffix == ".png":
+        imwrite_png(path, img)
+    else:
+        raise ImageFormatError(f"{path}: imwrite writes .jpg, .jpeg and .png files")
 
 
 def image_size(path) -> Tuple[int, int]:
@@ -202,6 +211,17 @@ def image_size(path) -> Tuple[int, int]:
                     return h, w
                 f.seek(n - 2, 1)
     raise ImageFormatError(f"{path}: no PNG, BMP or JPEG header")
+
+
+def decoded_size(path) -> Tuple[int, int]:
+    """(h, w) of the array ``imread`` returns for ``path``, from the header alone: for a JPEG
+    with an Exif orientation of 5 to 8 the stored size transposed, else ``image_size``."""
+    path = Path(path)
+    with open(path, "rb") as f:
+        head = f.read(2)
+    if head == b"\xff\xd8":
+        return jpeg_info(path.read_bytes())[:2]
+    return image_size(path)
 
 
 def imwrite_png(path, img: np.ndarray, level: int = 1) -> None:

@@ -2,11 +2,13 @@
 
 Sources (numpy frames, lists of them, image files, directories, globs, video
 files and URLs read with OpenCV every ``vid_stride``-th frame, webcam indices
-and ``.streams`` lists through ``data/streams.py LoadStreams``) ->
-letterbox on the model's device -> uint8 batches of ``batch`` frames (the
-last one padded by repeating its last frame, so every batch has one shape)
--> /255, graph, fused decode and NMS on the device -> boxes scaled back to
-each original frame -> ``Results``.
+and ``.streams`` lists through ``data/streams.py LoadStreams``) read and
+decoded by a reader thread, which stages each batch's frames in pinned host
+memory while the card runs the batch before (a queue of at most 4 batches)
+-> asynchronous copy and letterbox on the model's device -> uint8 batches of
+``batch`` frames (the last one padded by repeating its last frame, so every
+batch has one shape) -> /255, graph, fused decode and NMS on the device ->
+boxes scaled back to each original frame -> ``Results``.
 
 With ``augment=True`` (test-time augmentation) the graph runs three passes
 per batch, identity, 0.83x with a left-right flip and 0.67x; each is decoded
@@ -18,6 +20,8 @@ from __future__ import annotations
 
 import glob
 import math
+import queue
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional
@@ -150,6 +154,9 @@ class DetectionPredictor:
         self.batch = max(int(batch), 1)
         self.augment = augment  # the port has only the plain Detect head, the one head that takes TTA
         self.stream_buffer = stream_buffer
+        # seconds of the last stream(): waiting on the reader's queue, and in all
+        self.reader_wait = 0.0
+        self.wall = 0.0
 
     @torch.inference_mode()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -189,26 +196,78 @@ class DetectionPredictor:
         )
 
     def _batches(self, source, vid_stride: int = 1):
-        frames, paths, lbs, t_pre = [], [], [], 0.0
-        src = iter_source(source, vid_stride, self.stream_buffer)
+        """(frames, paths, (B, 3, S, S) batch on the device, preprocess seconds), in the source's
+        order. A reader thread reads, decodes and stages frames (pinned memory on a card) into a
+        queue of at most 4 batches while the consumer copies, letterboxes and runs the batch
+        before; an error in the reader is raised here. A consumer that stops early releases the
+        reader, which then closes the source (videos, streams), within a second."""
+        q: queue.Queue = queue.Queue(maxsize=4)
+        stop = object()
+        err: list = []
+        abandoned = threading.Event()
+        pin = self.device.type == "cuda"
+
+        def put(item) -> bool:
+            while not abandoned.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def stage(frames):
+            t0 = time.perf_counter()
+            staged = [torch.from_numpy(np.ascontiguousarray(f)) for f in frames]
+            if pin:
+                staged = [t.pin_memory() for t in staged]
+            return staged, time.perf_counter() - t0
+
+        def reader():
+            src = iter_source(source, vid_stride, self.stream_buffer)
+            frames, paths = [], []
+            try:
+                for frame, path in src:
+                    frames.append(frame)
+                    paths.append(path)
+                    if len(frames) == self.batch:
+                        if not put((frames, paths, *stage(frames))):
+                            return
+                        frames, paths = [], []
+                if frames:
+                    put((frames, paths, *stage(frames)))
+            except Exception as e:  # raised again in the consumer
+                err.append(e)
+            finally:
+                src.close()  # a consumer that stopped early releases the video or the streams here
+                put(stop)
+
+        thread = threading.Thread(target=reader, name="predict-reader", daemon=True)
+        thread.start()
         try:
-            for frame, path in src:
+            while True:
                 t0 = time.perf_counter()
-                lbs.append(letterbox(frame, (self.imgsz, self.imgsz), self.device))
-                t_pre += time.perf_counter() - t0
-                frames.append(frame)
-                paths.append(path)
-                if len(frames) == self.batch:
-                    yield frames, paths, _stack(lbs), t_pre
-                    frames, paths, lbs, t_pre = [], [], [], 0.0
+                item = q.get()
+                self.reader_wait += time.perf_counter() - t0
+                if item is stop:
+                    break
+                frames, paths, staged, t_pre = item
+                t0 = time.perf_counter()
+                lbs = [letterbox(t, (self.imgsz, self.imgsz), self.device) for t in staged]
+                lbs += [lbs[-1]] * (self.batch - len(lbs))
+                x = _stack(lbs)
+                yield frames, paths, x, t_pre + time.perf_counter() - t0
         finally:
-            src.close()  # a consumer that stops early releases the video or the streams here
-        if frames:
-            lbs += [lbs[-1]] * (self.batch - len(frames))
-            yield frames, paths, _stack(lbs), t_pre
+            abandoned.set()
+            thread.join(timeout=1.0)
+        if err:
+            raise err[0]
 
     def stream(self, source, vid_stride: int = 1, verbose: bool = False) -> Iterator[Results]:
-        """``Results`` per frame, in order; closing the generator closes the source (video, streams)."""
+        """``Results`` per frame, in order; closing the generator closes the source (video, streams).
+        ``reader_wait`` and ``wall`` accumulate the run's seconds waiting on the reader and in all."""
+        self.reader_wait = self.wall = 0.0
+        t_start = time.perf_counter()
         batches = self._batches(source, vid_stride)
         try:
             for frames, paths, x, t_pre in batches:
@@ -226,6 +285,7 @@ class DetectionPredictor:
                     yield res
         finally:
             batches.close()
+            self.wall = time.perf_counter() - t_start
 
     def _to_results(self, dets: np.ndarray, frame: np.ndarray, path: str) -> Results:
         d = dets[dets[:, 4] > 0]

@@ -1,17 +1,21 @@
 """Results API, detect subset (counterpart of ``bsyolo_tpu/engine/results.py``).
 
 Host numpy containers: by the time results exist, the device work is done.
-Drawing and saving need OpenCV, which is imported only when they are called
-(without it they raise ImportError naming the ROADMAP item).
+``save_txt``, ``save_crop`` (JPEG crops through the port's own encoder),
+``summary`` and ``to_json`` need no OpenCV; drawing (``plot``, ``save``)
+does, and imports it only when called (without it they raise ImportError
+naming the ROADMAP item).
 """
 
 from __future__ import annotations
 
+import json
 from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
 
+from bsyolo_tpu_torch.data.imread import imwrite
 from bsyolo_tpu_torch.utils import CV2_DRAWING, import_cv2
 
 
@@ -95,6 +99,65 @@ class Results:
             name = self.names.get(int(c), str(c))
             counts[name] = counts.get(name, 0) + 1
         return ", ".join(f"{v} {k}{'s' if v > 1 else ''}" for k, v in counts.items())
+
+    def save_txt(self, txt_file, save_conf: bool = False):
+        """YOLO-format labels, one ``cls cx cy w h [conf]`` line per box (normalized xywh, 6
+        decimals), as the JAX package's ``Results.save_txt`` writes them for detection."""
+        lines = []
+        if self.boxes is not None:
+            for row, xywhn in zip(self.boxes.data, self.boxes.xywhn):
+                parts = [str(int(row[-1])), *(f"{v:.6f}" for v in xywhn)]
+                if save_conf:
+                    parts.append(f"{float(row[-2]):.6f}")
+                lines.append(" ".join(parts))
+        Path(txt_file).parent.mkdir(parents=True, exist_ok=True)
+        Path(txt_file).write_text("\n".join(lines) + ("\n" if lines else ""))
+        return txt_file
+
+    def save_crop(self, save_dir, file_name: Optional[str] = None) -> int:
+        """Each box's crop of the original image as ``save_dir/<class name>/<stem>_<i>.jpg`` (JPEG at
+        quality 95, the bytes ``cv2.imwrite`` writes), the box clipped to the image; boxes that clip
+        to nothing are skipped. Returns the number of crops written."""
+        if self.boxes is None:
+            return 0
+        n = 0
+        stem = Path(file_name or self.path or "im").stem or "im"
+        h, w = self.orig_shape
+        for i, row in enumerate(self.boxes.data):
+            cls = int(row[-1])
+            x1, y1, x2, y2 = int(max(0, row[0])), int(max(0, row[1])), int(min(w, row[2])), int(min(h, row[3]))
+            if x2 <= x1 or y2 <= y1:
+                continue
+            d = Path(save_dir) / str(self.names.get(cls, str(cls)))
+            d.mkdir(parents=True, exist_ok=True)
+            imwrite(d / f"{stem}_{i}.jpg", self.orig_img[y1:y2, x1:x2])
+            n += 1
+        return n
+
+    def summary(self, normalize: bool = False) -> list:
+        """One dict per box: name, class, confidence (5 decimals), box x1/y1/x2/y2 (pixels to 2
+        decimals, or normalized to 5), and track_id for tracked boxes."""
+        rows = []
+        if self.boxes is None:
+            return rows
+        h, w = self.orig_shape
+        div = (w, h, w, h) if normalize else (1, 1, 1, 1)
+        for row in self.boxes.data:
+            cls = int(row[-1])
+            rec = {
+                "name": self.names.get(cls, str(cls)),
+                "class": cls,
+                "confidence": round(float(row[-2]), 5),
+                "box": {k: round(float(v) / d, 5 if normalize else 2) for k, v, d in zip(("x1", "y1", "x2", "y2"),
+                                                                                      row[:4], div)},
+            }
+            if self.boxes.is_track:
+                rec["track_id"] = int(row[4])
+            rows.append(rec)
+        return rows
+
+    def to_json(self) -> str:
+        return json.dumps(self.summary(), indent=2)
 
     def plot(self, line_width: Optional[int] = None, font_scale: float = 0.5, conf: bool = True,
              labels: bool = True) -> np.ndarray:

@@ -11,20 +11,32 @@ img (B, 3, H, W) uint8, cls (B, M), bboxes (B, M, 4) normalized xywh,
 mask (B, M) and, from a val loader, im_idx (B,), negative on the rows that
 pad the last batch of a canvas shape. Batches may change shape from one to
 the next (rect val batches).
+
+With ``save_json`` the kept rows of every image go, in its original pixels,
+into ``<save_dir>/predictions.json`` (COCO results); with ``save_txt`` into
+``<save_dir>/labels/<stem>.txt`` (normalized xywh, with ``save_conf`` the
+score). Both need the images' files, in the loader's order (``im_files``).
+The original size is that of the image as ``imread`` decodes it, after the
+JPEG Exif orientation; the JAX package takes PIL's size, before it.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Mapping, Optional
+from pathlib import Path
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from bsyolo_tpu_torch import select_device
+from bsyolo_tpu_torch.data.imread import decoded_size
 from bsyolo_tpu_torch.kernels.postprocess import detect_postprocess
 from bsyolo_tpu_torch.ops.boxes import xywh2xyxy
+from bsyolo_tpu_torch.ops.letterbox import letterbox_params
 from bsyolo_tpu_torch.ops.normalize import normalize_image_batch
+from bsyolo_tpu_torch.utils import LOGGER
+from bsyolo_tpu_torch.utils.coco import pred_to_json, save_predictions_json
 from bsyolo_tpu_torch.utils.metrics import ConfusionMatrix, DetMetrics, _box_iou_np, match_predictions
 
 
@@ -59,6 +71,31 @@ def _filter_classes(dets: np.ndarray, classes) -> np.ndarray:
     return d
 
 
+def boxes_to_original(dets: np.ndarray, im_file, input_hw) -> tuple:
+    """(rows with xyxy mapped from the letterboxed input of ``input_hw`` back to ``im_file``'s
+    pixels and clipped to them, (w0, h0)); val letterboxes centred, without enlarging."""
+    h0, w0 = decoded_size(im_file)
+    r, (dw, dh), _ = letterbox_params((h0, w0), input_hw, scaleup=False)
+    d = dets.copy()
+    d[:, [0, 2]] = np.clip((d[:, [0, 2]] - dw) / r, 0, w0)
+    d[:, [1, 3]] = np.clip((d[:, [1, 3]] - dh) / r, 0, h0)
+    return d, (w0, h0)
+
+
+def save_label_txt(path: Path, dets: np.ndarray, wh, save_conf: bool) -> None:
+    """One ``cls cx cy w h [conf]`` line per row, normalized by the image's (w, h)."""
+    w0, h0 = wh
+    lines = []
+    for x1, y1, x2, y2, cf, cl in dets[:, :6]:
+        parts = [str(int(cl)), f"{(x1 + x2) / 2 / w0:.6f}", f"{(y1 + y2) / 2 / h0:.6f}", f"{(x2 - x1) / w0:.6f}",
+                 f"{(y2 - y1) / h0:.6f}"]
+        if save_conf:
+            parts.append(f"{cf:.6f}")
+        lines.append(" ".join(parts))
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text("\n".join(lines) + ("\n" if lines else ""))
+
+
 class DetectionValidator:
     def __init__(
         self,
@@ -70,20 +107,28 @@ class DetectionValidator:
         pre_k: int = 1024,
         names: Optional[Dict[int, str]] = None,
         save_json: bool = False,
+        save_dir=None,
+        class_map=None,
         single_cls: bool = False,
         plots: bool = False,
         classes=None,
         save_txt: bool = False,
+        save_conf: bool = False,
         forward_fn=None,
         device=None,
     ):
         """``device``: where the forward runs (``cuda:0`` by default; raises without a
         card); the model is expected there. ``forward_fn(variables, img)`` replaces
         the graph and postprocess: it takes the batch's image as the loader gives
-        it and returns (B, max_det, 6) rows."""
-        for flag, what in ((save_json, "save_json"), (save_txt, "save_txt"), (plots, "plots")):
-            if flag:
-                raise NotImplementedError(f"val({what}=True) is not ported yet (ROADMAP queue 1, item 20)")
+        it and returns (B, max_det, 6) rows. ``class_map`` maps classes to the
+        category ids of ``predictions.json`` (``utils/coco.py COCO80_TO_COCO91``)."""
+        if plots:
+            raise NotImplementedError("val(plots=True) is not ported yet (ROADMAP queue 1, item 16)")
+        self.save_json = save_json
+        self.save_txt = save_txt
+        self.save_conf = save_conf
+        self.save_dir = Path(save_dir or ".")
+        self.class_map = class_map
         self.model = model
         self.spec = spec
         self.device = select_device(device)
@@ -116,10 +161,19 @@ class DetectionValidator:
             max_det=self.max_det, pre_k=self.pre_k, agnostic=self.single_cls, reg_max=self.spec.reg_max,
         )
 
-    def __call__(self, variables: Optional[Mapping[str, torch.Tensor]], loader, verbose: bool = True) -> DetMetrics:
+    def __call__(self, variables: Optional[Mapping[str, torch.Tensor]], loader, verbose: bool = True,
+                 im_files: Optional[Sequence[str]] = None) -> DetMetrics:
         """Evaluate over ``loader``'s batches. ``variables`` overrides the model's tensors
         by name for this evaluation: the training loop passes its EMA parameters and
-        the model keeps its live BatchNorm statistics; None evaluates the model as it is."""
+        the model keeps its live BatchNorm statistics; None evaluates the model as it is.
+        ``im_files``: the images in the loader's order (by default its dataset's
+        ``img_files``), for ``save_json`` and ``save_txt``."""
+        if im_files is None:
+            im_files = getattr(getattr(loader, "dataset", None), "img_files", None)
+        write = (self.save_json or self.save_txt) and bool(im_files)
+        if (self.save_json or self.save_txt) and not write:
+            LOGGER.warning("save_json/save_txt need the images' files (im_files); nothing will be written")
+        jdict: list = []
         stats = {"tp": [], "conf": [], "pred_cls": [], "target_cls": []}
         confusion = ConfusionMatrix(nc=self.spec.nc, conf=self.conf)
         t_infer = 0.0
@@ -157,6 +211,22 @@ class DetectionValidator:
                 stats["pred_cls"].append(d[:, 5])
                 stats["target_cls"].append(gt_cls)
                 confusion.process_batch(d, gt_xyxy, gt_cls)
+            if write:
+                for i in range(b):
+                    k = int(im_idx[i]) if im_idx is not None else n_img - b + i
+                    if k < 0 or k >= len(im_files):  # rows that pad a batch
+                        continue
+                    d, wh = boxes_to_original(dets[i][dets[i][:, 4] > 0], im_files[k], (h, w))
+                    if self.save_json:
+                        jdict.extend(pred_to_json(d, im_files[k], class_map=self.class_map))
+                    if self.save_txt:
+                        save_label_txt(self.save_dir / "labels" / f"{Path(im_files[k]).stem}.txt", d, wh,
+                                       self.save_conf)
+        if write and self.save_json:
+            out = self.save_dir / "predictions.json"
+            out.parent.mkdir(parents=True, exist_ok=True)
+            save_predictions_json(jdict, out)
+            LOGGER.info(f"saved {len(jdict)} COCO-format predictions to {out}")
 
         metrics = DetMetrics(names=self.names)
         if stats["tp"]:

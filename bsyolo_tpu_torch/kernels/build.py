@@ -1,14 +1,20 @@
-"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+"""Build the port's native code and load it with ctypes.
 
-Each ``csrc/<name>.cu`` compiles on first use into a shared library with a
-plain C interface under ``build/bsyolo_tpu_torch/`` beside the package,
-named by a hash of its source and flags, so an edited source rebuilds and an
-unchanged one loads at once. Nothing here runs at import time.
+Each ``csrc/<name>.cu`` (a CUDA kernel) compiles on first use with nvcc, and
+each ``csrc/<name>.cpp`` (host code: the JPEG codec) with the host C++
+compiler, into a shared library with a plain C interface under
+``build/bsyolo_tpu_torch/`` beside the package, named by a hash of its source
+and flags, so an edited source rebuilds and an unchanged one loads at once
+(loading runs no compiler; the build records which compiler made it). The host route takes no ``-march=native`` and no ``-ffast-math``: the
+library computes the same bytes on every x86-64 machine. Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import functools
 import hashlib
 import os
 import shutil
@@ -24,10 +30,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-# per-source build record: library path, seconds spent in nvcc (0 when reused), ptxas report
+# per-source build record: library path, seconds spent in the compiler (0 when reused), its report, and
+# for host code the compiler's version line
 BUILD_LOG: Dict[str, dict] = {}
 
 
@@ -38,41 +46,86 @@ def nvcc() -> str:
     return path
 
 
+def cxx() -> str:
+    for name in (os.environ.get("CXX"), "g++", "c++"):
+        path = name and shutil.which(name)
+        if path:
+            return path
+    raise RuntimeError("no host C++ compiler found (looked for $CXX, g++ and c++ on PATH); the JPEG codec "
+                       "cannot be built")
+
+
+@functools.lru_cache(maxsize=None)
+def cxx_version(path: str) -> str:
+    """The first line of the compiler's ``--version``, recorded in ``BUILD_LOG`` by a host build."""
+    out = subprocess.run([path, "--version"], capture_output=True, text=True, timeout=60)
+    return (out.stdout.splitlines() or [""])[0]
+
+
+def source(name: str) -> Path:
+    """``csrc/<name>.cu`` where it exists, else ``csrc/<name>.cpp``."""
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.exists() else CSRC / f"{name}.cpp"
+
+
+def _command(name: str, out: Path) -> list:
+    src = source(name)
+    if src.suffix == ".cu":
+        return [nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
+    return [cxx(), *CXX_FLAGS, "-o", str(out), str(src)]
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    src = source(name)
+    flags = NVCC_FLAGS if src.suffix == ".cu" else CXX_FLAGS
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def _reuse(name: str) -> bool:
+    """Whether ``name``'s current library exists (recorded as reused)."""
+    out = _target(name)
+    if out.exists():
+        BUILD_LOG.setdefault(name, {"library": str(out), "seconds": 0.0, "ptxas": "(reused)"})
+    return out.exists()
+
+
 def compile_all(names: Iterable[str]) -> None:
-    """Compile the named sources that have no current library yet, one nvcc per
-    source, all started together; raise with the compiler's output on failure."""
+    """Compile the named sources that have no current library yet, one compiler per
+    source, all started together; raise with the compiler's output on failure. One
+    process builds at a time (a lock file in the build directory): processes that
+    need the same library at once wait for the first one's build and reuse it."""
+    missing = [name for name in names if not _reuse(name)]
+    if not missing:
+        return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        out = _target(name)
-        if out.exists():
-            BUILD_LOG.setdefault(name, {"library": str(out), "seconds": 0.0, "ptxas": "(reused)"})
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-                       tmp, out, time.perf_counter(), cmd)
-    failed = []
-    for name, (proc, tmp, out, t0, cmd) in procs.items():
-        log, _ = proc.communicate(timeout=600)
-        if proc.returncode != 0:
-            failed.append(f"{' '.join(cmd)}\n{log}")
-            continue
-        os.replace(tmp, out)
-        BUILD_LOG[name] = {"library": str(out), "seconds": time.perf_counter() - t0, "ptxas": log.strip(),
-                           "command": " ".join(cmd)}
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        procs = {}
+        for name in missing:
+            if _reuse(name):  # built by the process that held the lock before
+                continue
+            out = _target(name)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = _command(name, tmp)
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                           tmp, out, time.perf_counter(), cmd)
+        failed = []
+        for name, (proc, tmp, out, t0, cmd) in procs.items():
+            log, _ = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{log}")
+                continue
+            os.replace(tmp, out)
+            BUILD_LOG[name] = {"library": str(out), "seconds": time.perf_counter() - t0, "ptxas": log.strip(),
+                               "command": " ".join(cmd),
+                               **({"compiler": cxx_version(cmd[0])} if source(name).suffix == ".cpp" else {})}
     if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n\n".join(failed))
+        raise RuntimeError("the compiler failed:\n" + "\n\n".join(failed))
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library for ``csrc/<name>.cu`` or ``csrc/<name>.cpp``, built first if needed."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

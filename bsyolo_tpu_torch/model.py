@@ -11,6 +11,9 @@
     results = m.predict(frames, augment=True)  # test-time augmentation
     results = m.predict(frames, half=True)     # the bf16 graph over bf16 weights
     results = m.predict("clip.mp4", vid_stride=2)  # video (OpenCV), webcam "0", "cams.streams"
+    results = m.predict("images/", save_txt=True, save_crop=True, project="runs/detect", name="predict")
+    vectors = m.embed("images/")               # pooled features of the second-to-last layer, one per image
+    metrics = m.val(data="car.yaml", save_json=True, save_txt=True, save_dir="runs/val")
     results = m.track("clip.mp4", persist=True, tracker="bytetrack.yaml")  # boxes carry track ids
 
 ``half=True`` runs a bfloat16 copy of the graph (``YOLO.half_graph``, built by
@@ -50,12 +53,25 @@ from bsyolo_tpu_torch.utils.ckpt import load_checkpoint, load_weights, save_chec
 from bsyolo_tpu_torch.utils.weights import jax_paths, load_reference_state_dict
 
 _PREDICT_ARGS = {"conf", "iou", "imgsz", "batch", "max_det", "classes", "agnostic_nms", "augment", "verbose", "half",
-                 "vid_stride", "stream_buffer"}
+                 "vid_stride", "stream_buffer", "save_txt", "save_conf", "save_crop", "embed", "project", "name"}
 # predict options of the JAX package that the port does not have yet -> the ROADMAP item that brings them
 _NOT_PORTED = {
-    **dict.fromkeys(("save", "save_txt", "save_conf", "save_crop", "show", "visualize", "embed"), "queue 1, item 17"),
+    **dict.fromkeys(("save", "show"), "queue 1, item 25"),
+    "visualize": "queue 1, item 16",
     "retina_masks": "queue 1, item 12",
 }
+
+
+def result_stem(path: str, i: int) -> str:
+    """The file stem of result ``i``'s outputs: ``clip_frame<n>`` for a video frame
+    (``clip.mp4#frame<n>``), ``image<i>`` for an array, else the source file's stem."""
+    raw = str(path)
+    if "#" in raw:
+        base, _, fr = raw.partition("#")
+        return f"{Path(base).stem}_{fr}"
+    if raw == "array":
+        return f"image{i}"
+    return Path(raw).stem
 
 
 class YOLO:
@@ -83,6 +99,7 @@ class YOLO:
         self._img_size = 640
         self._half = None  # (key, bf16 inference graph) of half_graph
         self._tracker = None  # the tracker that track(persist=True) goes on with
+        self.predictor = None  # the last predict()'s DetectionPredictor (its reader_wait and wall seconds)
         if suffix == ".ckpt":
             self._load_ckpt(self.model_path, seed)
         else:
@@ -144,14 +161,17 @@ class YOLO:
         a glob, a video file or URL, a webcam index or a ``.streams`` list; video through OpenCV);
         a list of ``Results``, or a generator with ``stream=True``. ``half=True`` runs the bf16
         graph over bf16 weights; ``vid_stride`` keeps every n-th video frame, ``stream_buffer``
-        keeps every stream frame (else the latest)."""
+        keeps every stream frame (else the latest). ``save_txt`` (with ``save_conf``) writes
+        ``<project>/<name>/labels/<stem>.txt`` and ``save_crop`` ``<project>/<name>/crops/<class>/
+        <stem>_<i>.jpg`` (``runs/detect/predict`` by default; not with ``stream=True``). ``embed`` is
+        accepted and changes nothing, as in the JAX facade: ``embed()`` gives the vectors."""
         for k, v in kwargs.items():
             if k in _NOT_PORTED and v:
                 raise NotImplementedError(f"predict({k}=...) is not ported yet (ROADMAP {_NOT_PORTED[k]})")
             if k not in _PREDICT_ARGS and k not in _NOT_PORTED:
                 raise TypeError(f"predict() got an unexpected keyword argument {k!r}")
         conf = kwargs.get("conf")
-        predictor = DetectionPredictor(
+        self.predictor = predictor = DetectionPredictor(
             self.half_graph() if kwargs.get("half") else self.model,
             self.spec,
             self._device,
@@ -168,7 +188,41 @@ class YOLO:
         )
         gen = predictor.stream(source, vid_stride=int(kwargs.get("vid_stride") or 1),
                                verbose=kwargs.get("verbose", False))
-        return gen if stream else list(gen)
+        if stream:
+            return gen
+        results = list(gen)
+        if kwargs.get("save_txt") or kwargs.get("save_crop"):
+            out_dir = Path(kwargs.get("project") or "runs/detect") / (kwargs.get("name") or "predict")
+            for i, r in enumerate(results):
+                stem = result_stem(r.path, i)
+                if kwargs.get("save_txt"):
+                    r.save_txt(out_dir / "labels" / f"{stem}.txt", save_conf=bool(kwargs.get("save_conf", False)))
+                if kwargs.get("save_crop"):
+                    r.save_crop(out_dir / "crops", file_name=stem)
+        return results
+
+    def embed(self, source, stream: bool = False, embed=None, imgsz: Optional[int] = None):
+        """One 1-D float32 vector per image of ``source`` (sources as ``predict``): the global-average
+        pooled outputs of the ``embed`` layers, concatenated (the second-to-last layer by default),
+        of the image letterboxed on the host (``letterbox_image``, as the JAX package's embed) and run
+        on this model's device. A list, or a generator with ``stream=True``."""
+        import numpy as np
+
+        from bsyolo_tpu_torch.engine.predictor import iter_source
+        from bsyolo_tpu_torch.ops.letterbox import letterbox_image
+
+        idxs = tuple(embed or (len(self.spec.layers) - 2,))
+        size = imgsz or self._img_size
+
+        def gen():
+            for frame, _ in iter_source(source):
+                lb = letterbox_image(frame, (size, size))[0]
+                x = torch.from_numpy(np.ascontiguousarray(lb[..., ::-1].transpose(2, 0, 1)))[None]
+                with torch.inference_mode():
+                    v = self.model(x.to(self._device).float() / 255.0, embed=idxs)[0].float().cpu().numpy()
+                yield v
+
+        return gen() if stream else list(gen())
 
     def __call__(self, source, stream: bool = False, **kwargs):
         return self.predict(source, stream=stream, **kwargs)
@@ -197,14 +251,16 @@ class YOLO:
     def val(self, data: Optional[str] = None, batch: int = 16, imgsz: Optional[int] = None, **kwargs):
         """Detection metrics of this model on ``data``'s ``split`` (val by default), letterboxed to
         ``imgsz`` (square, or three aspect buckets with ``rect=True``); NMS at conf 0.001, IoU 0.7
-        unless ``conf``, ``iou``, ``max_det`` say otherwise; ``half=True`` on the bf16 graph."""
+        unless ``conf``, ``iou``, ``max_det`` say otherwise; ``half=True`` on the bf16 graph.
+        ``save_json`` writes ``<save_dir>/predictions.json`` (COCO results, the official category ids
+        for a COCO set of 80 classes), ``save_txt`` (with ``save_conf``) ``<save_dir>/labels/<stem>.txt``
+        per image, in original-image pixels; ``save_dir`` is ``runs/val`` by default."""
         from bsyolo_tpu_torch.data import DataLoader, YOLODataset, load_dataset_yaml
         from bsyolo_tpu_torch.engine.trainer import val_batches
         from bsyolo_tpu_torch.engine.validator import DetectionValidator
 
-        for k in ("save_json", "save_txt", "plots"):
-            if kwargs.get(k):
-                raise NotImplementedError(f"val({k}=True) is not ported yet (ROADMAP queue 1, item 20)")
+        if kwargs.get("plots"):
+            raise NotImplementedError("val(plots=True) is not ported yet (ROADMAP queue 1, item 16)")
         data = data or (self.trainer.args.data if self.trainer is not None else None)
         if data is None:
             raise ValueError("val() needs data=<dataset yaml>")
@@ -219,10 +275,18 @@ class YOLO:
         vkw = {k: kwargs[k] for k in ("conf", "iou", "max_det") if kwargs.get(k) is not None}
         if kwargs.get("classes"):
             vkw["classes"] = list(kwargs["classes"])
+        save_dir = kwargs.get("save_dir") or "runs/val"
+        if kwargs.get("save_txt"):
+            vkw.update(save_txt=True, save_conf=bool(kwargs.get("save_conf", False)), save_dir=save_dir)
+        if kwargs.get("save_json"):
+            from bsyolo_tpu_torch.utils.coco import COCO80_TO_COCO91
+
+            coco = "coco" in str(data).lower() and self.spec.nc == 80  # official COCO category ids
+            vkw.update(save_json=True, save_dir=save_dir, class_map=COCO80_TO_COCO91 if coco else None)
         model = self.half_graph() if kwargs.get("half") else self.model
         validator = DetectionValidator(model, self.spec, names=d.get("names"), single_cls=single_cls,
                                        device=self._device, **vkw)
-        self.metrics = validator(None, val_batches(loader, self._device))
+        self.metrics = validator(None, val_batches(loader, self._device), im_files=ds.img_files)
         return self.metrics
 
     def save(self, path: Union[str, Path]) -> Union[str, Path]:

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import copy
 import itertools
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import torch
 import torch.nn as nn
@@ -72,9 +72,14 @@ class DetectionGraph(nn.Module):
                 layers.append(_build_layer(layer, spec.head_strides))
         self.model = nn.ModuleList(layers)
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, embed: Sequence[int] = ()):
+        """The head's list of per-level maps; with ``embed`` (layer indices), the global-average-pooled
+        outputs of those layers concatenated over channels, (B, C1 + C2 + ...), the walk stopping at the
+        last of them (``bsyolo_tpu/nn/model.py`` embed)."""
         saved: Dict[int, torch.Tensor] = {}
         save = set(self.spec.save)
+        pooled: List[torch.Tensor] = []
+        last = max(embed) if embed else -1
         for layer, m in zip(self.spec.layers, self.model):
             if len(layer.f) > 1:
                 x = m([x if j == -1 else saved[j] for j in layer.f])
@@ -82,6 +87,10 @@ class DetectionGraph(nn.Module):
                 x = m(x if layer.f[0] == -1 else saved[layer.f[0]])
             if layer.i in save:
                 saved[layer.i] = x
+            if layer.i in embed:
+                pooled.append(x.mean((2, 3)) if x.ndim == 4 else x.reshape(x.shape[0], -1))
+                if layer.i == last:
+                    return torch.cat(pooled, 1)
         return x
 
 

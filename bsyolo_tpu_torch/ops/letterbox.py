@@ -44,19 +44,23 @@ def letterbox_params(
     return r, (dw, dh), new_unpad
 
 
-def letterbox(frame: np.ndarray, new_shape: Tuple[int, int], device, pad_value: int = 114) -> torch.Tensor:
+def letterbox(frame, new_shape: Tuple[int, int], device, pad_value: int = 114) -> torch.Tensor:
     """(h, w, 3) BGR frame -> (3, H, W) RGB letterboxed tensor on ``device``.
 
-    A uint8 frame gives a uint8 tensor (the resize rounds and clamps). A float32
-    frame, on the same 0-255 scale, gives a float32 tensor, resized without
-    rounding: the JAX predictor letterboxes such frames as they are and divides
-    them by 255 afterwards, as the port's forward does with either dtype.
+    The frame is a numpy array or a host tensor; a tensor in pinned memory is
+    copied to the card asynchronously. A uint8 frame gives a uint8 tensor (the
+    resize rounds and clamps). A float32 frame, on the same 0-255 scale, gives a
+    float32 tensor, resized without rounding: the JAX predictor letterboxes such
+    frames as they are and divides them by 255 afterwards, as the port's
+    forward does with either dtype.
     """
-    if frame.dtype not in (np.uint8, np.float32) or frame.ndim != 3 or frame.shape[2] != 3:
-        raise ValueError(f"expected a uint8 or float32 (h, w, 3) BGR frame, got {frame.dtype} {frame.shape}")
-    shape = frame.shape[:2]
+    if isinstance(frame, np.ndarray):
+        frame = torch.from_numpy(np.ascontiguousarray(frame))
+    if frame.dtype not in (torch.uint8, torch.float32) or frame.ndim != 3 or frame.shape[2] != 3:
+        raise ValueError(f"expected a uint8 or float32 (h, w, 3) BGR frame, got {frame.dtype} {tuple(frame.shape)}")
+    shape = tuple(frame.shape[:2])
     _, (dw, dh), new_unpad = letterbox_params(shape, new_shape)
-    im = torch.from_numpy(np.ascontiguousarray(frame)).to(device).permute(2, 0, 1)
+    im = frame.to(device, non_blocking=True).permute(2, 0, 1)
     if shape[::-1] != new_unpad:
         x = F.interpolate(
             im[None].float(), size=(new_unpad[1], new_unpad[0]), mode="bilinear", align_corners=False, antialias=False

@@ -6,7 +6,7 @@ LOGGER = logging.getLogger("bsyolo_tpu_torch")
 
 # ROADMAP items that remove the port's remaining OpenCV calls, by what the call does
 CV2_VIDEO = "queue 1, item 24"  # video decode and encode, MOG2 background, GMC's feature and flow estimators
-CV2_DRAWING = "queue 1, item 25"  # rectangles, text and polylines on frames, JPEG writes
+CV2_DRAWING = "queue 1, item 25"  # rectangles, text and polylines on frames
 
 
 def import_cv2(what: str, item: str):

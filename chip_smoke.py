@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card, nvcc (PATH or $CUDA_HOME/bin) and this checkout; exits
-non-zero without them. Phases, each of which fails the run on its own:
+Needs one CUDA card, nvcc (PATH or $CUDA_HOME/bin), a host C++ compiler and
+this checkout; exits non-zero without them. Phases, each of which fails the run on its own:
 
 1. the card's name and power limit; every kernel of the port built with
-   nvcc from ``bsyolo_tpu_torch/kernels/csrc``, one nvcc per source, all at once;
+   nvcc from ``bsyolo_tpu_torch/kernels/csrc``, and the JPEG codec with the
+   host C++ compiler, one compiler per source, all at once;
 2. each kernel against its plain PyTorch version on the card, at the shapes
    its paths give it and at ragged ones, with its time, the plain version's
    time, the least time the card could take (bytes or operations over the
@@ -117,16 +118,39 @@ non-zero without them. Phases, each of which fails the run on its own:
    BoT-SORT (ReID on, no camera-motion compensation) over 8 frames,
    ``persist=True``: the decode kernel once per frame.
 
+12. real photos, the ``tests/fixtures/bsyolo8`` JPEGs: (a) the port's JPEG
+   decoder (host C++, ``kernels/csrc/jpeg.cpp``, built with the host
+   compiler beside the kernels) over the 8 photos, each array against a
+   committed SHA-256 digest of ``cv2.imread``'s; (b) its encoder at quality
+   95 against digests of ``cv2.imencode``'s bytes; the host ms per photo, the
+   compiler's version and whether OpenCV is importable; (c) ``YOLO.train`` of
+   full-width yolo11n (imgsz 320, 2 epochs, batch 8, 2 workers) on a train
+   list of the photos 16 times over (16 steps per epoch, ms per step and the
+   loader-wait share per epoch), validated on the 8 photos, the box decode
+   kernel once per validation batch, then ``val(save_json=True,
+   save_txt=True)``: one label file per photo and a ``predictions.json`` over
+   the 8 image ids, one launch; (d) ``predict(save_txt=True, save_crop=True)``
+   of the photos' directory at 640 px, batch 4, through the predictor's
+   reader thread, one launch per batch, against the same call on the CPU
+   (rows paired as in phase 3), the label and crop files against the
+   detections; then the rate over a directory of the photos 64 times over
+   (128 batches, one launch each): from files through the reader thread,
+   against the same frames decoded beforehand (no decode) and against
+   decoding each batch and then running it in one thread (no reader thread),
+   in turns, with img/s and the share of the wall time spent waiting on the
+   reader; ``embed`` against the CPU's.
+
 Phases 10a to 10c run right after phase 6, on the float graph phases 3 to 6
-used; 10d and 10e after phase 9, 11 last. Each phase prints its seconds. Every launch counter is set to 0 just before a path is driven and read just
+used; 10d and 10e after phase 9, 11 and 12 last. Each phase prints its seconds. Every launch counter is set to 0 just before a path is driven and read just
 after, so each path shows the kernels it went through.
 
 TF32 is off for convolutions and matrix products throughout, so the card and
 the CPU compute the same float32 function (cuDNN would otherwise run float32
 convolutions in TF32). The last two lines are the kernels JSON and
 ``{"ok": true, "device": {...}}``; in the kernels line each kernel carries its
-launches on phase 10's bf16 paths (``bf16_launches``) and on phase 11's
-product path (``product_launches``) among all its launches, and
+launches on phase 10's bf16 paths (``bf16_launches``), on phase 11's
+product path (``product_launches``) and on phase 12's photos
+(``photo_launches``) among all its launches, and
 ``int8_matmul`` its bf16 epilogue's figures (``bf16_out``).
 """
 
@@ -208,11 +232,11 @@ def build_kernels():
     from bsyolo_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    names = sorted({src for _, src in kernels.KERNELS.values()})
+    names = sorted({src for _, src in kernels.KERNELS.values()}) + ["jpeg"]  # jpeg: the host JPEG codec
     build.compile_all(names)
     for name in names:
         rec = build.BUILD_LOG[name]
-        src = build.CSRC / f"{name}.cu"
+        src = build.source(name)
         print(f"built {src.relative_to(build.CSRC.parents[1])} (sha256 {hashlib.sha256(src.read_bytes()).hexdigest()[:16]})"
               f" in {rec['seconds']:.2f} s -> {rec['library']}")
         print(f"  {rec.get('command', '(library reused)')}")
@@ -2399,12 +2423,291 @@ def product_path(dev):
     return {k: launches[k] + bot[k] for k in launches}
 
 
-def kernel_entry(name, source, replaces, launches, row, bf16_launches, bf16_head=None, product_launches=0):
+# phase 12: real photos. The port's JPEG codec against digests of OpenCV 5.0's arrays and bytes (cv2.imread
+# and cv2.imencode at quality 95, libjpeg-turbo 3.1), recomputed with cv2 by tests/test_torch_jpeg.py; then
+# YOLO.train, val(save_json, save_txt), predict(save_txt, save_crop) and embed on the bsyolo8 photos.
+PHOTOS = Path(__file__).resolve().parent / "tests" / "fixtures" / "bsyolo8"
+# photo -> (h, w, sha256 of cv2.imread's array, sha256 of cv2.imencode(".jpg", that array, quality 95))
+PHOTO_DIGESTS = {
+    "0.jpg": (427, 320, "47a519367f1e757525e305b7efd3ed3aabcc8d0d9a8973d758c9ae7463f1a01b",
+              "654481713cdae66242390a7f1928caf5a47c2d9c335a4ffa2198c87820e971e5"),
+    "1.jpg": (478, 320, "6cf1cf3a51cf083b1ad7ba82e6ea81d698da0e0e81caf0796479d0a973a18303",
+              "75b1f224386b804505db6525cdb2593ac6ad27a679cbfde7dff20056595f0040"),
+    "2.jpg": (427, 320, "d280b7cf1f7071efa26baa574fb31ee5ce4e7c5e0589f6f26f7b310987d437bf",
+              "f43b2228d453d093b1e9cd31740aa60f09ed9340aa42f61568134320a4ee6b5d"),
+    "3.jpg": (431, 320, "3d58845a74a91c68414b30c23237a850f21ef30cb9cef8e6182acb6169175f0e",
+              "1599ecdd9a172993a352b211c5b2300f427b0d98f680b638b0ec7f7f4a712d24"),
+    "4.jpg": (331, 320, "e596463a02e234c86d5939c8feee8ec8de212bfcb0510821084a8ab9379e65ba",
+              "baf8e6b715d1992cbe6027c2cb557e7fa7abd8a008f42e37c512db5f7617ac61"),
+    "5.jpg": (427, 320, "b913f91734261751cf8a07174aeb3a3ad0d1e9455961d561ff63b99fa45e2dac",
+              "256f226f9a86c832641e64497c5142a8842f8c39de38d8ce44c7a745a6dfc4b6"),
+    "6.jpg": (427, 320, "c6977c776c0e4e1af9fa81825819ce0572b2eea5c34c3d56177422d39ae28ada",
+              "efc081d2553b29a40ea24e88cf774abae4e971004ac33ec7bb0adc5d1380bb75"),
+    "7.jpg": (427, 320, "3213437fb574a7a0644e9706988b837790f0f374a2fa8a1930a32984a52793c7",
+              "d5ba801f685efc3e7db4aec5df8d4f8feb8fdc8cafd6b1b9985a2873774fb854"),
+}
+P12_TRAIN = dict(imgsz=320, epochs=2, batch=8, workers=2, plots=False, seed=3)
+P12_TRAIN_REPEAT = 16  # the train list holds each photo this many times: 16 steps per epoch at batch 8
+P12_PREDICT_BATCH = 4
+P12_STREAM_REPEAT = 64  # the rate's directory holds each photo this many times: 128 batches of 4
+EMBED_RTOL = 1e-4  # pooled features, card vs CPU (norm of the difference over the CPU's norm), TF32 off
+
+
+def codec_checks():
+    """Phase 12 (a) and (b): decode each photo and re-encode it at quality 95; both against the digests."""
+    import importlib.util
+    import hashlib as _hashlib
+
+    from bsyolo_tpu_torch.data.imread import imread
+    from bsyolo_tpu_torch.data.jpeg import encode_jpeg
+    from bsyolo_tpu_torch.kernels import build
+
+    try:
+        has_cv2 = importlib.util.find_spec("cv2") is not None
+    except (ImportError, ValueError):
+        has_cv2 = False
+    build.compile_all(["jpeg"])  # built in phase 1 already: this records the reuse
+    rec = build.BUILD_LOG["jpeg"]
+    cxx = build.cxx()
+    print(f"phase 12 codec: {rec['library']} built by {rec.get('compiler') or 'an earlier run (reused)'}; this "
+          f"machine's compiler {cxx} ({build.cxx_version(cxx)}); OpenCV (cv2) importable here: "
+          f"{'yes' if has_cv2 else 'no'}")
+    dec_ms, enc_ms, bad = [], [], []
+    for name, (h, w, want_px, want_jpg) in PHOTO_DIGESTS.items():
+        path = PHOTOS / "images" / "train" / name
+        img = imread(path)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            imread(path)
+        dec_ms.append((time.perf_counter() - t0) * 100)
+        data = encode_jpeg(img, 95)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            encode_jpeg(img, 95)
+        enc_ms.append((time.perf_counter() - t0) * 100)
+        got_px, got_jpg = _hashlib.sha256(img.tobytes()).hexdigest(), _hashlib.sha256(data).hexdigest()
+        if img.shape != (h, w, 3) or got_px != want_px:
+            bad.append(f"decode {name}: {img.shape} {got_px[:16]} (want {(h, w, 3)} {want_px[:16]})")
+        if got_jpg != want_jpg:
+            bad.append(f"encode {name}: {got_jpg[:16]} (want {want_jpg[:16]})")
+    print(f"phase 12a decode: {len(PHOTO_DIGESTS)} photos byte-equal to cv2.imread's digests: {not bad}; "
+          f"{np.mean(dec_ms):.3f} ms per photo (host clock, one thread, file read included; per photo "
+          f"{', '.join(f'{v:.3f}' for v in dec_ms)})")
+    print(f"phase 12b encode at quality 95: byte-equal to cv2.imencode's digests: {not bad}; "
+          f"{np.mean(enc_ms):.3f} ms per photo (host clock, one thread)")
+    if bad:
+        raise SystemExit("the JPEG codec disagrees with OpenCV's digests: " + "; ".join(bad))
+
+
+def repeated_photos(d: Path, repeat: int, labels: bool = False):
+    """``d``/images/train holding each bsyolo8 photo ``repeat`` times as ``<k>_<stem>.jpg`` (hard links where
+    the file system allows, else copies), with their label files under ``d``/labels/train; the image paths."""
+    import os
+    import shutil
+
+    (d / "images" / "train").mkdir(parents=True)
+    if labels:
+        (d / "labels" / "train").mkdir(parents=True)
+    paths = []
+    for k in range(repeat):
+        for src in sorted((PHOTOS / "images" / "train").glob("*.jpg")):
+            dst = d / "images" / "train" / f"{k:03d}_{src.name}"
+            try:
+                os.link(src, dst)
+            except OSError:
+                shutil.copyfile(src, dst)
+            if labels:
+                shutil.copyfile(PHOTOS / "labels" / "train" / f"{src.stem}.txt",
+                                d / "labels" / "train" / f"{dst.stem}.txt")
+            paths.append(dst)
+    return sorted(paths)
+
+
+def photo_train_val(dev, root):
+    """Phase 12 (c): YOLO.train on the bsyolo8 photos 16 times over (validated on the 8), then
+    val(save_json, save_txt) on the 8; returns the launches."""
+    import json as _json
+
+    import torch
+
+    from bsyolo_tpu_torch import YOLO, kernels
+
+    data = str(PHOTOS / "bsyolo8.yaml")
+    stems = sorted(p.stem for p in (PHOTOS / "images" / "train").glob("*.jpg"))
+    n_train = len(repeated_photos(root / "train_data", P12_TRAIN_REPEAT, labels=True))
+    train_yaml = root / "train_data" / "bsyolo8x16.yaml"
+    train_yaml.write_text(f"path: {root / 'train_data'}\ntrain: images/train\nval: {PHOTOS / 'images' / 'train'}\n"
+                          "nc: 3\nnames:\n  0: car\n  1: person\n  2: motorcycle\n")
+    with plain_decode_calls() as plain_calls:
+        kernels.reset_launch_counts()
+        model = YOLO("yolo11n.yaml")
+        t0 = time.perf_counter()
+        model.train(data=str(train_yaml), project=str(root / "runs"), name="p12", exist_ok=True, **P12_TRAIN)
+        train_s = time.perf_counter() - t0
+        n_val = -(-len(stems) // P12_TRAIN["batch"])
+        trained = expect_launches("YOLO.train on bsyolo8", {"decode_box_best": P12_TRAIN["epochs"] * n_val,
+                                                             "decode_xywh": 0, "int8_matmul": 0})
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = model.val(data=data, batch=16, save_json=True, save_txt=True, save_dir=str(root / "val"))
+        torch.cuda.synchronize()
+        val_s = time.perf_counter() - t0
+        val = expect_launches("val(save_json, save_txt) on bsyolo8", {"decode_box_best": -(-len(stems) // 16),
+                                                                      "decode_xywh": 0, "int8_matmul": 0})
+    if plain_calls:
+        raise SystemExit(f"phase 12 ran the decode's plain version {len(plain_calls)} times on the card")
+    for e, (wait, wall, n) in enumerate(model.trainer.loader_wait):
+        print(f"  epoch {e}: {n} steps in {wall:.2f} s, {wall * 1e3 / n:.1f} ms per step, loader-wait share "
+              f"{wait / wall:.3f} (host clock{', the worker pool starts' if e == 0 else ''})")
+    wait, wall, n = model.trainer.loader_wait[-1]
+    print(f"phase 12c YOLO.train on bsyolo8 x{P12_TRAIN_REPEAT} ({n_train} photos; {card_line()}): {P12_TRAIN}, "
+          f"{train_s:.1f} s in all; last epoch {n} steps, {wall * 1e3 / n:.1f} ms per step, loader-wait share "
+          f"{wait / wall:.3f} (host clock)")
+    labels = sorted(p.stem for p in (root / "val" / "labels").glob("*.txt"))
+    preds = _json.loads((root / "val" / "predictions.json").read_text())
+    ids = sorted({str(p["image_id"]) for p in preds})
+    print(f"phase 12c val: {val_s * 1e3 / len(stems):.2f} ms per image (host clock); {len(labels)} label files, "
+          f"{len(preds)} predictions.json rows over image ids {ids}; "
+          f"{', '.join(f'{k} {v:.4f}' for k, v in metrics.results_dict.items())}")
+    if labels != stems or ids != stems:
+        raise SystemExit(f"val(save_json, save_txt) wrote labels {labels} and image ids {ids}, expected {stems}")
+    if not all(np.isfinite(p["bbox"]).all() and 0 < p["score"] <= 1 for p in preds):
+        raise SystemExit("predictions.json holds boxes or scores that are not finite")
+    return {k: trained[k] + val[k] for k in trained}
+
+
+def serial_predict(p, paths):
+    """Predict ``paths`` with predictor ``p``'s settings in one thread, without the reader thread: each batch
+    decoded, then letterboxed, run and turned into results (the order a predictor without a reader keeps)."""
+    from bsyolo_tpu_torch.data.imread import imread
+    from bsyolo_tpu_torch.engine.predictor import _stack
+    from bsyolo_tpu_torch.ops.letterbox import letterbox
+
+    out = []
+    for i in range(0, len(paths), p.batch):
+        chunk = paths[i:i + p.batch]
+        frames = [imread(f) for f in chunk]
+        lbs = [letterbox(f, (p.imgsz, p.imgsz), p.device) for f in frames]
+        lbs += [lbs[-1]] * (p.batch - len(lbs))
+        dets = p.forward(_stack(lbs)).cpu().numpy()
+        out += [p._to_results(dets[k], f, str(path)) for k, (f, path) in enumerate(zip(frames, chunk))]
+    return out
+
+
+def photo_rate(card, root, args):
+    """Phase 12 (d), the rate: predict over the photos 64 times over, from files through the reader thread,
+    from the same frames decoded beforehand, and decoding then running each batch in one thread, in turns;
+    returns the launches of the reader-thread runs."""
+    from bsyolo_tpu_torch import kernels
+    from bsyolo_tpu_torch.data.imread import imread
+
+    paths = repeated_photos(root / "stream", P12_STREAM_REPEAT)
+    n, n_batches = len(paths), -(-len(paths) // P12_PREDICT_BATCH)
+    frames = [imread(f) for f in paths]
+    rates = {"files": [], "serial": [], "arrays": []}
+    waits, launches = [], {}
+    for kind in ("files", "serial", "arrays", "serial", "files"):
+        with plain_decode_calls() as plain_calls:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            if kind == "serial":
+                got = serial_predict(card.predictor, paths)
+            else:
+                got = card.predict(str(root / "stream" / "images" / "train") if kind == "files" else frames, **args)
+            wall = time.perf_counter() - t0
+            counted = expect_launches(f"predict over {n} photos ({kind})",
+                                      {"decode_box_best": n_batches, "decode_xywh": 0, "int8_matmul": 0})
+        if plain_calls:
+            raise SystemExit(f"phase 12 predict ({kind}) ran the decode's plain version on the card")
+        if len(got) != n or (kind != "arrays" and [str(r.path) for r in got] != [str(f) for f in paths]):
+            raise SystemExit(f"predict over {n} photos ({kind}) gave {len(got)} results or another order")
+        if kind == "files":
+            launches = {k: launches.get(k, 0) + v for k, v in counted.items()}
+            waits.append(card.predictor.reader_wait / card.predictor.wall)
+        rates[kind].append(n / (wall if kind == "serial" else card.predictor.wall))
+    print(f"phase 12d predict rate ({card_line()}): {n} photos at batch {P12_PREDICT_BATCH}, imgsz {IMGSZ}, "
+          f"{n_batches} batches, in turns files, serial, arrays, serial, files (host clock):")
+    print(f"  from files through the reader thread: {', '.join(f'{r:.1f}' for r in rates['files'])} img/s over the "
+          f"stream, reader-wait share {', '.join(f'{w:.3f}' for w in waits)}")
+    print(f"  decode then run, one thread (no reader thread): {', '.join(f'{r:.1f}' for r in rates['serial'])} img/s")
+    print(f"  frames decoded beforehand (no decode): {rates['arrays'][0]:.1f} img/s")
+    return launches
+
+
+def photo_predict(dev, root):
+    """Phase 12 (d): predict(save_txt, save_crop) and embed over the photos' directory on the card, against
+    the CPU, and the rate over the photos 64 times over; returns the launches."""
+    import torch
+
+    from bsyolo_tpu_torch import YOLO, kernels
+    from bsyolo_tpu_torch.data.imread import imread
+
+    source = str(PHOTOS / "images" / "train")
+    n = len(PHOTO_DIGESTS)
+    host = YOLO("yolo11n.yaml", device="cpu", seed=SEED)
+    draw_weights(host.model, SEED + 12)
+    card = YOLO("yolo11n.yaml", seed=SEED)
+    card.model.load_state_dict(host.model.state_dict())
+    args = dict(imgsz=IMGSZ, batch=P12_PREDICT_BATCH, conf=CONF)
+    card.predict(source, **args)  # warm-up
+    torch.cuda.synchronize()
+    with plain_decode_calls() as plain_calls:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = card.predict(source, save_txt=True, save_conf=True, save_crop=True, project=str(root), name="pred",
+                           **args)
+        wall = time.perf_counter() - t0
+        launches = expect_launches("predict(save_txt, save_crop) over the photos",
+                                   {"decode_box_best": -(-n // P12_PREDICT_BATCH), "decode_xywh": 0,
+                                    "int8_matmul": 0})
+    if plain_calls:
+        raise SystemExit(f"phase 12 predict ran the decode's plain version {len(plain_calls)} times on the card")
+    print(f"phase 12d predict(save_txt, save_crop) of the {n} photos: {wall * 1e3:.1f} ms (host clock)")
+    want = host.predict(source, **args)
+    check_finite("photo predictions", [r.boxes.data for r in got])
+    compare_with_cpu("predict from JPEG files", [r.boxes.data for r in got], [r.boxes.data for r in want])
+    labels = sorted((root / "pred" / "labels").glob("*.txt"))
+    crops = sorted((root / "pred" / "crops").rglob("*.jpg"))
+    n_crops = sum(sum(int(min(r.orig_shape[1], b[2])) > int(max(0, b[0])) and
+                      int(min(r.orig_shape[0], b[3])) > int(max(0, b[1])) for b in r.boxes.data) for r in got)
+    rows = sum(len(f.read_text().splitlines()) for f in labels)
+    bad = [c for c in crops[:50] if imread(c) is None or imread(c).size == 0]
+    print(f"  file outputs: {len(labels)} label files ({rows} rows for {sum(len(r) for r in got)} detections), "
+          f"{len(crops)} crops (expected {n_crops}), the first {min(50, len(crops))} decode")
+    if len(labels) != n or rows != sum(len(r) for r in got) or len(crops) != n_crops or bad:
+        raise SystemExit("predict(save_txt, save_crop) wrote other files than its detections")
+    rate = photo_rate(card, root, args)
+    t0 = time.perf_counter()
+    vec = card.embed(source, imgsz=IMGSZ)
+    embed_ms = (time.perf_counter() - t0) * 1e3 / n
+    ref = host.embed(source, imgsz=IMGSZ)
+    err = max(float(np.linalg.norm(a - b) / np.linalg.norm(b)) for a, b in zip(vec, ref))
+    print(f"phase 12d embed: {len(vec)} vectors of {vec[0].size} values, {embed_ms:.2f} ms per photo (host clock); "
+          f"card vs CPU norm-relative difference at most {err:.3g} (tol {EMBED_RTOL})")
+    if len(vec) != n or err > EMBED_RTOL or not all(np.isfinite(v).all() for v in vec):
+        raise SystemExit("embed on the card differs from the CPU's")
+    return {k: launches[k] + rate[k] for k in launches}
+
+
+def photo_path(dev):
+    """Phase 12: real photos (module docstring)."""
+    codec_checks()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p12_") as d:
+        t0 = time.perf_counter()
+        trained = photo_train_val(dev, Path(d))
+        print(f"  phase 12c in {time.perf_counter() - t0:.1f} s")
+        predicted = photo_predict(dev, Path(d))
+    return {k: trained[k] + predicted[k] for k in trained}
+
+
+def kernel_entry(name, source, replaces, launches, row, bf16_launches, bf16_head=None, product_launches=0,
+                 photo_launches=0):
     """One entry of the kernels line; ``launches`` counts every path's run, ``bf16_launches`` those of
-    phase 10's bf16 paths among them, ``product_launches`` those of phase 11's product path, ``bf16_head``
-    the kernel on a real forward's bf16 head."""
+    phase 10's bf16 paths among them, ``product_launches`` those of phase 11's product path,
+    ``photo_launches`` those of phase 12's real photos, ``bf16_head`` the kernel on a real forward's bf16
+    head."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
-            "bf16_launches": bf16_launches, "product_launches": product_launches,
+            "bf16_launches": bf16_launches, "product_launches": product_launches, "photo_launches": photo_launches,
             **({"bf16_head": bf16_head} if bf16_head else {}),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
@@ -2467,14 +2770,16 @@ def main() -> int:
         phase("10d", amp_step_path, dev, model, seeded, f32_step, referee)
         amp_launches = phase("10e", amp_trainer_path, dev, data, root)
     product_launches = phase("11", product_path, dev)
+    photo_launches = phase("12", photo_path, dev)
     bf16 = {k: half_launches[k] + half_xywh_launches[k] + half_int8_launches[k] + amp_launches[k]
             for k in half_launches}
     kernels_line = {"kernels": [
         kernel_entry("decode_box_best", "bsyolo_tpu_torch/kernels/csrc/decode.cu", "bsyolo_tpu/kernels/decode.py:124",
                      predict_launches["decode_box_best"] + val_launches["decode_box_best"]
                      + trainer_launches["decode_box_best"] + bf16["decode_box_best"]
-                     + product_launches["decode_box_best"], box_row, bf16["decode_box_best"], box_half,
-                     product_launches["decode_box_best"]),
+                     + product_launches["decode_box_best"] + photo_launches["decode_box_best"], box_row,
+                     bf16["decode_box_best"], box_half, product_launches["decode_box_best"],
+                     photo_launches["decode_box_best"]),
         kernel_entry("decode_xywh", "bsyolo_tpu_torch/kernels/csrc/decode.cu",
                      "bsyolo_tpu/kernels/decode.py:34",
                      tta_launches["decode_xywh"] + tiled_launches["decode_xywh"] + bf16["decode_xywh"], xywh_row,

@@ -811,3 +811,43 @@ def test_track_launches_the_box_kernel_once_per_frame(cuda_device):
     assert len(results) == 6 and all(r.boxes.is_track for r in results if len(r))
     ids = np.concatenate([r.boxes.id for r in results if len(r)])
     assert len(ids) and np.array_equal(ids, np.round(ids))
+
+
+# --- real photos: JPEG files through the reader thread ---------------------------------------------------------
+
+# card vs CPU rows: chip_smoke.py's pairing (same class, box within 0.05 px, score within 1e-4, at least 0.98 of
+# the rows): near-tied scores may swap rows or cross the NMS and max_det boundaries under float rounding
+PHOTO_BOX_PX, PHOTO_SCORE, PHOTO_MIN_FRACTION = 0.05, 1e-4, 0.98
+
+
+def _paired_fraction(got: np.ndarray, want: np.ndarray) -> float:
+    free = np.ones(len(want), bool)
+    n = 0
+    for row in got:
+        ok = free & (want[:, 5] == row[5]) & (np.abs(want[:, :4] - row[:4]).max(1) <= PHOTO_BOX_PX)
+        ok &= np.abs(want[:, 4] - row[4]) <= PHOTO_SCORE
+        if ok.any():
+            free[np.flatnonzero(ok)[0]] = False
+            n += 1
+    return n / max(len(got), len(want), 1)
+
+
+def test_predict_from_jpeg_files_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """predict over the bsyolo8 photos' directory at batch 4: the decode kernel once per batch, the rows
+    paired with the CPU's, the label files one per photo."""
+    from pathlib import Path
+
+    from bsyolo_tpu_torch import kernels
+
+    photos = Path(__file__).parent / "fixtures" / "bsyolo8" / "images" / "train"
+    host, card = _seeded_yolo11n(cuda_device)
+    kernels.reset_launch_counts()
+    got = card.predict(str(photos), imgsz=320, conf=0.001, batch=4, save_txt=True, project=str(tmp_path), name="p")
+    assert kernels.launch_counts() == {"decode_box_best": 2, "decode_xywh": 0, "int8_matmul": 0}
+    want = host.predict(str(photos), imgsz=320, conf=0.001, batch=4)
+    assert [r.path for r in got] == [r.path for r in want] and len(got) == 8
+    n = sum(len(r) for r in want)
+    frac = sum(_paired_fraction(g.boxes.data, w.boxes.data) * max(len(g), len(w)) for g, w in zip(got, want)) / n
+    assert n > 0 and frac >= PHOTO_MIN_FRACTION
+    assert len(list((tmp_path / "p" / "labels").glob("*.txt"))) == 8
+    assert 0 <= card.predictor.reader_wait <= card.predictor.wall

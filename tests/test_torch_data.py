@@ -131,10 +131,19 @@ def test_bmp_and_npy_and_header_sizes(tmp_path):
 
 
 def test_jpeg_without_opencv_raises_naming_the_item(tmp_path, monkeypatch):
+    """With OpenCV refused a JPEG decodes through the port's own codec, to cv2's array; the kinds the
+    codec refuses (here arithmetic coding) raise ImageFormatError naming ROADMAP item 21."""
+    from bsyolo_tpu_torch.data.imread import ImageFormatError
+
     cv2.imwrite(str(tmp_path / "j.jpg"), _scene())
+    want = cv2.imread(str(tmp_path / "j.jpg"))
+    data = (tmp_path / "j.jpg").read_bytes()
+    sof = data.index(b"\xff\xc0")
+    (tmp_path / "a.jpg").write_bytes(data[: sof + 1] + b"\xc9" + data[sof + 2 :])
     monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(ImportError, match="item 21"):
-        imread(tmp_path / "j.jpg")
+    np.testing.assert_array_equal(imread(tmp_path / "j.jpg"), want)
+    with pytest.raises(ImageFormatError, match="item 21"):
+        imread(tmp_path / "a.jpg")
 
 
 # --- data/cv.py -------------------------------------------------------------------------------------

@@ -1,11 +1,11 @@
 """The port stands alone: no module of bsyolo_tpu_torch, and not chip_smoke.py, imports JAX,
-flax, PyYAML, OpenCV or anything of the JAX package.
+flax, PyYAML, OpenCV, PIL or anything of the JAX package.
 
 Each check runs in a fresh interpreter whose import system refuses those
 packages, imports every module of the port (and loads chip_smoke.py as a
-module, without running it), and reports what it could not import. OpenCV is
-reached only by the guarded JPEG branch of ``data/imread.py``, which this
-never calls.
+module, without running it), and reports what it could not import. JPEG
+files go through the port's own codec (``data/jpeg.py``): the second check
+reads and writes one with OpenCV and PIL refused.
 """
 
 import subprocess
@@ -16,7 +16,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 _SCRIPT = r'''
 import importlib, importlib.abc, importlib.util, pkgutil, sys
-BLOCKED = ("jax", "jaxlib", "flax", "yaml", "cv2", "bsyolo_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "yaml", "cv2", "PIL", "bsyolo_tpu")
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
@@ -38,6 +38,7 @@ print(len(names), leaked)
 
 
 def test_port_and_chip_smoke_import_nothing_of_jax_yaml_or_opencv():
+    """Every module, the JPEG codec's binding and ``utils/coco.py`` among them, with PIL refused too."""
     out = subprocess.run([sys.executable, "-c", _SCRIPT, str(ROOT / "chip_smoke.py")], cwd=ROOT, capture_output=True,
                          text=True, timeout=300, env={"PYTHONPATH": str(ROOT), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr[-3000:]
@@ -51,7 +52,7 @@ import numpy as np
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
-        if name.split(".")[0] in ("cv2", "yaml", "jax", "bsyolo_tpu"):
+        if name.split(".")[0] in ("cv2", "PIL", "yaml", "jax", "bsyolo_tpu"):
             raise ImportError(f"blocked: {name}")
         return None
 
@@ -60,9 +61,13 @@ from bsyolo_tpu_torch import YOLO
 from bsyolo_tpu_torch.app import BlindwaySegmenter, ParkingViolationPipeline
 from bsyolo_tpu_torch.trackers import BOTSORT, create_tracker
 from bsyolo_tpu_torch.trackers.gmc import GMC
+from bsyolo_tpu_torch.data.imread import imread, imwrite
 
 frame = np.full((64, 64, 3), 60, np.uint8)
 frame[20:40] = (40, 210, 225)
+imwrite(sys.argv[1], frame)
+back = imread(sys.argv[1])  # a JPEG round trip at quality 95, no OpenCV or PIL
+assert back.shape == frame.shape and np.abs(back.astype(int) - frame).mean() < 4
 bot = BOTSORT(with_reid=True, gmc_method="none")
 for i in range(3):
     out = bot.update(np.float32([[20 + i, 30, 10, 12], [40, 20 - i, 8, 8]]), np.float32([0.9, 0.8]), np.zeros(2), img=frame)
@@ -88,12 +93,12 @@ print(refused)
 '''
 
 
-def test_product_path_runs_without_opencv_and_its_opencv_calls_name_the_roadmap_item():
+def test_product_path_runs_without_opencv_and_its_opencv_calls_name_the_roadmap_item(tmp_path):
     """The tracker (BoT-SORT with ReID, no GMC), YOLO.track, the segmenter and the pipeline's decision
     step run with OpenCV refused; video, GMC's OpenCV estimators, drawing and ``run`` raise ImportError
     naming their ROADMAP item."""
-    out = subprocess.run([sys.executable, "-c", _NO_CV2], cwd=ROOT, capture_output=True, text=True, timeout=300,
-                         env={"PYTHONPATH": str(ROOT), "PATH": "/usr/bin:/bin"})
+    out = subprocess.run([sys.executable, "-c", _NO_CV2, str(tmp_path / "frame.jpg")], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, env={"PYTHONPATH": str(ROOT), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr[-3000:]
     refused = out.stdout.strip().rsplit("\n", 1)[-1]
     assert refused == str(["queue 1, item 24", "queue 1, item 24", "queue 1, item 25", "queue 1, item 25",

@@ -263,20 +263,39 @@ def test_unported_processes_modes_tasks_and_formats_raise(monkeypatch):
             main(argv)
     with pytest.raises(NotImplementedError, match="item 15"):
         YOLO("best.onnx", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 20"):
-        YOLO(TINY, device="cpu").val(data="x.yaml", save_json=True)
+    with pytest.raises(NotImplementedError, match="item 16"):
+        YOLO(TINY, device="cpu").val(data="x.yaml", plots=True)
 
 
 @pytest.mark.parametrize("mode,option,item", [
-    ("val", "save_txt=True", "item 20"), ("val", "save_json=True", "item 20"), ("val", "plots=True", "item 20"),
-    ("predict", "save_crop=True", "item 17"), ("predict", "save=True", "item 17"), ("predict", "visualize=True", "item 17"),
-    ("predict", "show=True", "item 17"), ("predict", "embed=True", "item 17"),
+    ("val", "plots=True", "item 16"), ("predict", "save=True", "item 25"), ("predict", "visualize=True", "item 16"),
+    ("predict", "show=True", "item 25"), ("predict", "retina_masks=True", "item 12"),
 ])
 def test_cli_passes_unported_val_and_predict_options_to_the_facade(mode, option, item, tmp_path):
     from bsyolo_tpu_torch.cli import main
 
     with pytest.raises(NotImplementedError, match=item):
         main([mode, f"model={TINY}", "device=cpu", "data=x.yaml" if mode == "val" else f"source={tmp_path}", option])
+
+
+BSYOLO8 = Path(__file__).parent / "fixtures" / "bsyolo8"
+
+
+@pytest.mark.parametrize("mode,options,written", [
+    ("val", ["save_txt=True", "save_conf=True"], "labels"), ("val", ["save_json=True"], "predictions.json"),
+    ("predict", ["save_txt=True", "name=p"], "p/labels"), ("predict", ["save_crop=True", "name=p"], "p/crops"),
+])
+def test_cli_passes_file_options_to_the_facade(mode, options, written, tmp_path, capsys, monkeypatch):
+    """The options that write files reach YOLO.val and YOLO.predict from the command line: val writes
+    under runs/val, predict under project/name."""
+    from bsyolo_tpu_torch.cli import main
+
+    monkeypatch.chdir(tmp_path)
+    where = ["data=" + str(BSYOLO8 / "bsyolo8.yaml"), "batch=8"] if mode == "val" else \
+        ["source=" + str(BSYOLO8 / "images" / "train"), "project=" + str(tmp_path), "conf=0.0001"]
+    assert main([mode, f"model={TINY}", "device=cpu", "imgsz=64", *where, *options]) == 0
+    out = (tmp_path / "runs" / "val" if mode == "val" else tmp_path) / written
+    assert out.exists() and (out.is_file() or len(list(out.rglob("*"))) >= 8)
 
 
 @pytest.mark.slow
