@@ -6,12 +6,16 @@
     python -m bsyolo_tpu_torch predict model=best.ckpt source=images/ conf=0.25 half=True
     python -m bsyolo_tpu_torch predict model=best.ckpt source=images/ save_txt=True save_crop=True name=run1
     python -m bsyolo_tpu_torch track model=best.ckpt source=clip.mp4 tracker=bytetrack.yaml
+    python -m bsyolo_tpu_torch segment train data=coco8-seg.yaml model=yolo11n-seg.yaml amp=False
+    python -m bsyolo_tpu_torch pose predict model=runs/pose/train/weights/best.ckpt source=images/
 
 Arguments are ``key=value`` pairs of ``cfg/default.yaml`` plus ``model``, ``data`` and
 ``source``; ``device=cpu`` runs on the host (the card is the default). Every other
 key goes on to ``YOLO.train``, ``YOLO.val``, ``YOLO.predict`` or ``YOLO.track``, which raise on the
-options the port does not have yet. The task, if given, is ``detect``. Other modes
-and tasks raise, naming the ROADMAP item that brings them.
+options the port does not have yet. The task, if given (as a word or ``task=``), is
+``detect``, ``segment`` or ``pose`` and must be the model's; without ``model`` it picks
+``yolo11n.yaml``, ``yolo11n-seg.yaml`` or ``yolo11n-pose.yaml``. Other modes and tasks
+raise, naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ from bsyolo_tpu_torch.utils import LOGGER
 
 MODES = {"train", "val", "predict", "track"}
 _NOT_PORTED_MODES = {"export": "item 15", "benchmark": "item 15"}
-_NOT_PORTED_TASKS = {"segment": "item 12", "pose": "item 12", "obb": "item 12", "classify": "item 12"}
+TASK_MODELS = {"detect": "yolo11n.yaml", "segment": "yolo11n-seg.yaml", "pose": "yolo11n-pose.yaml"}
+_NOT_PORTED_TASKS = {"obb": "item 12", "classify": "item 12"}
 
 
 def parse_kv(args: List[str]) -> Dict:
@@ -59,12 +64,12 @@ def main(argv=None) -> int:
     if not argv or argv[0] in ("help", "-h", "--help"):
         print(__doc__)
         return 0
-    mode, rest = None, []
+    mode, task, rest = None, None, []
     for a in argv:
         if a in MODES or a in _NOT_PORTED_MODES:
             mode = a
-        elif a == "detect":
-            continue
+        elif a in TASK_MODELS:
+            task = a
         elif a in _NOT_PORTED_TASKS:
             raise NotImplementedError(f"task '{a}' is not ported yet (ROADMAP queue 1, {_NOT_PORTED_TASKS[a]})")
         else:
@@ -75,10 +80,14 @@ def main(argv=None) -> int:
         raise SyntaxError(f"a mode is required: one of {sorted(MODES)}")
     overrides = parse_kv(rest)
     check_dict_alignment({**DEFAULT_CFG_DICT, "model": None, "data": None, "source": None}, overrides)
+    task = overrides.pop("task", None) or task
+    if task in _NOT_PORTED_TASKS:
+        raise NotImplementedError(f"task '{task}' is not ported yet (ROADMAP queue 1, {_NOT_PORTED_TASKS[task]})")
 
     from bsyolo_tpu_torch import YOLO
 
-    model = YOLO(overrides.pop("model", None) or "yolo11n.yaml", device=overrides.pop("device", None))
+    model = YOLO(overrides.pop("model", None) or TASK_MODELS.get(task or "detect", "yolo11n.yaml"), task=task,
+                 device=overrides.pop("device", None))
     if mode == "train":
         metrics = model.train(**overrides)
         if metrics is not None:

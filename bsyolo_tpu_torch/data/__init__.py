@@ -1,4 +1,4 @@
-"""The detect data pipeline of the port: host numpy, no OpenCV needed for PNG, BMP and .npy images."""
+"""The data pipeline of the port (detect, segment and pose samples): host numpy, no OpenCV needed for PNG, BMP, JPEG and .npy images."""
 
 from bsyolo_tpu_torch.data.build import DataLoader
 from bsyolo_tpu_torch.data.dataset import YOLODataset, load_dataset_yaml

@@ -325,3 +325,34 @@ def clahe(img: np.ndarray, clip_limit: float = 4.0, tile: int = 8) -> np.ndarray
 def gray2rgb(gray: np.ndarray) -> np.ndarray:
     return np.repeat(gray[..., None], 3, -1)
 
+
+
+_fill_lib = None
+
+
+def fill_poly(img: np.ndarray, polys, color: int = 1) -> np.ndarray:
+    """``cv2.fillPoly(img, polys, color)`` on a 2-D uint8 image, in place, byte for byte: each polygon
+    an (n, 2) array of integer (x, y) points (int32 range), the default 8-connected line type, no
+    fractional bits. Host C++ (``kernels/csrc/fillpoly.cpp``, OpenCV's edge list and scan
+    conversion), built at first use by the host compiler. Returns ``img``."""
+    global _fill_lib
+    import ctypes
+
+    if img.dtype != np.uint8 or img.ndim != 2 or not img.flags.c_contiguous:
+        raise ValueError(f"fill_poly takes a contiguous 2-D uint8 image, got {img.dtype} {img.shape}")
+    polys = [np.asarray(p).reshape(-1, 2) for p in polys]
+    if any(not np.issubdtype(p.dtype, np.integer) for p in polys):
+        raise TypeError("fill_poly takes integer points, as cv2.fillPoly takes int32 ones")
+    if _fill_lib is None:
+        from bsyolo_tpu_torch.kernels.build import load_library
+
+        lib = load_library("fillpoly")
+        lib.bsy_fill_poly.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                      ctypes.c_int, ctypes.c_int]
+        lib.bsy_fill_poly.restype = ctypes.c_int
+        _fill_lib = lib
+    pts = np.ascontiguousarray(np.concatenate(polys) if polys else np.zeros((0, 2)), np.int32)
+    npts = np.asarray([len(p) for p in polys], np.int32)
+    _fill_lib.bsy_fill_poly(img.ctypes.data, img.shape[0], img.shape[1], pts.ctypes.data, npts.ctypes.data,
+                            len(polys), int(color))
+    return img

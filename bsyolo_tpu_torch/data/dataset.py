@@ -1,11 +1,20 @@
-"""YOLO-format detection dataset (counterpart of the detect part of ``bsyolo_tpu/data/dataset.py``).
+"""YOLO-format datasets of the detect, segment and pose tasks (counterpart of ``bsyolo_tpu/data/dataset.py``).
 
-A dataset YAML (path / train / val / names) names image folders or lists;
-each image's labels are the sibling ``labels/<stem>.txt`` rows ``class cx cy
-w h`` (normalized). Images are read by ``data/imread.py`` (PNG, BMP and .npy
-without OpenCV) and pre-resized by ``data/cv.py``. The parsed labels are
-cached in ``labels.cache.npz`` beside the label folder in the JAX package's
-format and hash, so both packages share one cache.
+A dataset YAML (path / train / val / names, and ``flip_idx`` for pose) names
+image folders or lists; each image's labels are the sibling
+``labels/<stem>.txt`` rows, normalized: ``class cx cy w h`` (detect),
+``class x1 y1 ... xn yn`` polygons (segment; the box is the polygon's extent),
+``class cx cy w h kx ky v ...`` (pose). Images are read by ``data/imread.py``
+(PNG, BMP, JPEG and .npy without OpenCV) and pre-resized by ``data/cv.py``.
+The parsed labels are cached in ``labels.cache.npz`` beside the label folder
+in the JAX package's format and hash, so both packages share one cache.
+
+A segment sample carries ``masks``: its instances' polygons (warped with the
+image) filled at 1 / ``mask_ratio`` of the canvas (``cv.fill_poly``), larger
+instances first so smaller ones win where they overlap, pixel value g + 1
+for instance g, the instances reordered to match. A pose sample carries
+``keypoints`` (max_gt, nkpt, 3): x, y normalized to the canvas and the
+visibility.
 """
 
 from __future__ import annotations
@@ -20,8 +29,10 @@ import numpy as np
 
 from bsyolo_tpu_torch.cfg import CFG_ROOT, read_yaml
 from bsyolo_tpu_torch.data import cv
-from bsyolo_tpu_torch.data.augment import format_labels, mixup, train_transform
+from bsyolo_tpu_torch.data.augment import (format_labels, mixup, mixup_task, resample_poly, train_transform,
+                                           train_transform_task)
 from bsyolo_tpu_torch.data.imread import image_size, imread
+from bsyolo_tpu_torch.nn.parser import HEAD_TASKS
 from bsyolo_tpu_torch.ops.letterbox import letterbox_image
 
 IMG_FORMATS = {"bmp", "dng", "jpeg", "jpg", "mpo", "png", "tif", "tiff", "webp", "pfm", "npy"}
@@ -73,14 +84,21 @@ def img2label_path(img_path: str) -> str:
 
 
 class YOLODataset:
-    """Detection dataset: file listing, labels and the augment and letterbox paths of one sample."""
+    """Dataset of one task: file listing, labels and the augment and letterbox paths of one sample."""
+
+    POLY_PTS = 1000  # a segment polygon is resampled to this many points before it is warped
 
     def __init__(self, img_path, imgsz: int = 640, augment: bool = True, hyp: Optional[Dict] = None,
                  max_gt: int = 128, single_cls: bool = False, fraction: float = 1.0, task: str = "detect",
-                 cache: object = False):
-        if task != "detect":
+                 cache: object = False, mask_ratio: int = 4, flip_idx: Optional[List[int]] = None):
+        if task not in HEAD_TASKS.values():
             raise NotImplementedError(f"task {task!r} datasets are not ported yet (ROADMAP queue 1, item 12)")
         self.task = task
+        self.mask_ratio = mask_ratio
+        # left/right keypoint permutation for horizontal flips; None turns them off for pose
+        self.flip_idx = None if flip_idx is None else np.asarray(flip_idx, np.int64)
+        self.segments: Dict[int, list] = {}  # image -> per-row (n, 2) normalized polygon or None
+        self.keypoints: Dict[int, list] = {}  # image -> per-row (nkpt, 3) normalized keypoints or None
         self.img_files = self._list_images(img_path)
         if fraction < 1.0:
             self.img_files = self.img_files[: max(1, round(len(self.img_files) * fraction))]
@@ -125,8 +143,8 @@ class YOLODataset:
             return a
 
         try:
-            np.savez(self._cache_path(), hash=self._cache_hash(), labels=obj(self.labels), segments=obj({}),
-                     keypoints=obj({}), rboxes=obj({}), rcorners=obj({}), allow_pickle=True)
+            np.savez(self._cache_path(), hash=self._cache_hash(), labels=obj(self.labels), segments=obj(self.segments),
+                     keypoints=obj(self.keypoints), rboxes=obj({}), rcorners=obj({}), allow_pickle=True)
         except OSError:
             pass  # a read-only label folder: the cache is best-effort
 
@@ -139,6 +157,8 @@ class YOLODataset:
             if str(z["hash"]) != self._cache_hash():
                 return False
             self.labels = list(z["labels"][0])
+            self.segments = dict(z["segments"][0])
+            self.keypoints = dict(z["keypoints"][0])
             return True
         except Exception:
             return False
@@ -158,14 +178,35 @@ class YOLODataset:
         return [str(p)] if p.is_file() else []
 
     def _load_label(self, i: int):
-        """(cls (n,), normalized xywh (n, 4) clipped to [0, 1]) from the label file's rows of 5 or more."""
+        """(cls (n,), normalized xywh (n, 4) clipped to [0, 1]) from the label file's rows of 5 or more.
+        Segment: a row of an odd count of 7 or more values is a polygon (kept in ``segments[i]``; its box
+        is its extent). Pose: a row of 5 + 3 k values carries k keypoints (``keypoints[i]``). Other
+        rows of 5 or more are boxes (None in the task's payload)."""
         lp = self.label_files[i]
         if not os.path.exists(lp):
             return np.zeros((0,), np.float32), np.zeros((0, 4), np.float32)
-        rows = [[float(x) for x in parts[:5]] for parts in (line.split() for line in Path(lp).read_text().splitlines())
-                if len(parts) >= 5]
+        rows, polys, kpts = [], [], []
+        for parts in (line.split() for line in Path(lp).read_text().splitlines()):
+            if self.task == "segment" and len(parts) >= 7 and len(parts) % 2 == 1:
+                vals = [float(x) for x in parts]
+                poly = np.asarray(vals[1:], np.float32).reshape(-1, 2)
+                lo, hi = poly.min(0), poly.max(0)
+                rows.append([vals[0], *((lo + hi) / 2), *(hi - lo)])
+                polys.append(poly)
+            elif self.task == "pose" and len(parts) > 5 and (len(parts) - 5) % 3 == 0:
+                vals = [float(x) for x in parts]
+                rows.append(vals[:5])
+                kpts.append(np.asarray(vals[5:], np.float32).reshape(-1, 3))
+            elif len(parts) >= 5:
+                rows.append([float(x) for x in parts[:5]])
+                polys.append(None)
+                kpts.append(None)
         if not rows:
             return np.zeros((0,), np.float32), np.zeros((0, 4), np.float32)
+        if self.task == "segment":
+            self.segments[i] = polys
+        if self.task == "pose":
+            self.keypoints[i] = kpts
         arr = np.asarray(rows, np.float32)
         cls = arr[:, 0] * (0 if self.single_cls else 1)
         return cls, np.clip(arr[:, 1:5], 0, 1)
@@ -227,8 +268,13 @@ class YOLODataset:
 
     def get_sample(self, i: int, rng: np.random.Generator, mosaic: bool = True,
                    shape: Optional[Tuple[int, int]] = None) -> Dict:
-        """One sample: img (uint8 RGB HWC), cls, bboxes (normalized xywh), mask, padded to max_gt.
-        ``shape``: the letterbox canvas of a rect val bucket, in place of the square."""
+        """One sample: img (uint8 RGB HWC), cls, bboxes (normalized xywh), mask, padded to max_gt, and
+        the task's masks or keypoints. ``shape``: the letterbox canvas of a rect val bucket, in place
+        of the square."""
+        if self.task != "detect":
+            if self.augment:
+                return self._aug_task_sample(i, rng, mosaic)
+            return self._val_task_sample(i, shape)
         if self.augment:
             use_mosaic = mosaic and rng.random() < self.hyp.get("mosaic", 1.0)
             idxs = [i] + list(rng.integers(0, len(self), 3)) if use_mosaic else [i]
@@ -253,3 +299,141 @@ class YOLODataset:
                 boxes[:, [1, 3]] += dh
         out_img, out_cls, out_box, out_mask = format_labels(img, cls, boxes, self.max_gt)
         return {"img": out_img, "cls": out_cls, "bboxes": out_box, "mask": out_mask}
+
+    # --- the segment and pose tasks: instances with points ------------------------------------------
+    @property
+    def nkpt(self) -> int:
+        """The dataset's keypoint count (the most any row has), for one batch shape."""
+        if not hasattr(self, "_nkpt"):
+            self._nkpt = max((len(k) for kl in self.keypoints.values() for k in kl if k is not None), default=1)
+        return self._nkpt
+
+    def _task_payload(self, j: int, shape: Tuple[int, int], k: int):
+        """(cls, boxes xyxy px, points (n, K, 2) px, visibility (n, K) or None) of image ``j`` at its
+        pre-resized ``shape``: polygons resampled to ``k`` points (a box row's outline where a row
+        has none), or keypoints (zeros where a row has none)."""
+        h, w = shape
+        cls, boxes = self.label_pixels(j, shape)
+        n = len(cls)
+        if self.task == "segment":
+            polys = self.segments.get(j, [None] * n)
+            pts = np.zeros((n, k, 2), np.float32)
+            for t in range(n):
+                poly = polys[t] if t < len(polys) else None
+                if poly is None:
+                    x1, y1, x2, y2 = boxes[t]
+                    poly = np.asarray([[x1, y1], [x2, y1], [x2, y2], [x1, y2]], np.float32)
+                else:
+                    poly = poly * np.asarray([w, h], np.float32)
+                pts[t] = resample_poly(poly, k)
+            return cls, boxes, pts, None
+        kl = self.keypoints.get(j, [])
+        pts = np.zeros((n, self.nkpt, 2), np.float32)
+        vis = np.zeros((n, self.nkpt), np.float32)
+        for t in range(n):
+            kp = kl[t] if t < len(kl) else None
+            if kp is not None:
+                pts[t, : len(kp), 0] = kp[:, 0] * w
+                pts[t, : len(kp), 1] = kp[:, 1] * h
+                vis[t, : len(kp)] = kp[:, 2]
+        return cls, boxes, pts, vis
+
+    def _rasterize_overlap(self, pts, imgsz: int):
+        """(masks (imgsz / mask_ratio)^2 int32, order): each polygon filled at mask size, instances
+        ranked by filled area, largest first, so a smaller one overwrites a larger one; pixel value
+        rank + 1. The caller reorders its instances by ``order``."""
+        ms = imgsz // self.mask_ratio
+        scale = ms / imgsz
+        n = len(pts)
+        per = np.zeros((n, ms, ms), np.uint8)
+        for t in range(n):
+            cv.fill_poly(per[t], [(np.asarray(pts[t], np.float32) * scale).astype(np.int32)], 1)
+        areas = per.reshape(n, -1).sum(-1) if n else np.zeros((0,))
+        order = np.argsort(-areas, kind="stable")
+        masks = np.zeros((ms, ms), np.int32)
+        for rank, idx in enumerate(order):
+            masks[per[idx] > 0] = rank + 1
+        return masks, order
+
+    def _aug_task_sample(self, i: int, rng: np.random.Generator, mosaic: bool) -> Dict:
+        """A training sample with points: mosaic, affine and flips carry the polygons or keypoints
+        (``train_transform_task``), then the masks are filled from the warped polygons."""
+        kind = self.task
+        k = self.POLY_PTS if kind == "segment" else 4
+        flip_idx = self.flip_idx if kind == "pose" else None
+        use_mosaic = mosaic and rng.random() < self.hyp.get("mosaic", 1.0)
+        idxs = [i] + (list(rng.integers(0, len(self), 3)) if use_mosaic else [])
+        imgs = [self.load_image(j) for j in idxs]
+        labels = [self._task_payload(j, imgs[t].shape[:2], k) for t, j in enumerate(idxs)]
+        img, cls, boxes, pts, vis = train_transform_task(imgs, labels, self.imgsz, rng, self.hyp, mosaic=use_mosaic,
+                                                         kind=kind, flip_idx=flip_idx)
+        if use_mosaic and rng.random() < self.hyp.get("mixup", 0.0):
+            idxs2 = list(rng.integers(0, len(self), 4))
+            imgs2 = [self.load_image(j) for j in idxs2]
+            labels2 = [self._task_payload(j, imgs2[t].shape[:2], k) for t, j in enumerate(idxs2)]
+            img2, *labels2 = train_transform_task(imgs2, labels2, self.imgsz, rng, self.hyp, mosaic=True, kind=kind,
+                                                  flip_idx=flip_idx)
+            img, cls, boxes, pts, vis = mixup_task(img, (cls, boxes, pts, vis), img2, labels2, rng)
+        if self.hyp.get("bgr", 0.0) and rng.random() < self.hyp.get("bgr", 0.0):
+            img = np.ascontiguousarray(img[..., ::-1])
+        # truncated to max_gt before the task's encoding, so mask values and keypoint rows match the label slots
+        cls, boxes, pts = cls[: self.max_gt], boxes[: self.max_gt], pts[: self.max_gt]
+        vis = None if vis is None else vis[: self.max_gt]
+        out: Dict = {}
+        if kind == "segment":
+            masks, order = self._rasterize_overlap(pts, self.imgsz)
+            cls, boxes = cls[order], boxes[order]
+            out["masks"] = masks
+        else:
+            out_kpts = np.zeros((self.max_gt, pts.shape[1], 3), np.float32)
+            if len(pts):
+                out_kpts[: len(pts), :, :2] = pts / self.imgsz
+                out_kpts[: len(pts), :, 2] = vis
+            out["keypoints"] = out_kpts
+        out_img, out_cls, out_box, out_mask = format_labels(img, cls, boxes, self.max_gt)
+        out.update({"img": out_img, "cls": out_cls, "bboxes": out_box, "mask": out_mask})
+        return out
+
+    def _val_task_sample(self, i: int, shape: Optional[Tuple[int, int]] = None) -> Dict:
+        """A validation sample with points: letterboxed without enlarging; segment polygons (a box row's
+        outline where a row has none) filled at mask size, pose keypoints normalized to the canvas."""
+        im = self.load_image(i)
+        h, w = im.shape[:2]
+        cls, boxes = self.label_pixels(i, (h, w))
+        img, r, (dw, dh) = letterbox_image(im, shape or (self.imgsz, self.imgsz), scaleup=False)
+        th, tw = img.shape[:2]
+        if len(boxes):
+            boxes = boxes * r
+            boxes[:, [0, 2]] += dw
+            boxes[:, [1, 3]] += dh
+        out: Dict = {}
+        if self.task == "segment":
+            polys = self.segments.get(i, [None] * len(cls))
+            n = min(len(cls), self.max_gt)
+            pts = []
+            for j in range(n):
+                poly = polys[j] if j < len(polys) else None
+                if poly is None:
+                    x1, y1, x2, y2 = boxes[j]
+                    poly = np.asarray([[x1, y1], [x2, y1], [x2, y2], [x1, y2]], np.float32)
+                else:
+                    poly = poly * [w, h] * r + [dw, dh]
+                pts.append(np.asarray(poly, np.float32))
+            # filled on a square canvas of the longer side: the rest is padding
+            masks, order = self._rasterize_overlap(pts, max(th, tw))
+            out["masks"] = masks[: th // self.mask_ratio, : tw // self.mask_ratio]
+            if n:
+                cls, boxes = cls[:n][order], boxes[:n][order]
+        else:
+            out_kpts = np.zeros((self.max_gt, self.nkpt, 3), np.float32)
+            for j, kp in enumerate(self.keypoints.get(i, [])[: self.max_gt]):
+                if kp is None:
+                    continue
+                kk = kp.copy()
+                kk[:, 0] = (kk[:, 0] * w * r + dw) / tw
+                kk[:, 1] = (kk[:, 1] * h * r + dh) / th
+                out_kpts[j, : len(kk)] = kk
+            out["keypoints"] = out_kpts
+        out_img, out_cls, out_box, out_mask = format_labels(img, cls, boxes, self.max_gt)
+        out.update({"img": out_img, "cls": out_cls, "bboxes": out_box, "mask": out_mask})
+        return out

@@ -13,7 +13,21 @@ boxes scaled back to each original frame -> ``Results``.
 With ``augment=True`` (test-time augmentation) the graph runs three passes
 per batch, identity, 0.83x with a left-right flip and 0.67x; each is decoded
 by ``decode_detections``, mapped back to the input's pixels and tail-clipped,
-and the merged passes go through one ``non_max_suppression``.
+and the merged passes go through one ``non_max_suppression``. Only the Detect
+graph takes it: Segment and Pose graphs warn and predict at one scale, as the
+JAX package does.
+
+Segment and Pose graphs decode and suppress as Detect does
+(``detect_postprocess(return_idx=True)``, one launch of the box decode kernel
+per batch, on a head whose levels carry the mask coefficients or keypoints
+after the class logits), then gather each kept row's extra channels. Segment:
+the masks of the kept rows are assembled on the card (``ops/masks.py
+process_mask`` at the network input's size), cut to the letterboxed frame,
+resized to the original frame (OpenCV's float INTER_LINEAR) and thresholded at
+0.5 there; with ``retina_masks`` the coefficients and prototypes come to the
+host, which assembles each mask at the frame's own size (the reference's
+``process_mask_native``). Pose: keypoints decoded in pixels, then mapped back
+to the frame.
 """
 
 from __future__ import annotations
@@ -34,11 +48,12 @@ from bsyolo_tpu_torch.data.imread import imread
 from bsyolo_tpu_torch.data.streams import LoadStreams
 from bsyolo_tpu_torch.engine.results import Results
 from bsyolo_tpu_torch.kernels.postprocess import detect_postprocess
-from bsyolo_tpu_torch.nn.heads import decode_detections
+from bsyolo_tpu_torch.nn.heads import decode_detections, decode_extras, decode_keypoints, gather_anchors
 from bsyolo_tpu_torch.ops.boxes import scale_boxes
-from bsyolo_tpu_torch.ops.letterbox import letterbox
+from bsyolo_tpu_torch.ops.letterbox import letterbox, letterbox_params
+from bsyolo_tpu_torch.ops.masks import process_mask, resize_linear
 from bsyolo_tpu_torch.ops.nms import non_max_suppression
-from bsyolo_tpu_torch.utils import CV2_VIDEO, import_cv2
+from bsyolo_tpu_torch.utils import CV2_VIDEO, LOGGER, import_cv2
 
 IMG_SUFFIXES = {".bmp", ".jpeg", ".jpg", ".png", ".tif", ".tiff", ".webp"}
 VID_SUFFIXES = {".mp4", ".avi", ".mov", ".mkv", ".m4v", ".mpg", ".mpeg", ".wmv", ".webm"}
@@ -140,6 +155,7 @@ class DetectionPredictor:
         batch: int = 1,
         augment: bool = False,
         stream_buffer: bool = False,
+        retina_masks: bool = False,
     ):
         self.model = model
         self.spec = spec
@@ -152,23 +168,42 @@ class DetectionPredictor:
         self.agnostic_nms = agnostic_nms
         self.names = names or {i: n for i, n in enumerate(spec.names)}
         self.batch = max(int(batch), 1)
-        self.augment = augment  # the port has only the plain Detect head, the one head that takes TTA
+        self.task = getattr(spec, "task", "detect")
+        if augment and self.task != "detect":
+            LOGGER.warning("augment=True is only supported for Detect-head models; reverting to single-scale "
+                           "prediction")
+            augment = False
+        self.augment = augment
+        self.retina_masks = retina_masks
         self.stream_buffer = stream_buffer
         # seconds of the last stream(): waiting on the reader's queue, and in all
         self.reader_wait = 0.0
         self.wall = 0.0
 
     @torch.inference_mode()
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor):
         """(B, 3, S, S) RGB on the device, uint8 or float32 on the 0-255 scale -> (B, max_det, 6)
-        detections on the device."""
+        detections on the device; for a Segment graph also the rows' (B, max_det, nm) mask
+        coefficients and the (B, nm, Hm, Wm) prototypes, for a Pose graph the rows'
+        (B, max_det, nkpt, ndim) keypoints in input pixels (zeros on padding rows)."""
         x = x.float() / 255.0
         if self.augment:
             return self._forward_augment(x)
-        return detect_postprocess(
-            self.model(x), self.spec.head_strides, self.spec.nc, conf_thres=self.conf, iou_thres=self.iou,
-            max_det=self.max_det, agnostic=self.agnostic_nms, reg_max=self.spec.reg_max,
-        )
+        out = self.model(x)
+        feats = out["feats"] if self.task == "segment" else out
+        strides, nc = self.spec.head_strides, self.spec.nc
+        kw = dict(conf_thres=self.conf, iou_thres=self.iou, max_det=self.max_det, agnostic=self.agnostic_nms,
+                  reg_max=self.spec.reg_max)
+        if self.task == "detect":
+            return detect_postprocess(feats, strides, nc, **kw)
+        dets, idx = detect_postprocess(feats, strides, nc, return_idx=True, **kw)
+        extras = decode_extras(feats, nc, self.spec.reg_max)  # (B, A, nm | nk)
+        if self.task == "pose":
+            extras = decode_keypoints(extras, feats, strides, self.spec.kpt_shape)  # (B, A, nkpt, ndim)
+        sel = gather_anchors(extras, idx)
+        if self.task == "segment":
+            return dets, sel, out["proto"]
+        return dets, sel
 
     def _forward_augment(self, x: torch.Tensor) -> torch.Tensor:
         """TTA: each pass decoded to xywh in the input's pixels (de-scaled, de-flipped);
@@ -272,12 +307,24 @@ class DetectionPredictor:
         try:
             for frames, paths, x, t_pre in batches:
                 t1 = time.perf_counter()
-                dets = self.forward(x).cpu().numpy()  # the copy waits for the device
+                out = self.forward(x)
+                if self.task == "detect":
+                    out = (out,)
+                dets = out[0].cpu().numpy()  # the copy waits for the device
                 inf_ms = (time.perf_counter() - t1) * 1000 / len(frames)
                 pre_ms = t_pre * 1000 / len(frames)
+                if self.task == "pose" or (self.task == "segment" and self.retina_masks):
+                    out = tuple(t.cpu() for t in out)
                 for i, (frame, path) in enumerate(zip(frames, paths)):
                     t2 = time.perf_counter()
-                    res = self._to_results(dets[i], frame, path)
+                    if self.task == "segment" and self.retina_masks:
+                        res = self._to_results_retina(dets[i], out[1][i], out[2][i], frame, path)
+                    elif self.task == "segment":
+                        res = self._to_results_segment(dets[i], out[1][i], out[2][i], frame, path)
+                    elif self.task == "pose":
+                        res = self._to_results_pose(dets[i], out[1][i].numpy(), frame, path)
+                    else:
+                        res = self._to_results(dets[i], frame, path)
                     res.speed = {"preprocess": pre_ms, "inference": inf_ms,
                                  "postprocess": (time.perf_counter() - t2) * 1000}
                     if verbose:
@@ -287,16 +334,78 @@ class DetectionPredictor:
             batches.close()
             self.wall = time.perf_counter() - t_start
 
+    def _keep(self, dets: np.ndarray) -> np.ndarray:
+        """Indices of the rows to report: the kept (conf > 0) rows of the ``classes`` asked for."""
+        keep = np.flatnonzero(dets[:, 4] > 0)
+        if self.classes is not None and len(keep):
+            keep = keep[np.isin(dets[keep, 5].astype(int), self.classes)]
+        return keep
+
+    def _frame_rows(self, d: np.ndarray, frame: np.ndarray) -> np.ndarray:
+        """Kept rows with their boxes scaled back to the frame's pixels."""
+        if not len(d):
+            return np.zeros((0, 6), np.float32)
+        boxes = scale_boxes((self.imgsz, self.imgsz), torch.from_numpy(d[:, :4]), frame.shape[:2]).numpy()
+        return np.concatenate([boxes, d[:, 4:6]], -1)
+
     def _to_results(self, dets: np.ndarray, frame: np.ndarray, path: str) -> Results:
-        d = dets[dets[:, 4] > 0]
-        if self.classes is not None and len(d):
-            d = d[np.isin(d[:, 5].astype(int), self.classes)]
-        if len(d):
-            boxes = scale_boxes((self.imgsz, self.imgsz), torch.from_numpy(d[:, :4]), frame.shape[:2]).numpy()
-            d = np.concatenate([boxes, d[:, 4:6]], -1)
-        else:
-            d = np.zeros((0, 6), np.float32)
-        return Results(frame, path, self.names, boxes=d)
+        return Results(frame, path, self.names, boxes=self._frame_rows(dets[self._keep(dets)], frame))
+
+    def _to_results_segment(self, dets: np.ndarray, coeffs: torch.Tensor, proto: torch.Tensor, frame: np.ndarray,
+                            path: str) -> Results:
+        """Masks of the kept rows assembled on the device at the input's size, the letterbox
+        padding cut off, resized to the frame (float INTER_LINEAR), thresholded at 0.5."""
+        keep = self._keep(dets)
+        d = dets[keep]
+        if not len(d):
+            return Results(frame, path, self.names, boxes=np.zeros((0, 6), np.float32))
+        k = torch.from_numpy(keep).to(coeffs.device)
+        masks = process_mask(proto, coeffs[k], torch.from_numpy(d[:, :4]).to(coeffs.device), (self.imgsz, self.imgsz))
+        h0, w0 = frame.shape[:2]
+        _, (pw_f, ph_f), (ws, hs) = letterbox_params((h0, w0), (self.imgsz, self.imgsz))
+        ph, pw = round(ph_f - 0.1), round(pw_f - 0.1)
+        masks = (resize_linear(masks[:, ph : ph + hs, pw : pw + ws], (h0, w0)) > 0.5).float()  # 0/1 on the device:
+        return Results(frame, path, self.names, boxes=self._frame_rows(d, frame), masks=masks.cpu().numpy())  # no host cast
+
+    def _to_results_retina(self, dets: np.ndarray, coeffs: torch.Tensor, proto: torch.Tensor, frame: np.ndarray,
+                           path: str) -> Results:
+        """``retina_masks``, on the host: sigmoid(coefficients . prototypes) at prototype size, the
+        letterbox padding cut off there, resized to the frame (float INTER_LINEAR), cut to each box in
+        the frame's pixels, thresholded at 0.5."""
+        keep = self._keep(dets)
+        d = self._frame_rows(dets[keep], frame)
+        if not len(d):
+            return Results(frame, path, self.names, boxes=d)
+        h0, w0 = frame.shape[:2]
+        nm, ph, pw = proto.shape
+        c = coeffs[torch.from_numpy(keep)].float().numpy()
+        m = c @ proto.reshape(nm, -1).float().numpy()
+        m = torch.from_numpy(1.0 / (1.0 + np.exp(-m.reshape(-1, ph, pw))))
+        _, (pad_w, pad_h), _ = letterbox_params((h0, w0), (self.imgsz, self.imgsz))
+        top = max(int(round(pad_h / self.imgsz * ph - 0.1)), 0)
+        left = max(int(round(pad_w / self.imgsz * pw - 0.1)), 0)
+        m = resize_linear(m[:, top : ph - top, left : pw - left], (h0, w0)).numpy()
+        yy = np.arange(h0, dtype=np.float32)[None, :, None]
+        xx = np.arange(w0, dtype=np.float32)[None, None, :]
+        x1, y1, x2, y2 = (d[:, j].reshape(-1, 1, 1) for j in range(4))
+        m = m * ((xx >= x1) & (xx < x2) & (yy >= y1) & (yy < y2))
+        return Results(frame, path, self.names, boxes=d, masks=(m > 0.5).astype(np.float32))
+
+    def _to_results_pose(self, dets: np.ndarray, kpts: np.ndarray, frame: np.ndarray, path: str) -> Results:
+        """Kept rows and their keypoints, mapped from the letterboxed input back to the frame."""
+        keep = self._keep(dets)
+        d, k = dets[keep], kpts[keep]
+        if not len(d):
+            return Results(frame, path, self.names, boxes=np.zeros((0, 6), np.float32),
+                           keypoints=np.zeros((0,) + kpts.shape[1:], np.float32))
+        h0, w0 = frame.shape[:2]
+        gain = min(self.imgsz / h0, self.imgsz / w0)
+        pw = round((self.imgsz - w0 * gain) / 2 - 0.1)
+        ph = round((self.imgsz - h0 * gain) / 2 - 0.1)
+        k = k.copy()
+        k[..., 0] = (k[..., 0] - pw) / gain
+        k[..., 1] = (k[..., 1] - ph) / gain
+        return Results(frame, path, self.names, boxes=self._frame_rows(d, frame), keypoints=k)
 
     def __call__(self, source, **kwargs) -> List[Results]:
         return list(self.stream(source, **kwargs))

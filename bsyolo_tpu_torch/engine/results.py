@@ -1,10 +1,12 @@
-"""Results API, detect subset (counterpart of ``bsyolo_tpu/engine/results.py``).
+"""Results API of the detect, segment and pose tasks (counterpart of ``bsyolo_tpu/engine/results.py``).
 
 Host numpy containers: by the time results exist, the device work is done.
 ``save_txt``, ``save_crop`` (JPEG crops through the port's own encoder),
 ``summary`` and ``to_json`` need no OpenCV; drawing (``plot``, ``save``)
 does, and imports it only when called (without it they raise ImportError
-naming the ROADMAP item).
+naming the ROADMAP item). Mask contours (``Masks.xy``, ``xyn``) and a
+segment result's ``save_txt`` lines, which the JAX package traces with
+``cv2.findContours``, are not ported (ROADMAP queue 1, item 31).
 """
 
 from __future__ import annotations
@@ -68,24 +70,75 @@ class Boxes:
         return self.xywh / np.asarray([w, h, w, h], np.float32)
 
 
+_CONTOURS = "mask contours need a border tracer byte-equal to cv2.findContours, not ported yet (ROADMAP queue 1, item 31)"
+
+
+class Masks:
+    """Instance masks; ``data`` is (n, H, W) float32 0/1 at the original image's size."""
+
+    def __init__(self, data: np.ndarray, orig_shape):
+        self.data = data
+        self.orig_shape = orig_shape
+
+    def __len__(self):
+        return len(self.data)
+
+    @property
+    def xy(self):
+        raise NotImplementedError(f"Masks.xy: {_CONTOURS}")
+
+    @property
+    def xyn(self):
+        raise NotImplementedError(f"Masks.xyn: {_CONTOURS}")
+
+
+class Keypoints:
+    """Pose keypoints; ``data`` is (n, nkpt, 2 or 3): x, y in pixels of the original image
+    [, visibility in (0, 1)]."""
+
+    def __init__(self, data: np.ndarray, orig_shape):
+        self.data = data
+        self.orig_shape = orig_shape
+
+    def __len__(self):
+        return len(self.data)
+
+    @property
+    def xy(self):
+        return self.data[..., :2]
+
+    @property
+    def xyn(self):
+        h, w = self.orig_shape
+        return self.xy / np.asarray([w, h], np.float32)
+
+    @property
+    def conf(self):
+        return self.data[..., 2] if self.data.shape[-1] == 3 else None
+
+
 class Results:
-    """Detections of one image."""
+    """Detections of one image, with their masks (segment) or keypoints (pose)."""
 
     def __init__(self, orig_img: np.ndarray, path: str, names: Dict[int, str], boxes: Optional[np.ndarray] = None,
-                 speed: Optional[Dict[str, float]] = None):
+                 speed: Optional[Dict[str, float]] = None, masks: Optional[np.ndarray] = None,
+                 keypoints: Optional[np.ndarray] = None):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.path = path
         self.names = names
         self.boxes = Boxes(boxes, self.orig_shape) if boxes is not None else None
+        self.masks = Masks(masks, self.orig_shape) if masks is not None else None
+        self.keypoints = Keypoints(keypoints, self.orig_shape) if keypoints is not None else None
         self.speed = speed or {}
 
     def __len__(self):
         return len(self.boxes) if self.boxes is not None else 0
 
     def __getitem__(self, idx):
-        return Results(self.orig_img, self.path, self.names,
-                       boxes=self.boxes.data[idx] if self.boxes is not None else None)
+        pick = lambda c: None if c is None else c.data[idx]
+        return Results(self.orig_img, self.path, self.names, boxes=pick(self.boxes), masks=pick(self.masks),
+                       keypoints=pick(self.keypoints))
 
     def new(self, boxes: Optional[np.ndarray] = None):
         return Results(self.orig_img, self.path, self.names, boxes=boxes)
@@ -101,12 +154,21 @@ class Results:
         return ", ".join(f"{v} {k}{'s' if v > 1 else ''}" for k, v in counts.items())
 
     def save_txt(self, txt_file, save_conf: bool = False):
-        """YOLO-format labels, one ``cls cx cy w h [conf]`` line per box (normalized xywh, 6
-        decimals), as the JAX package's ``Results.save_txt`` writes them for detection."""
+        """YOLO-format labels, one ``cls cx cy w h [kx ky [v] ...] [conf]`` line per box
+        (normalized xywh, then each keypoint's normalized x, y and visibility for a pose result,
+        6 decimals), as the JAX package's ``Results.save_txt`` writes them. A segment result's
+        polygon lines are not ported (ROADMAP queue 1, item 31)."""
+        if self.masks is not None:
+            raise NotImplementedError(f"save_txt of a segment result writes mask polygons: {_CONTOURS}")
         lines = []
         if self.boxes is not None:
-            for row, xywhn in zip(self.boxes.data, self.boxes.xywhn):
+            kpts = self.keypoints
+            for j, (row, xywhn) in enumerate(zip(self.boxes.data, self.boxes.xywhn)):
                 parts = [str(int(row[-1])), *(f"{v:.6f}" for v in xywhn)]
+                if kpts is not None and j < len(kpts.data):
+                    kn, kc = kpts.xyn[j], kpts.conf[j] if kpts.conf is not None else None
+                    for ki in range(len(kn)):
+                        parts += [f"{kn[ki][0]:.6f}", f"{kn[ki][1]:.6f}"] + ([f"{kc[ki]:.6f}"] if kc is not None else [])
                 if save_conf:
                     parts.append(f"{float(row[-2]):.6f}")
                 lines.append(" ".join(parts))
@@ -136,13 +198,14 @@ class Results:
 
     def summary(self, normalize: bool = False) -> list:
         """One dict per box: name, class, confidence (5 decimals), box x1/y1/x2/y2 (pixels to 2
-        decimals, or normalized to 5), and track_id for tracked boxes."""
+        decimals, or normalized to 5), track_id for tracked boxes and the keypoints' x and y lists
+        for a pose result."""
         rows = []
         if self.boxes is None:
             return rows
         h, w = self.orig_shape
         div = (w, h, w, h) if normalize else (1, 1, 1, 1)
-        for row in self.boxes.data:
+        for i, row in enumerate(self.boxes.data):
             cls = int(row[-1])
             rec = {
                 "name": self.names.get(cls, str(cls)),
@@ -153,6 +216,10 @@ class Results:
             }
             if self.boxes.is_track:
                 rec["track_id"] = int(row[4])
+            if self.keypoints is not None and i < len(self.keypoints.data):
+                k = self.keypoints.data[i]
+                rec["keypoints"] = {a: [round(float(v) / div[j], 5 if normalize else 2) for v in k[:, j]]
+                                    for j, a in enumerate(("x", "y"))}
             rows.append(rec)
         return rows
 
@@ -160,12 +227,19 @@ class Results:
         return json.dumps(self.summary(), indent=2)
 
     def plot(self, line_width: Optional[int] = None, font_scale: float = 0.5, conf: bool = True,
-             labels: bool = True) -> np.ndarray:
-        """Draw the boxes (with ``id:`` labels on tracked boxes) on a copy of the original (BGR) image."""
+             labels: bool = True, kpt_radius: int = 3) -> np.ndarray:
+        """Draw the masks (blended in their class colour), the boxes (with ``id:`` labels on tracked
+        boxes) and the keypoints of visibility 0.5 or more on a copy of the original (BGR) image."""
         cv2 = import_cv2("Results.plot", CV2_DRAWING)
 
         img = self.orig_img.copy()
         lw = line_width or max(round(sum(img.shape[:2]) / 2 * 0.003), 2)
+        if self.masks is not None and len(self.masks.data):
+            overlay = img.copy()
+            for j, m in enumerate(self.masks.data):
+                cls_j = int(self.boxes.data[j][-1]) if self.boxes is not None and j < len(self.boxes.data) else j
+                overlay[m > 0.5] = _class_color(cls_j)
+            img = cv2.addWeighted(img, 0.55, overlay, 0.45, 0)
         for row in self.boxes.data if self.boxes is not None else ():
             x1, y1, x2, y2 = row[:4].astype(int)
             cf, cls = row[-2], int(row[-1])
@@ -176,6 +250,11 @@ class Results:
                 label = f"{tid}{self.names.get(cls, cls)}" + (f" {cf:.2f}" if conf else "")
                 cv2.putText(img, label, (x1, max(y1 - 4, 12)), cv2.FONT_HERSHEY_SIMPLEX, font_scale, color,
                             max(lw - 1, 1))
+        for inst in self.keypoints.data if self.keypoints is not None else ():
+            for p in inst:
+                if len(p) > 2 and p[2] < 0.5:
+                    continue
+                cv2.circle(img, (int(p[0]), int(p[1])), kpt_radius, (0, 0, 255), -1)
         return img
 
     def save(self, filename: str, **plot_kwargs):

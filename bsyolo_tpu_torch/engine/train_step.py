@@ -32,6 +32,8 @@ import torch.nn as nn
 
 from bsyolo_tpu_torch.engine import optim as O
 from bsyolo_tpu_torch.losses.detect import DetectionLossConfig, LossState, detection_loss, init_loss_state
+from bsyolo_tpu_torch.losses.pose import pose_loss
+from bsyolo_tpu_torch.losses.segment import segmentation_loss
 from bsyolo_tpu_torch.ops.normalize import normalize_image_batch
 
 Tensors = Dict[str, torch.Tensor]
@@ -104,17 +106,49 @@ def init_train_state(model: nn.Module, cfg: Optional[StepConfig] = None) -> Trai
     )
 
 
-def make_train_step(model: nn.Module, cfg: StepConfig) -> Callable:
+DETECT_ITEMS = ("box_loss", "cls_loss", "dfl_loss")
+
+
+def detect_criterion(outputs, batch, loss_state: LossState, cfg: DetectionLossConfig):
+    return detection_loss(outputs, batch["cls"], batch["bboxes"], batch["mask"], loss_state, cfg)
+
+
+def task_criterion(spec, overlap_mask: bool = True, pose_gain: float = 12.0, kobj_gain: float = 1.0):
+    """(criterion, loss item names) of ``spec``'s task, as the JAX trainer picks them: the detection
+    loss; the segmentation loss on the batch's overlap-encoded ``masks`` (items box, seg, cls,
+    dfl); the pose loss on its ``keypoints`` (items box, pose, kobj, cls, dfl)."""
+    if spec.task == "segment":
+        nm = spec.head.args[1]
+
+        def criterion(outputs, batch, loss_state, cfg):
+            return segmentation_loss(outputs, batch["cls"], batch["bboxes"], batch["mask"], batch["masks"],
+                                     loss_state, cfg, nm=nm, overlap=overlap_mask)
+
+        return criterion, ("box_loss", "seg_loss", "cls_loss", "dfl_loss")
+    if spec.task == "pose":
+        def criterion(outputs, batch, loss_state, cfg):
+            return pose_loss(outputs, batch["cls"], batch["bboxes"], batch["mask"], batch["keypoints"], loss_state,
+                             cfg, kpt_shape=spec.kpt_shape, pose_gain=pose_gain, kobj_gain=kobj_gain)
+
+        return criterion, ("box_loss", "pose_loss", "kobj_loss", "cls_loss", "dfl_loss")
+    return detect_criterion, DETECT_ITEMS
+
+
+def make_train_step(model: nn.Module, cfg: StepConfig, criterion: Optional[Callable] = None,
+                    item_names: Tuple[str, ...] = DETECT_ITEMS) -> Callable:
     """(state, batch) -> (state, metrics), one iteration of ``model`` in train mode
-    with the detection loss.
+    with ``criterion(outputs, batch, loss_state, loss_cfg) -> (total, items, new loss_state)``,
+    the detection loss by default (``task_criterion`` gives the segment and pose ones).
 
     batch: img (B, 3, H, W) uint8 or float in [0, 1], cls (B, M) int, bboxes
-    (B, M, 4) normalized xywh, mask (B, M), all on the model's device.
+    (B, M, 4) normalized xywh, mask (B, M) (and the task's masks or keypoints),
+    all on the model's device.
 
-    metrics: loss, box_loss, cls_loss, dfl_loss, lr, grad_norm (0 where the step
-    did not update) and updated (1 or 0); the losses and grad_norm are tensors
-    on the card.
+    metrics: loss, the items under ``item_names`` (box_loss, cls_loss, dfl_loss for
+    detect), lr, grad_norm (0 where the step did not update) and updated (1 or 0);
+    the losses and grad_norm are tensors on the card.
     """
+    criterion = criterion or detect_criterion
     if cfg.remat:
         raise NotImplementedError("remat is not ported yet (ROADMAP queue 1, item 19)")
     if cfg.pass_targets or cfg.needs_dropout_rng:
@@ -131,8 +165,7 @@ def make_train_step(model: nn.Module, cfg: StepConfig) -> Callable:
         for p in params.values():
             p.grad = None
         outputs = model(normalize_image_batch(batch["img"]))
-        total, items, new_ls = detection_loss(outputs, batch["cls"], batch["bboxes"], batch["mask"],
-                                              state.loss_state, cfg.loss)
+        total, items, new_ls = criterion(outputs, batch, state.loss_state, cfg.loss)
         total.backward()
         grads = {n: p.grad for n, p in params.items()}
         for n in frozen:
@@ -172,7 +205,7 @@ def make_train_step(model: nn.Module, cfg: StepConfig) -> Callable:
         state.loss_state = new_ls
         metrics = {
             "loss": total.detach(),
-            **dict(zip(("box_loss", "cls_loss", "dfl_loss"), items.detach())),
+            **dict(zip(item_names, items.detach())),
             "lr": lr_main,
             "grad_norm": gnorm,
             "updated": int(do_update),

@@ -1,4 +1,4 @@
-"""Detection trainer (counterpart of ``bsyolo_tpu/engine/trainer.py``, detect task, one process).
+"""Trainer of the detect, segment and pose tasks (counterpart of ``bsyolo_tpu/engine/trainer.py``, one process).
 
 Around the train step (``engine/train_step.py``) it does what the JAX
 trainer does: the dataset YAML and the graph with the data's classes, the
@@ -19,6 +19,15 @@ memory and permuted to NCHW uint8 there.
 BatchNorm statistics and checkpoints stay float32, with no loss scaling, and
 validation runs the same bf16 graph over the float32 EMA parameters.
 ``assigner_bf16=True`` runs the TAL ranking math in bfloat16.
+
+The graph's head sets the task, as in the JAX trainer: a Segment graph trains
+with ``losses/segment.py`` on the loader's overlap-encoded masks (at
+1 / ``mask_ratio`` of the image; ``overlap_mask``) and validates with
+``SegmentationValidator``, a Pose graph with ``losses/pose.py`` (gains
+``pose`` and ``kobj``; the data's ``flip_idx`` for horizontal flips) and
+``PoseValidator``. Those graphs train in float32 only: ``amp=True``, the
+default, raises for them (the bf16 graph on them is ROADMAP queue 1, item
+12), so pass ``amp=False``.
 
 Options not ported yet raise ``NotImplementedError`` naming their ROADMAP
 item: ``plots=True`` and ``profile=True`` and ``batch=-1`` (item 16),
@@ -41,8 +50,8 @@ from bsyolo_tpu_torch import select_device
 from bsyolo_tpu_torch.cfg import get_cfg, model_yaml_path
 from bsyolo_tpu_torch.data import DataLoader, YOLODataset, load_dataset_yaml
 from bsyolo_tpu_torch.engine.optim import OptimConfig, resolve_auto
-from bsyolo_tpu_torch.engine.train_step import StepConfig, init_train_state, make_train_step
-from bsyolo_tpu_torch.engine.validator import DetectionValidator
+from bsyolo_tpu_torch.engine.train_step import StepConfig, init_train_state, make_train_step, task_criterion
+from bsyolo_tpu_torch.engine.validator import DetectionValidator, PoseValidator, SegmentationValidator
 from bsyolo_tpu_torch.losses import DetectionLossConfig
 from bsyolo_tpu_torch.nn.model import build_model
 from bsyolo_tpu_torch.nn.parser import load_model_yaml, parse_model_yaml
@@ -90,7 +99,7 @@ def val_batches(loader, device):
 
 
 class DetectionTrainer:
-    """Train a detection graph from a model YAML and a dataset YAML."""
+    """Train a detect, segment or pose graph from a model YAML and a dataset YAML."""
 
     def __init__(self, overrides: Optional[Dict] = None, callbacks=None):
         self.args = get_cfg(overrides=overrides or {})
@@ -118,6 +127,10 @@ class DetectionTrainer:
         if data.get("names"):
             d["names"] = data["names"]
         self.spec = parse_model_yaml(d, scale=d.get("scale", ""))
+        task = self.spec.task
+        if args.amp and task != "detect":
+            raise NotImplementedError(f"train(amp=True), the default, runs the bf16 graph, which on a {task} graph is "
+                                      "not ported yet (ROADMAP queue 1, item 12); pass amp=False")
         torch.manual_seed(args.seed)
         dtype = torch.bfloat16 if args.amp else torch.float32
         self.model = build_model(self.spec, self.device, args.seed, dtype=dtype)
@@ -125,10 +138,12 @@ class DetectionTrainer:
         if isinstance(args.pretrained, str) and args.pretrained.lower() not in ("true", "false", ""):
             self._load_pretrained(args.pretrained)
 
+        task_kw = dict(task=task, mask_ratio=args.mask_ratio, flip_idx=data.get("flip_idx"))
         train_ds = YOLODataset(data["train"], imgsz=args.imgsz, augment=True, hyp=vars(args), max_gt=args.max_gt,
-                               single_cls=args.single_cls, fraction=args.fraction, cache=getattr(args, "cache", False))
+                               single_cls=args.single_cls, fraction=args.fraction, cache=getattr(args, "cache", False),
+                               **task_kw)
         val_ds = YOLODataset(data["val"], imgsz=args.imgsz, augment=False, max_gt=args.max_gt,
-                             single_cls=args.single_cls)
+                             single_cls=args.single_cls, **task_kw)
         workers = min(int(args.workers or 0), max((os.cpu_count() or 1) - 1, 0))
         self.train_loader = DataLoader(train_ds, args.batch, shuffle=True, seed=args.seed, workers=workers)
         self.val_loader = DataLoader(val_ds, args.batch, shuffle=False, drop_last=False)
@@ -149,12 +164,17 @@ class DetectionTrainer:
         self.step_cfg = StepConfig(loss=loss_cfg, optim=opt, batch_size=args.batch, nb=nb, nw=nw,
                                    use_adamw=opt.name in ("AdamW", "Adam", "NAdam", "RAdam"), weight_decay=wd,
                                    frozen=self._frozen_keys(), remat=getattr(args, "remat", False) or False)
-        self.train_step = make_train_step(self.model, self.step_cfg)
+        criterion, self.item_names = task_criterion(self.spec, bool(args.overlap_mask), args.pose, args.kobj)
+        self.train_step = make_train_step(self.model, self.step_cfg, criterion, self.item_names)
         self.state = init_train_state(self.model, self.step_cfg)
-        self.validator = DetectionValidator(self.model, self.spec, names=data.get("names"), device=self.device)
+        validator_cls = {"segment": SegmentationValidator, "pose": PoseValidator}.get(task, DetectionValidator)
+        self.validator = validator_cls(self.model, self.spec, names=data.get("names"), device=self.device)
         self.csv_path = self.save_dir / "results.csv"
         self._ms_sizes = None
-        if args.multi_scale:
+        if args.multi_scale and task != "detect":
+            LOGGER.warning("multi_scale resizes the images but not the task's masks; it is off for the "
+                           f"{task} task, as in the JAX trainer")
+        elif args.multi_scale:
             self._ms_sizes = sorted({max(32, int(round(args.imgsz * f / 32)) * 32) for f in (0.5, 0.75, 1.0, 1.25, 1.5)})
             LOGGER.info(f"multi_scale: bucketed sizes {self._ms_sizes}")
         if args.resume:
@@ -221,7 +241,8 @@ class DetectionTrainer:
     def _meta(self, epoch: int, fitness: float) -> dict:
         return {"epoch": epoch, "fitness": fitness, "best_fitness": self.best_fitness,
                 "args": {k: str(v) for k, v in vars(self.args).items()},
-                "names": [str(v) for v in (self.data.get("names") or {}).values()]}
+                "names": [str(v) for v in (self.data.get("names") or {}).values()],
+                "task": self.spec.task, "kpt_shape": list(self.spec.kpt_shape)}
 
     def train(self):
         self.start_epoch = 0
@@ -322,5 +343,5 @@ class DetectionTrainer:
             if write_header:
                 w.writeheader()
             w.writerow(row)
-        LOGGER.info(f"epoch {epoch}: loss {em.get('loss', 0):.3f} (box {em.get('box_loss', 0):.3f} cls "
-                    f"{em.get('cls_loss', 0):.3f} dfl {em.get('dfl_loss', 0):.3f}) fitness {fitness:.4f}")
+        items = " ".join(f"{k[:-5]} {em.get(k, 0):.3f}" for k in self.item_names)
+        LOGGER.info(f"epoch {epoch}: loss {em.get('loss', 0):.3f} ({items}) fitness {fitness:.4f}")

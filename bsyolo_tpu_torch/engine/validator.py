@@ -1,4 +1,4 @@
-"""Detection validator (counterpart of the detect branch of ``bsyolo_tpu/engine/validator.py``).
+"""Validators of the detect, segment and pose tasks (counterpart of ``bsyolo_tpu/engine/validator.py``).
 
 Each batch runs the graph and ``detect_postprocess`` on the card (one launch
 of the box decode kernel per batch, then the NMS), and the host matches the
@@ -6,16 +6,27 @@ kept rows against the ground truths at 10 IoU thresholds into
 ``ap_per_class``. NMS runs at the reference's val settings, conf 0.001 and
 IoU 0.7.
 
+``SegmentationValidator`` adds mask mAP: the kept rows' masks are assembled on
+the card at prototype size (``process_mask(upsample=False)``, thresholded at
+0.5) and matched by mask IoU against the overlap-encoded ground truth (pixel
+value g + 1 marks instance g). ``PoseValidator`` adds OKS keypoint mAP
+(``kpt_iou_np``, areas 0.53 of the boxes', COCO's sigmas for 17 x 3
+keypoints, else 1 / nkpt each).
+
 Batches follow the JAX package's padded-label contract, with the image NCHW:
 img (B, 3, H, W) uint8, cls (B, M), bboxes (B, M, 4) normalized xywh,
-mask (B, M) and, from a val loader, im_idx (B,), negative on the rows that
-pad the last batch of a canvas shape. Batches may change shape from one to
+mask (B, M), masks (B, H / 4, W / 4) overlap-encoded (segment), keypoints
+(B, M, nkpt, 3) normalized (pose) and, from a val loader, im_idx (B,),
+negative on the rows that pad the last batch of a canvas shape. Batches may change shape from one to
 the next (rect val batches).
 
 With ``save_json`` the kept rows of every image go, in its original pixels,
 into ``<save_dir>/predictions.json`` (COCO results); with ``save_txt`` into
 ``<save_dir>/labels/<stem>.txt`` (normalized xywh, with ``save_conf`` the
-score). Both need the images' files, in the loader's order (``im_files``).
+score; detect only). Both need the images' files, in the loader's order (``im_files``).
+Segment results carry each mask, brought back to the original image
+(``mask_to_original``), as RLE; pose results their keypoints in original
+pixels.
 The original size is that of the image as ``imread`` decodes it, after the
 JPEG Exif orientation; the JAX package takes PIL's size, before it.
 """
@@ -32,12 +43,16 @@ import torch
 from bsyolo_tpu_torch import select_device
 from bsyolo_tpu_torch.data.imread import decoded_size
 from bsyolo_tpu_torch.kernels.postprocess import detect_postprocess
+from bsyolo_tpu_torch.losses.pose import OKS_SIGMA
+from bsyolo_tpu_torch.nn.heads import decode_extras, decode_keypoints, gather_anchors
 from bsyolo_tpu_torch.ops.boxes import xywh2xyxy
 from bsyolo_tpu_torch.ops.letterbox import letterbox_params
+from bsyolo_tpu_torch.ops.masks import process_mask
 from bsyolo_tpu_torch.ops.normalize import normalize_image_batch
 from bsyolo_tpu_torch.utils import LOGGER
-from bsyolo_tpu_torch.utils.coco import pred_to_json, save_predictions_json
-from bsyolo_tpu_torch.utils.metrics import ConfusionMatrix, DetMetrics, _box_iou_np, match_predictions
+from bsyolo_tpu_torch.utils.coco import pose_pred_to_json, pred_to_json, save_predictions_json, seg_pred_to_json
+from bsyolo_tpu_torch.utils.metrics import (ConfusionMatrix, DetMetrics, Metric, _box_iou_np, ap_per_class,
+                                            kpt_iou_np, match_predictions)
 
 
 def _pipeline_forward(forward, variables, loader):
@@ -71,15 +86,39 @@ def _filter_classes(dets: np.ndarray, classes) -> np.ndarray:
     return d
 
 
-def boxes_to_original(dets: np.ndarray, im_file, input_hw) -> tuple:
-    """(rows with xyxy mapped from the letterboxed input of ``input_hw`` back to ``im_file``'s
-    pixels and clipped to them, (w0, h0)); val letterboxes centred, without enlarging."""
+def unletterbox(im_file, input_hw) -> tuple:
+    """((w0, h0), r, dw, dh) mapping the letterboxed input of ``input_hw`` back to ``im_file``'s
+    pixels; val letterboxes centred, without enlarging."""
     h0, w0 = decoded_size(im_file)
     r, (dw, dh), _ = letterbox_params((h0, w0), input_hw, scaleup=False)
+    return (w0, h0), r, dw, dh
+
+
+def boxes_to_original(dets: np.ndarray, ub) -> np.ndarray:
+    """Rows with xyxy mapped back to the original image's pixels by ``ub`` (``unletterbox``'s) and
+    clipped to them."""
+    (w0, h0), r, dw, dh = ub
     d = dets.copy()
     d[:, [0, 2]] = np.clip((d[:, [0, 2]] - dw) / r, 0, w0)
     d[:, [1, 3]] = np.clip((d[:, [1, 3]] - dh) / r, 0, h0)
-    return d, (w0, h0)
+    return d
+
+
+def mask_to_original(mask: np.ndarray, input_hw, orig_wh, r: float, dw: float, dh: float) -> np.ndarray:
+    """Binary mask at prototype size -> binary mask of the original image: repeated up to the
+    network input, the letterbox padding cut off, then nearest-resized to (h0, w0)."""
+    h, w = input_hw
+    w0, h0 = orig_wh
+    fh, fw = h // mask.shape[0], w // mask.shape[1]
+    mi = np.repeat(np.repeat(mask, fh, axis=0), fw, axis=1)
+    ch, cw = int(round(h0 * r)), int(round(w0 * r))
+    top, left = int(round(dh - 0.1)), int(round(dw - 0.1))
+    crop = mi[top : top + ch, left : left + cw]
+    if crop.size == 0:
+        return np.zeros((h0, w0), bool)
+    yi = np.clip((np.arange(h0) * crop.shape[0] / h0).astype(int), 0, crop.shape[0] - 1)
+    xi = np.clip((np.arange(w0) * crop.shape[1] / w0).astype(int), 0, crop.shape[1] - 1)
+    return crop[yi][:, xi].astype(bool)
 
 
 def save_label_txt(path: Path, dets: np.ndarray, wh, save_conf: bool) -> None:
@@ -96,7 +135,54 @@ def save_label_txt(path: Path, dets: np.ndarray, wh, save_conf: bool) -> None:
     path.write_text("\n".join(lines) + ("\n" if lines else ""))
 
 
+class SegmentMetrics(DetMetrics):
+    """Box and mask mAP; fitness is the sum of the two."""
+
+    def __init__(self, names=None):
+        super().__init__(names)
+        self.seg = Metric()
+        self.seg.nc = len(self.names)
+
+    def process_seg(self, tp_m, conf, pred_cls, target_cls):
+        self.seg.update(ap_per_class(tp_m, conf, pred_cls, target_cls))
+
+    @property
+    def fitness(self):
+        return self.box.fitness() + self.seg.fitness()
+
+    @property
+    def results_dict(self):
+        return {
+            "metrics/precision(B)": self.box.mp,
+            "metrics/recall(B)": self.box.mr,
+            "metrics/mAP50(B)": self.box.map50,
+            "metrics/mAP50-95(B)": self.box.map,
+            "metrics/mAP50(M)": self.seg.map50,
+            "metrics/mAP50-95(M)": self.seg.map,
+            "fitness": self.fitness,
+        }
+
+
+class PoseMetrics(DetMetrics):
+    """Box and OKS keypoint mAP; fitness is the sum of the two (``results_dict`` reports the box
+    metrics and the fitness, as the JAX package's)."""
+
+    def __init__(self, names=None):
+        super().__init__(names)
+        self.pose = Metric()
+        self.pose.nc = len(self.names)
+
+    def process_pose(self, tp_p, conf, pred_cls, target_cls):
+        self.pose.update(ap_per_class(tp_p, conf, pred_cls, target_cls))
+
+    @property
+    def fitness(self):
+        return self.box.fitness() + self.pose.fitness()
+
+
 class DetectionValidator:
+    extra = ()  # names of the task's own true-positive stats (mask or keypoint matches)
+
     def __init__(
         self,
         model: torch.nn.Module,
@@ -120,8 +206,9 @@ class DetectionValidator:
         """``device``: where the forward runs (``cuda:0`` by default; raises without a
         card); the model is expected there. ``forward_fn(variables, img)`` replaces
         the graph and postprocess: it takes the batch's image as the loader gives
-        it and returns (B, max_det, 6) rows. ``class_map`` maps classes to the
-        category ids of ``predictions.json`` (``utils/coco.py COCO80_TO_COCO91``)."""
+        it and returns what ``_postprocess`` returns ((B, max_det, 6) rows for detect).
+        ``class_map`` maps classes to the category ids of ``predictions.json``
+        (``utils/coco.py COCO80_TO_COCO91``)."""
         if plots:
             raise NotImplementedError("val(plots=True) is not ported yet (ROADMAP queue 1, item 16)")
         self.save_json = save_json
@@ -143,23 +230,47 @@ class DetectionValidator:
         self._forward = forward_fn if forward_fn is not None else self._graph_forward
 
     @torch.inference_mode()
-    def _graph_forward(self, variables: Optional[Mapping[str, torch.Tensor]], img) -> torch.Tensor:
+    def _graph_forward(self, variables: Optional[Mapping[str, torch.Tensor]], img):
         """The graph in eval mode with ``variables`` (name -> tensor) in place of the
-        model's own parameters or buffers, then ``detect_postprocess``."""
+        model's own parameters or buffers, then ``_postprocess``."""
         x = normalize_image_batch(torch.as_tensor(img).to(self.device, non_blocking=True))
         was_training = self.model.training
         self.model.eval()
         try:
             if variables:
-                feats = torch.func.functional_call(self.model, dict(variables), (x,), strict=False)
+                out = torch.func.functional_call(self.model, dict(variables), (x,), strict=False)
             else:
-                feats = self.model(x)
+                out = self.model(x)
         finally:
             self.model.train(was_training)
+        return self._postprocess(out)
+
+    def _nms(self, feats, **kw):
         return detect_postprocess(
             feats, self.spec.head_strides, self.spec.nc, conf_thres=self.conf, iou_thres=self.iou,
-            max_det=self.max_det, pre_k=self.pre_k, agnostic=self.single_cls, reg_max=self.spec.reg_max,
-        )
+            max_det=self.max_det, pre_k=self.pre_k, agnostic=self.single_cls, reg_max=self.spec.reg_max, **kw)
+
+    def _postprocess(self, out):
+        """The head's output -> (B, max_det, 6) rows on the device."""
+        return self._nms(out)
+
+    def _to_host(self, pending):
+        """What the forward returned -> (rows as numpy, the task's per-row extras or None)."""
+        return (pending.cpu().numpy() if isinstance(pending, torch.Tensor) else np.asarray(pending)), None
+
+    def _image_extras(self, extras, i: int, keep: np.ndarray, d: np.ndarray, input_hw):
+        """The task's predictions of image ``i``'s kept rows (None for detect)."""
+        return None
+
+    def _extra_tp(self, pred, d, batch, i: int, gt_cls, gt_xyxy, input_hw):
+        """The task's own (n, 10) true positives of image ``i`` (none for detect)."""
+        return ()
+
+    def _extra_json(self, d, pred, im_file, input_hw):
+        return pred_to_json(boxes_to_original(d, unletterbox(im_file, input_hw)), im_file, class_map=self.class_map)
+
+    def _metrics(self) -> DetMetrics:
+        return DetMetrics(names=self.names)
 
     def __call__(self, variables: Optional[Mapping[str, torch.Tensor]], loader, verbose: bool = True,
                  im_files: Optional[Sequence[str]] = None) -> DetMetrics:
@@ -174,13 +285,14 @@ class DetectionValidator:
         if (self.save_json or self.save_txt) and not write:
             LOGGER.warning("save_json/save_txt need the images' files (im_files); nothing will be written")
         jdict: list = []
-        stats = {"tp": [], "conf": [], "pred_cls": [], "target_cls": []}
+        keys = ("tp", *self.extra)
+        stats = {k: [] for k in (*keys, "conf", "pred_cls", "target_cls")}
         confusion = ConfusionMatrix(nc=self.spec.nc, conf=self.conf)
         t_infer = 0.0
         n_img = 0
         for batch, pending in _pipeline_forward(self._forward, variables, loader):
             t0 = time.perf_counter()
-            dets = pending.cpu().numpy() if isinstance(pending, torch.Tensor) else np.asarray(pending)
+            dets, extras = self._to_host(pending)
             t_infer += time.perf_counter() - t0
             if self.single_cls:
                 dets = _collapse_single_cls(dets)
@@ -190,16 +302,26 @@ class DetectionValidator:
             scale = np.array([w, h, w, h], np.float32)
             im_idx = batch.get("im_idx")
             for i in range(b):
-                if im_idx is not None and int(im_idx[i]) < 0:
+                k = int(im_idx[i]) if im_idx is not None else n_img - b + i
+                if k < 0:
                     continue  # a row that pads the last batch of its shape
                 mask = np.asarray(batch["mask"][i]) > 0
                 gt_cls = np.asarray(batch["cls"][i])[mask].astype(np.float32)
                 gt_xyxy = xywh2xyxy(torch.as_tensor(np.asarray(batch["bboxes"][i])[mask])).numpy() * scale
-                d = dets[i]
-                d = d[d[:, 4] > 0]
+                keep = np.flatnonzero(dets[i][:, 4] > 0)
+                d = dets[i][keep]
+                pred = self._image_extras(extras, i, keep, d, (h, w))
+                if write and k < len(im_files):
+                    if self.save_json:
+                        jdict.extend(self._extra_json(d, pred, im_files[k], (h, w)))
+                    if self.save_txt:
+                        ub = unletterbox(im_files[k], (h, w))
+                        save_label_txt(self.save_dir / "labels" / f"{Path(im_files[k]).stem}.txt",
+                                       boxes_to_original(d, ub), ub[0], self.save_conf)
                 if len(d) == 0:
                     if len(gt_cls):
-                        stats["tp"].append(np.zeros((0, len(self.iouv)), bool))
+                        for key in keys:
+                            stats[key].append(np.zeros((0, len(self.iouv)), bool))
                         stats["conf"].append(np.zeros(0))
                         stats["pred_cls"].append(np.zeros(0))
                         stats["target_cls"].append(gt_cls)
@@ -207,35 +329,119 @@ class DetectionValidator:
                     continue
                 iou = _box_iou_np(gt_xyxy, d[:, :4])
                 stats["tp"].append(match_predictions(d[:, 5], gt_cls, iou, self.iouv))
+                for key, tp in zip(self.extra, self._extra_tp(pred, d, batch, i, gt_cls, gt_xyxy, (h, w))):
+                    stats[key].append(tp)
                 stats["conf"].append(d[:, 4])
                 stats["pred_cls"].append(d[:, 5])
                 stats["target_cls"].append(gt_cls)
                 confusion.process_batch(d, gt_xyxy, gt_cls)
-            if write:
-                for i in range(b):
-                    k = int(im_idx[i]) if im_idx is not None else n_img - b + i
-                    if k < 0 or k >= len(im_files):  # rows that pad a batch
-                        continue
-                    d, wh = boxes_to_original(dets[i][dets[i][:, 4] > 0], im_files[k], (h, w))
-                    if self.save_json:
-                        jdict.extend(pred_to_json(d, im_files[k], class_map=self.class_map))
-                    if self.save_txt:
-                        save_label_txt(self.save_dir / "labels" / f"{Path(im_files[k]).stem}.txt", d, wh,
-                                       self.save_conf)
         if write and self.save_json:
             out = self.save_dir / "predictions.json"
             out.parent.mkdir(parents=True, exist_ok=True)
             save_predictions_json(jdict, out)
             LOGGER.info(f"saved {len(jdict)} COCO-format predictions to {out}")
 
-        metrics = DetMetrics(names=self.names)
+        metrics = self._metrics()
         if stats["tp"]:
             target_cls = np.concatenate(stats["target_cls"])
             if len(target_cls):
-                metrics.process(np.concatenate(stats["tp"]), np.concatenate(stats["conf"]),
-                                np.concatenate(stats["pred_cls"]), target_cls)
+                conf, pcls = np.concatenate(stats["conf"]), np.concatenate(stats["pred_cls"])
+                metrics.process(np.concatenate(stats["tp"]), conf, pcls, target_cls)
+                for key in self.extra:
+                    getattr(metrics, {"tp_m": "process_seg", "tp_p": "process_pose"}[key])(
+                        np.concatenate(stats[key]), conf, pcls, target_cls)
         # the time spent waiting for each batch's rows, not the device's time: the
         # next batch's forward is already enqueued while this one is matched
         metrics.speed["inference"] = t_infer / max(n_img, 1) * 1000
         metrics.confusion_matrix = confusion
         return metrics
+
+
+class SegmentationValidator(DetectionValidator):
+    """Box and mask mAP of a Segment graph; the mask true positives come from the mask IoU of
+    each kept row's prototype-size mask against the overlap-encoded ground truth."""
+
+    extra = ("tp_m",)
+
+    def _postprocess(self, out):
+        """-> (B, max_det, 6) rows, their (B, max_det, nm) coefficients (0 on padding rows) and the
+        (B, nm, Hm, Wm) prototypes, on the device."""
+        dets, idx = self._nms(out["feats"], return_idx=True)
+        return dets, gather_anchors(decode_extras(out["feats"], self.spec.nc, self.spec.reg_max), idx), out["proto"]
+
+    def _to_host(self, pending):
+        dets, coeffs, proto = pending
+        return dets.cpu().numpy(), (coeffs, proto)
+
+    def _image_extras(self, extras, i, keep, d, input_hw):
+        """The kept rows' binary masks at prototype size, assembled on the device."""
+        coeffs, proto = extras
+        k = torch.from_numpy(keep).to(coeffs.device)
+        boxes = torch.from_numpy(np.ascontiguousarray(d[:, :4])).to(coeffs.device)
+        return (process_mask(proto[i], coeffs[i][k], boxes, input_hw, upsample=False) > 0.5).cpu().numpy()
+
+    def _extra_tp(self, pred, d, batch, i, gt_cls, gt_xyxy, input_hw):
+        gmask = np.asarray(batch["masks"][i])  # (hm, wm) overlap-encoded
+        n_gt = len(gt_cls)
+        g_flat = np.stack([(gmask == g + 1) for g in range(n_gt)]).reshape(n_gt, -1).astype(np.float32) if n_gt \
+            else np.zeros((0, gmask.size), np.float32)
+        p_flat = pred.reshape(len(pred), -1).astype(np.float32)
+        inter = g_flat @ p_flat.T
+        union = g_flat.sum(-1)[:, None] + p_flat.sum(-1)[None, :] - inter
+        return (match_predictions(d[:, 5], gt_cls, inter / (union + 1e-7), self.iouv),)
+
+    def _extra_json(self, d, pred, im_file, input_hw):
+        if not len(d):
+            return []
+        ub = unletterbox(im_file, input_hw)
+        m0 = np.stack([mask_to_original(m, input_hw, *ub) for m in pred])
+        return seg_pred_to_json(boxes_to_original(d, ub), m0, im_file, class_map=self.class_map)
+
+    def _metrics(self):
+        return SegmentMetrics(names=self.names)
+
+
+class PoseValidator(DetectionValidator):
+    """Box and OKS keypoint mAP of a Pose graph."""
+
+    extra = ("tp_p",)
+
+    def __init__(self, model, spec, **kwargs):
+        super().__init__(model, spec, **kwargs)
+        nkpt, nd = spec.kpt_shape
+        self.sigma = OKS_SIGMA if (nkpt == 17 and nd == 3) else np.ones(nkpt) / nkpt
+
+    def _postprocess(self, feats):
+        """-> (B, max_det, 6) rows and their (B, max_det, nkpt, ndim) keypoints in input pixels
+        (0 on padding rows), on the device."""
+        dets, idx = self._nms(feats, return_idx=True)
+        kpts = decode_keypoints(decode_extras(feats, self.spec.nc, self.spec.reg_max), feats, self.spec.head_strides,
+                                self.spec.kpt_shape)
+        return dets, gather_anchors(kpts, idx)
+
+    def _to_host(self, pending):
+        return pending[0].cpu().numpy(), pending[1].cpu().numpy()
+
+    def _image_extras(self, extras, i, keep, d, input_hw):
+        return extras[i][keep]
+
+    def _extra_tp(self, pred, d, batch, i, gt_cls, gt_xyxy, input_hw):
+        h, w = input_hw
+        gt_kpts = np.asarray(batch["keypoints"][i])[np.asarray(batch["mask"][i]) > 0].copy()
+        gt_kpts[..., 0] *= w
+        gt_kpts[..., 1] *= h
+        area = (gt_xyxy[:, 2] - gt_xyxy[:, 0]) * (gt_xyxy[:, 3] - gt_xyxy[:, 1]) * 0.53
+        return (match_predictions(d[:, 5], gt_cls, kpt_iou_np(gt_kpts, pred, area, self.sigma), self.iouv),)
+
+    def _extra_json(self, d, pred, im_file, input_hw):
+        if not len(d):
+            return []
+        (w0, h0), r, dw, dh = ub = unletterbox(im_file, input_hw)
+        d0 = boxes_to_original(d, ub)
+        k0 = pred.copy()
+        k0[..., 0] = np.clip((k0[..., 0] - dw) / r, 0, w0)
+        k0[..., 1] = np.clip((k0[..., 1] - dh) / r, 0, h0)
+        return pose_pred_to_json(d0, k0, im_file, class_map=self.class_map)
+
+    def _metrics(self):
+        return PoseMetrics(names=self.names)

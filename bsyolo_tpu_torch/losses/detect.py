@@ -86,18 +86,32 @@ def _dfl_loss(pred_dist: torch.Tensor, target: torch.Tensor, reg_max: int) -> to
     return -(logp * soft).sum(-1).mean(-1, keepdim=True)
 
 
-def detection_loss(
-    feats: Sequence[torch.Tensor],  # per-level raw maps (B, 4 * reg_max + nc, H, W)
+class DetectTerms(NamedTuple):
+    """The detection terms of a head's loss and what the task losses build on."""
+
+    loss_iou: torch.Tensor  # () CIoU (blended with NWD), 0 without foreground
+    loss_cls: torch.Tensor  # ()
+    loss_dfl: torch.Tensor  # (), 0 without foreground
+    state: LossState  # the EMA-Slide state after this call
+    extra: torch.Tensor  # (B, A, no - 4 * reg_max - nc) float32: the channels past the class logits
+    anchor_points: torch.Tensor  # (A, 2) feature units
+    stride_tensor: torch.Tensor  # (A, 1)
+    assign: object  # the TAL AssignResult (pixel boxes)
+    weight: torch.Tensor  # (B, A) target score sums on the foreground, 0 elsewhere
+    imgsz: Tuple[int, int]  # (h, w) of the network input
+
+
+def detect_terms(
+    feats: Sequence[torch.Tensor],  # per-level raw maps (B, 4 * reg_max + nc [+ extra], H, W)
     gt_cls: torch.Tensor,  # (B, M) int
     gt_bboxes: torch.Tensor,  # (B, M, 4) xywh normalized to [0, 1]
     gt_mask: torch.Tensor,  # (B, M) validity
     state: LossState,
     cfg: DetectionLossConfig,
-) -> Tuple[torch.Tensor, torch.Tensor, LossState]:
-    """(total loss, loss items [box, cls, dfl] (3,), new state); the total is
-    ``sum(items) * B``, as the reference scales it."""
+) -> DetectTerms:
+    """TAL assignment, EMA-Slide BCE, CIoU/NWD and DFL over the head's first ``4 * reg_max + nc``
+    channels; the Segment and Pose losses add their terms on the rest."""
     reg_max, nc = cfg.reg_max, cfg.nc
-    b = feats[0].shape[0]
     feat_shapes = [tuple(f.shape[2:]) for f in feats]
     imgsz_h = feat_shapes[0][0] * cfg.strides[0]
     imgsz_w = feat_shapes[0][1] * cfg.strides[0]
@@ -157,6 +171,21 @@ def detection_loss(
     zero = loss_iou.new_zeros(())
     loss_iou = torch.where(any_fg, loss_iou, zero)
     loss_dfl = torch.where(any_fg, loss_dfl, zero)
+    return DetectTerms(loss_iou, loss_cls, loss_dfl, LossState(updates=new_updates, iou_mean=new_iou_mean),
+                       flat[..., reg_max * 4 + nc :].float(), anchor_points, stride_tensor, assign, w,
+                       (imgsz_h, imgsz_w))
 
-    items = torch.stack([loss_iou * cfg.box, loss_cls * cfg.cls, loss_dfl * cfg.dfl])
-    return items.sum() * b, items, LossState(updates=new_updates, iou_mean=new_iou_mean)
+
+def detection_loss(
+    feats: Sequence[torch.Tensor],  # per-level raw maps (B, 4 * reg_max + nc, H, W)
+    gt_cls: torch.Tensor,  # (B, M) int
+    gt_bboxes: torch.Tensor,  # (B, M, 4) xywh normalized to [0, 1]
+    gt_mask: torch.Tensor,  # (B, M) validity
+    state: LossState,
+    cfg: DetectionLossConfig,
+) -> Tuple[torch.Tensor, torch.Tensor, LossState]:
+    """(total loss, loss items [box, cls, dfl] (3,), new state); the total is
+    ``sum(items) * B``, as the reference scales it."""
+    t = detect_terms(feats, gt_cls, gt_bboxes, gt_mask, state, cfg)
+    items = torch.stack([t.loss_iou * cfg.box, t.loss_cls * cfg.cls, t.loss_dfl * cfg.dfl])
+    return items.sum() * feats[0].shape[0], items, t.state

@@ -1,4 +1,4 @@
-"""The YOLO model facade (counterpart of ``bsyolo_tpu/model.py``), detect task.
+"""The YOLO model facade (counterpart of ``bsyolo_tpu/model.py``): detect, segment and pose tasks.
 
     from bsyolo_tpu_torch import YOLO
     m = YOLO("yolo11n.yaml")                  # BS-YOLO graph on cuda:0, seeded init
@@ -15,6 +15,10 @@
     vectors = m.embed("images/")               # pooled features of the second-to-last layer, one per image
     metrics = m.val(data="car.yaml", save_json=True, save_txt=True, save_dir="runs/val")
     results = m.track("clip.mp4", persist=True, tracker="bytetrack.yaml")  # boxes carry track ids
+    m = YOLO("yolo11n-seg.yaml")               # the task follows the head: results carry masks,
+    results = m.predict(frames, retina_masks=True)  # here assembled at each frame's own size
+    m = YOLO("yolo11n-pose.yaml")              # results carry keypoints; val gives OKS mAP
+    m.train(data="coco8-pose.yaml", amp=False)  # segment and pose train in float32 (ROADMAP item 12)
 
 ``half=True`` runs a bfloat16 copy of the graph (``YOLO.half_graph``, built by
 ``nn.model.cast_inference_graph``: convolution weights cast once and kept until
@@ -47,18 +51,18 @@ from bsyolo_tpu_torch.cfg import model_yaml_path
 from bsyolo_tpu_torch.engine.predictor import DetectionPredictor
 from bsyolo_tpu_torch.nn.model import build_model, cast_inference_graph
 from bsyolo_tpu_torch.nn.modules import Conv, cast_convs
-from bsyolo_tpu_torch.nn.parser import load_model_yaml, parse_model_yaml
+from bsyolo_tpu_torch.nn.parser import HEAD_TASKS, load_model_yaml, parse_model_yaml
 from bsyolo_tpu_torch.utils import LOGGER
 from bsyolo_tpu_torch.utils.ckpt import load_checkpoint, load_weights, save_checkpoint
 from bsyolo_tpu_torch.utils.weights import jax_paths, load_reference_state_dict
 
 _PREDICT_ARGS = {"conf", "iou", "imgsz", "batch", "max_det", "classes", "agnostic_nms", "augment", "verbose", "half",
-                 "vid_stride", "stream_buffer", "save_txt", "save_conf", "save_crop", "embed", "project", "name"}
+                 "vid_stride", "stream_buffer", "save_txt", "save_conf", "save_crop", "embed", "project", "name",
+                 "retina_masks"}
 # predict options of the JAX package that the port does not have yet -> the ROADMAP item that brings them
 _NOT_PORTED = {
     **dict.fromkeys(("save", "show"), "queue 1, item 25"),
     "visualize": "queue 1, item 16",
-    "retina_masks": "queue 1, item 12",
 }
 
 
@@ -80,7 +84,7 @@ class YOLO:
         """Build the graph ``model`` names on ``device`` (``cuda:0`` by default;
         raises when CUDA is absent and no other device is given), with weights
         drawn from ``seed``."""
-        if task not in (None, "detect"):
+        if task is not None and task not in HEAD_TASKS.values():
             raise NotImplementedError(f"task {task!r} is not ported yet (ROADMAP queue 1, item 12)")
         self.model_path = str(model)
         suffix = Path(self.model_path).suffix
@@ -91,7 +95,6 @@ class YOLO:
             raise ValueError("a reference .pt carries no graph the port can build; use "
                              "YOLO('<model>.yaml').load('<weights>.pt')")
         self._device = select_device(device)
-        self.task = "detect"
         self.metrics = None
         self.trainer = None
         self.ckpt_meta = None
@@ -104,23 +107,38 @@ class YOLO:
             self._load_ckpt(self.model_path, seed)
         else:
             self._new(self.model_path, seed)
+        if task is not None and task != self.spec.task:
+            raise ValueError(f"task={task!r}, but {self.model_path} has a {self.spec.head.module} head "
+                             f"(task {self.spec.task!r})")
 
-    def _new(self, yaml_name: str, seed: int = 0, nc: Optional[int] = None, names=None):
+    @property
+    def task(self) -> str:
+        """detect, segment or pose: the graph's head decides."""
+        return self.spec.task
+
+    def _new(self, yaml_name: str, seed: int = 0, nc: Optional[int] = None, names=None, kpt_shape=None):
         d = load_model_yaml(model_yaml_path(yaml_name))
         if nc is not None:
             d["nc"] = nc
         if names:
             d["names"] = dict(enumerate(names))
+        if kpt_shape:
+            d["kpt_shape"] = list(kpt_shape)
         self.spec = parse_model_yaml(d, scale=d.get("scale", ""))
         self.model = build_model(self.spec, self._device, seed)
 
     def _load_ckpt(self, path: str, seed: int = 0):
         """A ``.ckpt`` of either package: the graph of ``meta.args.model`` with the class count and
-        names the checkpoint was trained with, its EMA weights (else params) and BatchNorm statistics."""
+        names the checkpoint was trained with (and the port's ``kpt_shape``), its EMA weights (else
+        params) and BatchNorm statistics; a ``task`` recorded in the meta must be the graph's."""
         payload, meta = load_checkpoint(path)
         args = meta.get("args", {})
         names = meta.get("names") or None  # the trainer's data names; their count is the head's nc
-        self._new(args.get("model", "yolo11n.yaml"), seed, nc=len(names) if names else None, names=names)
+        self._new(args.get("model", "yolo11n.yaml"), seed, nc=len(names) if names else None, names=names,
+                  kpt_shape=meta.get("kpt_shape"))
+        if meta.get("task", self.spec.task) != self.spec.task:
+            raise ValueError(f"{path} was trained as a {meta['task']} model, but its graph "
+                             f"{args.get('model')} has a {self.spec.head.module} head")
         load_weights(payload, self.model)
         if str(args.get("imgsz", "")).isdigit():
             self._img_size = int(args["imgsz"])
@@ -164,12 +182,23 @@ class YOLO:
         keeps every stream frame (else the latest). ``save_txt`` (with ``save_conf``) writes
         ``<project>/<name>/labels/<stem>.txt`` and ``save_crop`` ``<project>/<name>/crops/<class>/
         <stem>_<i>.jpg`` (``runs/detect/predict`` by default; not with ``stream=True``). ``embed`` is
-        accepted and changes nothing, as in the JAX facade: ``embed()`` gives the vectors."""
+        accepted and changes nothing, as in the JAX facade: ``embed()`` gives the vectors.
+        A Segment graph's results carry masks at each frame's size (``retina_masks=True``: assembled
+        from the prototypes at that size, on the host); a Pose graph's carry keypoints. ``half``
+        and int8 on those graphs are not ported (ROADMAP queue 1, item 12); ``augment`` on them
+        warns and predicts at one scale, as in the JAX package."""
         for k, v in kwargs.items():
             if k in _NOT_PORTED and v:
                 raise NotImplementedError(f"predict({k}=...) is not ported yet (ROADMAP {_NOT_PORTED[k]})")
             if k not in _PREDICT_ARGS and k not in _NOT_PORTED:
                 raise TypeError(f"predict() got an unexpected keyword argument {k!r}")
+        if kwargs.get("retina_masks") and self.task != "segment":
+            raise NotImplementedError(f"predict(retina_masks=True) assembles the masks of a Segment graph; this graph "
+                                      f"has a {self.spec.head.module} head (the other task heads: ROADMAP queue 1, "
+                                      "item 12)")
+        if self.task != "detect" and any(isinstance(m, Conv) and m.int8 for m in self.model.modules()):
+            raise NotImplementedError(f"int8 inference on a {self.task} graph is not ported yet (ROADMAP queue 1, "
+                                      "item 12)")
         conf = kwargs.get("conf")
         self.predictor = predictor = DetectionPredictor(
             self.half_graph() if kwargs.get("half") else self.model,
@@ -185,6 +214,7 @@ class YOLO:
             batch=int(kwargs.get("batch") or 1),
             augment=bool(kwargs.get("augment", False)),
             stream_buffer=bool(kwargs.get("stream_buffer", False)),
+            retina_masks=bool(kwargs.get("retina_masks", False)),
         )
         gen = predictor.stream(source, vid_stride=int(kwargs.get("vid_stride") or 1),
                                verbose=kwargs.get("verbose", False))
@@ -249,15 +279,17 @@ class YOLO:
         return self.metrics
 
     def val(self, data: Optional[str] = None, batch: int = 16, imgsz: Optional[int] = None, **kwargs):
-        """Detection metrics of this model on ``data``'s ``split`` (val by default), letterboxed to
-        ``imgsz`` (square, or three aspect buckets with ``rect=True``); NMS at conf 0.001, IoU 0.7
-        unless ``conf``, ``iou``, ``max_det`` say otherwise; ``half=True`` on the bf16 graph.
+        """Metrics of this model on ``data``'s ``split`` (val by default), letterboxed to ``imgsz``
+        (square, or three aspect buckets with ``rect=True``, detect only); NMS at conf 0.001, IoU 0.7
+        unless ``conf``, ``iou``, ``max_det`` say otherwise; ``half=True`` on the bf16 graph. Box mAP,
+        and mask mAP for a Segment graph (``SegmentMetrics``), OKS keypoint mAP for a Pose graph
+        (``PoseMetrics``).
         ``save_json`` writes ``<save_dir>/predictions.json`` (COCO results, the official category ids
         for a COCO set of 80 classes), ``save_txt`` (with ``save_conf``) ``<save_dir>/labels/<stem>.txt``
         per image, in original-image pixels; ``save_dir`` is ``runs/val`` by default."""
         from bsyolo_tpu_torch.data import DataLoader, YOLODataset, load_dataset_yaml
         from bsyolo_tpu_torch.engine.trainer import val_batches
-        from bsyolo_tpu_torch.engine.validator import DetectionValidator
+        from bsyolo_tpu_torch.engine.validator import DetectionValidator, PoseValidator, SegmentationValidator
 
         if kwargs.get("plots"):
             raise NotImplementedError("val(plots=True) is not ported yet (ROADMAP queue 1, item 16)")
@@ -270,13 +302,22 @@ class YOLO:
             raise KeyError(f"dataset {data} has no '{split}' split")
         imgsz = imgsz or self._img_size
         single_cls = bool(kwargs.get("single_cls", False))
-        ds = YOLODataset(d[split], imgsz=imgsz, augment=False, max_gt=kwargs.get("max_gt", 128), single_cls=single_cls)
-        loader = DataLoader(ds, batch, shuffle=False, drop_last=False, rect=bool(kwargs.get("rect", False)))
+        task = self.task
+        ds = YOLODataset(d[split], imgsz=imgsz, augment=False, max_gt=kwargs.get("max_gt", 128), single_cls=single_cls,
+                         task=task, flip_idx=d.get("flip_idx"))
+        rect = bool(kwargs.get("rect", False))
+        if rect and task != "detect":
+            LOGGER.warning("rect val is detect-only; using the square letterbox")
+            rect = False
+        loader = DataLoader(ds, batch, shuffle=False, drop_last=False, rect=rect)
         vkw = {k: kwargs[k] for k in ("conf", "iou", "max_det") if kwargs.get(k) is not None}
         if kwargs.get("classes"):
             vkw["classes"] = list(kwargs["classes"])
         save_dir = kwargs.get("save_dir") or "runs/val"
-        if kwargs.get("save_txt"):
+        if kwargs.get("save_txt") and task != "detect":
+            LOGGER.warning(f"val(save_txt=True) writes detect labels only, as in the JAX package; nothing is written "
+                           f"for the {task} task")
+        elif kwargs.get("save_txt"):
             vkw.update(save_txt=True, save_conf=bool(kwargs.get("save_conf", False)), save_dir=save_dir)
         if kwargs.get("save_json"):
             from bsyolo_tpu_torch.utils.coco import COCO80_TO_COCO91
@@ -284,8 +325,9 @@ class YOLO:
             coco = "coco" in str(data).lower() and self.spec.nc == 80  # official COCO category ids
             vkw.update(save_json=True, save_dir=save_dir, class_map=COCO80_TO_COCO91 if coco else None)
         model = self.half_graph() if kwargs.get("half") else self.model
-        validator = DetectionValidator(model, self.spec, names=d.get("names"), single_cls=single_cls,
-                                       device=self._device, **vkw)
+        validator_cls = {"segment": SegmentationValidator, "pose": PoseValidator}.get(task, DetectionValidator)
+        validator = validator_cls(model, self.spec, names=d.get("names"), single_cls=single_cls, device=self._device,
+                                  **vkw)
         self.metrics = validator(None, val_batches(loader, self._device), im_files=ds.img_files)
         return self.metrics
 
@@ -295,7 +337,8 @@ class YOLO:
 
         meta = {"args": {"model": self.model_path if Path(self.model_path).suffix == ".yaml" else
                          (self.ckpt_meta or {}).get("args", {}).get("model", "yolo11n.yaml")},
-                "epoch": -1, "fitness": 0.0, "names": [str(n) for n in self.spec.names]}
+                "epoch": -1, "fitness": 0.0, "names": [str(n) for n in self.spec.names], "task": self.task,
+                "kpt_shape": list(self.spec.kpt_shape)}
         save_checkpoint(path, init_train_state(self.model), jax_paths(self.model), meta)
         return path
 

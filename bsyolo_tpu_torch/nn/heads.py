@@ -1,8 +1,13 @@
-"""Detect head (counterpart of ``bsyolo_tpu/nn/heads.py``).
+"""Task heads (counterpart of ``bsyolo_tpu/nn/heads.py``): Detect, Segment, Pose.
 
 ``Detect`` returns raw per-level maps (B, 4 * reg_max + nc, H, W), box
-channels first in the side-major DFL layout. Decoding is a separate pure
-function, as in the JAX package, so the predictor can fuse decode and NMS.
+channels first in the side-major DFL layout. ``Segment`` and ``Pose`` are
+Detect with extra per-anchor channels after the class logits: 32 (``nm``)
+mask coefficients, or ``nkpt * ndim`` raw keypoint values; ``Segment`` also
+returns the mask prototypes of ``Proto``. They inherit Detect, so their box
+and class branches carry the reference torch names (``model.23.cv2.0.0``).
+Decoding is a separate pure function, as in the JAX package, so the
+predictor can fuse decode and NMS.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import torch.nn as nn
 
 from bsyolo_tpu_torch.kernels.decode import decode_xywh
 from bsyolo_tpu_torch.nn.modules import Conv, Conv2d, DWConv
+from bsyolo_tpu_torch.ops.anchors import make_anchors
 
 
 class Detect(nn.Module):
@@ -48,6 +54,85 @@ class Detect(nn.Module):
 
     def forward(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         return [torch.cat([self.cv2[i](x), self.cv3[i](x)], 1) for i, x in enumerate(feats)]
+
+
+class Proto(nn.Module):
+    """Mask prototypes: Conv 3x3, a 2x2 stride-2 transposed convolution with bias (2x
+    upsample), Conv 3x3, Conv 1x1 to ``c2`` prototypes (reference ``Proto``)."""
+
+    def __init__(self, c1: int, c_: int = 256, c2: int = 32):
+        super().__init__()
+        self.cv1 = Conv(c1, c_, 3)
+        self.upsample = nn.ConvTranspose2d(c_, c_, 2, 2, 0, bias=True)
+        self.cv2 = Conv(c_, c_, 3)
+        self.cv3 = Conv(c_, c2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv3(self.cv2(self.upsample(self.cv1(x))))
+
+
+def _extra_branch(ch: Tuple[int, ...], c4: int, n: int) -> nn.ModuleList:
+    return nn.ModuleList(nn.Sequential(Conv(x, c4, 3), Conv(c4, c4, 3), Conv2d(c4, n, 1)) for x in ch)
+
+
+class Segment(Detect):
+    """Detect + ``nm`` mask coefficients per anchor + ``Proto`` on the first level. Returns
+    ``{"feats": levels (B, 4 * reg_max + nc + nm, H, W), "proto": (B, nm, 2 H0, 2 W0)}``."""
+
+    def __init__(self, nc: int, nm: int, npr: int, ch: Tuple[int, ...], strides: Tuple[int, ...], reg_max: int = 16):
+        super().__init__(nc, ch, strides, reg_max)
+        self.nm, self.npr = nm, npr
+        self.proto = Proto(ch[0], npr, nm)
+        self.cv4 = _extra_branch(ch, max(ch[0] // 4, nm), nm)
+
+    def forward(self, feats: Sequence[torch.Tensor]):
+        proto = self.proto(feats[0])
+        det = super().forward(feats)
+        return {"feats": [torch.cat([d, self.cv4[i](x)], 1) for i, (d, x) in enumerate(zip(det, feats))],
+                "proto": proto}
+
+
+class Pose(Detect):
+    """Detect + ``nkpt * ndim`` raw keypoint values per anchor; levels (B, 4 * reg_max + nc + nk, H, W)."""
+
+    def __init__(self, nc: int, kpt_shape: Tuple[int, int], ch: Tuple[int, ...], strides: Tuple[int, ...],
+                 reg_max: int = 16):
+        super().__init__(nc, ch, strides, reg_max)
+        self.kpt_shape = tuple(kpt_shape)
+        nk = self.kpt_shape[0] * self.kpt_shape[1]
+        self.cv4 = _extra_branch(ch, max(ch[0] // 4, nk), nk)
+
+    def forward(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        det = super().forward(feats)
+        return [torch.cat([d, self.cv4[i](x)], 1) for i, (d, x) in enumerate(zip(det, feats))]
+
+
+def decode_extras(feats: Sequence[torch.Tensor], nc: int, reg_max: int = 16) -> torch.Tensor:
+    """The per-anchor channels past ``4 * reg_max + nc`` (mask coefficients, raw keypoints) of
+    per-level (B, no, H, W) maps -> (B, A, no - 4 * reg_max - nc), anchors level-major."""
+    base = 4 * reg_max + nc
+    b = feats[0].shape[0]
+    return torch.cat([f[:, base:].reshape(b, f.shape[1] - base, -1) for f in feats], 2).transpose(1, 2)
+
+
+def gather_anchors(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(B, A, ...) per-anchor values -> (B, max_det, ...) those of each row's source anchor ``idx``
+    (``detect_postprocess(return_idx=True)``), zeros on the padding rows (idx -1)."""
+    shape = (*idx.shape, *[1] * (values.ndim - 2))
+    rows = values.gather(1, idx.clamp(min=0).reshape(shape).expand(*idx.shape, *values.shape[2:]))
+    return rows * (idx >= 0).reshape(shape)
+
+
+def decode_keypoints(kpts_flat: torch.Tensor, feats: Sequence[torch.Tensor], strides: Sequence[int],
+                     kpt_shape: Tuple[int, int] = (17, 3)) -> torch.Tensor:
+    """(B, A, nk) raw keypoints -> (B, A, nkpt, ndim) float32: x, y in pixels
+    (``(raw * 2 + anchor - 0.5) * stride``), visibility through a sigmoid."""
+    anchors, stride_t = make_anchors([f.shape[2:] for f in feats], strides, 0.5, device=kpts_flat.device)
+    b, a, _ = kpts_flat.shape
+    nkpt, ndim = kpt_shape
+    k = kpts_flat.reshape(b, a, nkpt, ndim).float()
+    xy = (k[..., :2] * 2.0 + (anchors[None, :, None, :] - 0.5)) * stride_t[None, :, None, :]
+    return torch.cat([xy, torch.sigmoid(k[..., 2:3])], -1) if ndim == 3 else xy
 
 
 def decode_detections(feats: Sequence[torch.Tensor], strides: Sequence[int], nc: int, reg_max: int = 16) -> torch.Tensor:

@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 
 from bsyolo_tpu_torch.nn import modules as M
-from bsyolo_tpu_torch.nn.heads import Detect
+from bsyolo_tpu_torch.nn.heads import Detect, Pose, Segment
 from bsyolo_tpu_torch.nn.parser import LayerSpec, ModelSpec
 
 
@@ -55,11 +55,16 @@ def _build_layer(spec: LayerSpec, strides) -> nn.Module:
         return M.Concat(opt(0, 1))
     if m == "Detect":
         return Detect(a[0], a[1], strides)
+    if m == "Segment":
+        return Segment(a[0], a[1], a[2], a[3], strides)
+    if m == "Pose":
+        return Pose(a[0], a[1], a[2], strides)
     raise NotImplementedError(f"module {m} has no layer constructor in DetectionGraph")
 
 
 class DetectionGraph(nn.Module):
-    """Executes a ModelSpec; the output is the head's list of raw per-level maps."""
+    """Executes a ModelSpec; the output is the head's: a list of raw per-level maps (Detect,
+    Pose), or ``{"feats": levels, "proto": prototypes}`` (Segment)."""
 
     def __init__(self, spec: ModelSpec):
         super().__init__()
@@ -97,6 +102,15 @@ class DetectionGraph(nn.Module):
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
+def refuse_task_head(model: nn.Module, what: str) -> None:
+    """Raise NotImplementedError for ``what`` (the bf16 graph, int8 inference, tiled predict) on a
+    graph with a Segment or Pose head: those modes are ported for the Detect graph only."""
+    for m in model.modules():
+        if isinstance(m, (Segment, Pose)):
+            raise NotImplementedError(f"{what} on a {type(m).__name__} graph is not ported yet (ROADMAP queue 1, "
+                                      "item 12)")
+
+
 def build_model(spec: ModelSpec, device, seed: int = 0, dtype: torch.dtype = torch.float32) -> DetectionGraph:
     """Build the graph with weights drawn from a seeded ``torch.Generator`` on the
     host, then move it to ``device`` in eval mode: the same seed gives the same
@@ -116,6 +130,8 @@ def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     the Detect head's levels come out in ``dtype``. Returns ``model``."""
     if dtype not in COMPUTE_DTYPES:
         raise TypeError(f"compute dtype must be float32 or bfloat16, got {dtype}")
+    if dtype != torch.float32:
+        refuse_task_head(model, "the bf16 graph (half, amp)")
     for m in M.cast_convs(model):
         m.compute_dtype = None if dtype == torch.float32 else dtype  # float32: the weights' own dtype, no cast
     return model
@@ -135,6 +151,7 @@ def cast_inference_graph(model: nn.Module, dtype: torch.dtype = torch.bfloat16) 
     weights stay float32, so the copy sees later updates of them; a change of the
     convolution weights needs a new copy. The int8 mode and its scales are copied; hooks
     registered on ``model`` are not."""
+    refuse_task_head(model, "the bf16 graph (half, amp)")
     shared = {id(t): t for t in itertools.chain(model.parameters(), model.buffers())}
     graph = copy.deepcopy(model, shared)
     for m in M.cast_convs(graph):

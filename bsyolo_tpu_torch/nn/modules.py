@@ -51,7 +51,7 @@ def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Draw every conv weight from U(+-1/sqrt(fan_in)) with ``generator``; zero
     conv biases; norms start at identity; ELA's fusion weights at zero."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv1d, nn.Conv2d)):
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d)):
             fan_in = m.weight[0].numel()
             bound = 1.0 / math.sqrt(fan_in)
             with torch.no_grad():
@@ -220,6 +220,10 @@ def set_int8_inference(model: nn.Module, enabled: bool, scales: Optional[dict] =
     missing from it, or every conv when it is empty or None, scales dynamically.
     The mode is read at call time; each call drops the cached weight codes.
     """
+    if enabled:
+        from bsyolo_tpu_torch.nn.model import refuse_task_head  # here: nn.model imports this module
+
+        refuse_task_head(model, "int8 inference")
     for name, m in model.named_modules():
         if isinstance(m, Conv):
             amax = scales.get(scale_key(name)) if scales else None

@@ -4,7 +4,8 @@ Turns a model YAML (backbone/head rows of ``[from, repeats, module, args]``
 with ``scales:`` compound scaling) into a static ``ModelSpec``: channel
 arithmetic, depth/width scaling and stride propagation all happen here. Only
 the modules of the BS-YOLO detection graphs (``cfg/models/11/yolo11.yaml`` and
-``yolo11old.yaml``) are accepted; any other module raises
+``yolo11old.yaml``) and the Segment and Pose heads (``yolo11-seg.yaml``,
+``yolo11-pose.yaml``) are accepted; any other module raises
 ``NotImplementedError`` naming it.
 """
 
@@ -23,6 +24,8 @@ from bsyolo_tpu_torch.cfg import read_yaml
 _CONVLIKE = {"Conv", "DWConv", "Bottleneck", "SPPF", "C2PSA", "C2f", "C3", "C3k2", "C3k2_gai", "SCDown"}
 # modules that take the (depth-scaled) repeat count as args[1]
 _REPEAT = {"C2f", "C3", "C3k2", "C3k2_gai", "C2PSA"}
+# the heads the port builds -> the task they serve
+HEAD_TASKS = {"Detect": "detect", "Segment": "segment", "Pose": "pose"}
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -49,6 +52,8 @@ class ModelSpec:
     nc: int
     scale: str
     names: Tuple[str, ...] = ()
+    task: str = "detect"  # from the head: detect, segment or pose
+    kpt_shape: Tuple[int, int] = (17, 3)  # (keypoints, dims) of a Pose head
 
     @property
     def head(self) -> LayerSpec:
@@ -105,10 +110,12 @@ def parse_model_yaml(d: dict, ch: int = 3, scale: str = "") -> ModelSpec:
         scale = scale or next(iter(scales))
         depth, width, max_channels = scales[scale]
 
+    kpt_shape = tuple(d.get("kpt_shape", (17, 3)))
     legacy = True
     channels, strides = [ch], [1]
     layers, save = [], set()
-    names = {"nc": nc}
+    names = {"nc": nc, "kpt_shape": list(kpt_shape)}
+    task = "detect"
     for i, (f, n, m, args) in enumerate(list(d["backbone"]) + list(d["head"])):
         m = m.replace("nn.", "")
         args = [_literal(a, names) for a in args]
@@ -141,10 +148,16 @@ def parse_model_yaml(d: dict, ch: int = 3, scale: str = "") -> ModelSpec:
             out_stride = in_stride // int(args[1] if len(args) > 1 else 2)
         elif m == "Concat":
             c2 = sum(channels[x] if x != -1 else channels[-1] for x in fl)
-        elif m == "Detect":
+        elif m in HEAD_TASKS:
             if legacy:
-                raise NotImplementedError("legacy Detect (graphs without C3k2) is not ported")
+                raise NotImplementedError(f"legacy {m} (graphs without C3k2) is not ported")
+            if m == "Segment":  # [nc, nm, npr]: the prototype width is width-scaled
+                args = [args[0], args[1], make_divisible(min(args[2], max_channels) * width, 8)]
+            elif m == "Pose":
+                kpt_shape = tuple(args[1])
+                args = [args[0], kpt_shape]
             args = [*args, tuple(channels[x] for x in fl)]
+            task = HEAD_TASKS[m]
             c2 = 0
             out_stride = 0
         else:
@@ -157,8 +170,9 @@ def parse_model_yaml(d: dict, ch: int = 3, scale: str = "") -> ModelSpec:
         channels.append(c2)
         strides.append(out_stride)
 
-    if layers[-1].module != "Detect":
-        raise NotImplementedError(f"graph head {layers[-1].module!r}: the port serves Detect graphs only")
+    if layers[-1].module not in HEAD_TASKS:
+        raise NotImplementedError(f"graph head {layers[-1].module!r}: the port serves Detect, Segment and Pose graphs "
+                                  "only (OBB and Classify: ROADMAP queue 1, item 12)")
     names_map = d.get("names") or {}
     class_names = tuple(names_map[k] for k in sorted(names_map)) if names_map else tuple(str(j) for j in range(nc))
     return ModelSpec(
@@ -167,4 +181,6 @@ def parse_model_yaml(d: dict, ch: int = 3, scale: str = "") -> ModelSpec:
         nc=nc,
         scale=scale,
         names=class_names,
+        task=task,
+        kpt_shape=kpt_shape,
     )

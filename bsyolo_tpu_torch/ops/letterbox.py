@@ -1,11 +1,11 @@
 """Letterbox resize and pad (counterpart of ``bsyolo_tpu/ops/letterbox.py``).
 
 ``letterbox_params`` is the reference arithmetic, round-0.1 pad split
-included. ``letterbox`` runs the resize on the chosen device with PyTorch's
-bilinear interpolation (``align_corners=False``, no antialias) instead of
-OpenCV's fixed-point INTER_LINEAR, so a resized frame may differ from the
-OpenCV letterbox by a few grey levels; a frame that needs no resize is
-copied exactly.
+included. ``letterbox`` runs on the chosen device: a uint8 frame is resized
+with ``ops/resize.py resize_linear_u8``, OpenCV's fixed-point INTER_LINEAR,
+so it comes out byte-equal to the JAX predictor's OpenCV letterbox and to the
+port's own training loader (``letterbox_image``); a float32 frame is resized
+with PyTorch's bilinear interpolation, without rounding.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ from typing import Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from bsyolo_tpu_torch.ops.resize import resize_linear_u8
 
 
 def letterbox_params(
@@ -48,8 +50,8 @@ def letterbox(frame, new_shape: Tuple[int, int], device, pad_value: int = 114) -
     """(h, w, 3) BGR frame -> (3, H, W) RGB letterboxed tensor on ``device``.
 
     The frame is a numpy array or a host tensor; a tensor in pinned memory is
-    copied to the card asynchronously. A uint8 frame gives a uint8 tensor (the
-    resize rounds and clamps). A float32 frame, on the same 0-255 scale, gives a
+    copied to the card asynchronously. A uint8 frame gives a uint8 tensor, resized as
+    ``cv2.resize`` INTER_LINEAR resizes it. A float32 frame, on the same 0-255 scale, gives a
     float32 tensor, resized without rounding: the JAX predictor letterboxes such
     frames as they are and divides them by 255 afterwards, as the port's
     forward does with either dtype.
@@ -62,10 +64,11 @@ def letterbox(frame, new_shape: Tuple[int, int], device, pad_value: int = 114) -
     _, (dw, dh), new_unpad = letterbox_params(shape, new_shape)
     im = frame.to(device, non_blocking=True).permute(2, 0, 1)
     if shape[::-1] != new_unpad:
-        x = F.interpolate(
-            im[None].float(), size=(new_unpad[1], new_unpad[0]), mode="bilinear", align_corners=False, antialias=False
-        )
-        im = x[0] if im.dtype == torch.float32 else x[0].round_().clamp_(0, 255).to(torch.uint8)
+        if im.dtype == torch.uint8:
+            im = resize_linear_u8(im, (new_unpad[1], new_unpad[0]))
+        else:
+            im = F.interpolate(im[None], size=(new_unpad[1], new_unpad[0]), mode="bilinear", align_corners=False,
+                               antialias=False)[0]
     top, bottom = int(round(dh - 0.1)), int(round(dh + 0.1))
     left, right = int(round(dw - 0.1)), int(round(dw + 0.1))
     im = F.pad(im, (left, right, top, bottom), value=pad_value)

@@ -1,12 +1,13 @@
-"""COCO-format detection results and their evaluation (counterpart of the detect part of
-``bsyolo_tpu/utils/coco.py``).
+"""COCO-format results and their evaluation (counterpart of the detect, segment and pose parts
+of ``bsyolo_tpu/utils/coco.py``).
 
-``pred_to_json`` and ``save_predictions_json`` write the standard COCO
-results format; ``evaluate_json`` scores a predictions file against an
+``pred_to_json``, ``seg_pred_to_json`` (masks as compressed RLE,
+``encode_rle``/``decode_rle``, no pycocotools), ``pose_pred_to_json`` and
+``save_predictions_json`` write the standard COCO results format; ``evaluate_json`` scores a predictions file against an
 annotation file with a self-contained evaluator built on
 ``utils/metrics.py`` (per-image greedy matching at IoU 0.50:0.95, 101-point
 AP). It never calls pycocotools, which the JAX package prefers where it is
-installed. The segment, pose and OBB serializers are ROADMAP queue 1, item 12.
+installed, and scores boxes only. The OBB serializer is ROADMAP queue 1, item 12.
 """
 
 from __future__ import annotations
@@ -45,6 +46,90 @@ def pred_to_json(dets: np.ndarray, filename: str, class_map: Optional[List[int]]
             "bbox": [round(x1, 3), round(y1, 3), round(x2 - x1, 3), round(y2 - y1, 3)],
             "score": round(float(conf), 5),
         })
+    return out
+
+
+def encode_rle(mask: np.ndarray) -> Dict:
+    """Binary (H, W) mask -> COCO compressed RLE, the bytes ``pycocotools.mask.encode`` gives:
+    column-major run lengths starting with the zero run, each from the third on coded as its
+    difference to the one two before, packed 5 bits per character (offset 48, 0x20 marks that
+    more follow)."""
+    h, w = mask.shape
+    pixels = np.asarray(mask, np.uint8).flatten(order="F")
+    change = np.flatnonzero(pixels[1:] != pixels[:-1]) + 1
+    counts = np.diff(np.concatenate([[0], change, [pixels.size]])).tolist()
+    if pixels.size and pixels[0] == 1:
+        counts = [0] + counts  # the counts start with a run of zeros
+    if not pixels.size:
+        counts = [0]
+    s = []
+    for i, c in enumerate(counts):
+        x = int(c) - (int(counts[i - 2]) if i > 2 else 0)
+        more = True
+        while more:
+            ch = x & 0x1F
+            x >>= 5  # arithmetic, as C's signed shift
+            more = (x != -1) if (ch & 0x10) else (x != 0)
+            if more:
+                ch |= 0x20
+            s.append(chr(ch + 48))
+    return {"size": [int(h), int(w)], "counts": "".join(s)}
+
+
+def decode_rle(rle: Dict) -> np.ndarray:
+    """COCO compressed RLE -> binary (H, W) uint8 mask."""
+    h, w = rle["size"]
+    s = rle["counts"]
+    if isinstance(s, bytes):
+        s = s.decode("ascii")
+    counts: List[int] = []
+    p = 0
+    while p < len(s):
+        x = k = 0
+        more = True
+        while more:
+            c = ord(s[p]) - 48
+            x |= (c & 0x1F) << (5 * k)
+            more = bool(c & 0x20)
+            p += 1
+            k += 1
+            if not more and (c & 0x10):
+                x |= -1 << (5 * k)
+        if len(counts) > 2:
+            x += counts[-2]
+        counts.append(x)
+    vals = np.zeros(sum(counts), np.uint8)
+    pos, v = 0, 0
+    for c in counts:
+        vals[pos : pos + c] = v
+        pos += c
+        v = 1 - v
+    return vals.reshape((w, h)).T  # column-major
+
+
+def seg_pred_to_json(dets: np.ndarray, masks: np.ndarray, filename: str,
+                     class_map: Optional[List[int]] = None) -> List[Dict]:
+    """(n, 6) rows and (n, H0, W0) binary masks of one image, in its original pixels -> COCO
+    segmentation results (``pred_to_json``'s dicts with the mask as compressed RLE)."""
+    out = pred_to_json(dets, filename, class_map=class_map)
+    kept = [i for i, d in enumerate(np.asarray(dets, np.float64)) if d[4] > 0]
+    for rec, i in zip(out, kept):
+        rec["segmentation"] = encode_rle(np.asarray(masks[i]) > 0.5)
+    return out
+
+
+def pose_pred_to_json(dets: np.ndarray, kpts: np.ndarray, filename: str,
+                      class_map: Optional[List[int]] = None) -> List[Dict]:
+    """(n, 6) rows and (n, K, 2 or 3) keypoints of one image, in its original pixels -> COCO keypoint
+    results (``pred_to_json``'s dicts with ``keypoints`` x, y, v to 3 decimals; v is 2 where the
+    keypoints carry none)."""
+    out = pred_to_json(dets, filename, class_map=class_map)
+    kept = [i for i, d in enumerate(np.asarray(dets, np.float64)) if d[4] > 0]
+    for rec, i in zip(out, kept):
+        k = np.asarray(kpts[i], np.float64)
+        if k.shape[-1] == 2:
+            k = np.concatenate([k, np.full((*k.shape[:-1], 1), 2.0)], axis=-1)
+        rec["keypoints"] = [round(float(v), 3) for v in k.reshape(-1)]
     return out
 
 

@@ -280,6 +280,16 @@ class ConfusionMatrix:
                 self.matrix[dc, self.nc] += 1  # background FP
 
 
+def kpt_iou_np(kpt1: np.ndarray, kpt2: np.ndarray, area: np.ndarray, sigma, eps: float = 1e-7) -> np.ndarray:
+    """Object keypoint similarity: ground truths (N, K, 3), predictions (M, K, 2 or 3), gt areas
+    (N,), per-keypoint sigmas (K,) -> (N, M), over the keypoints labelled in the ground truth."""
+    d = (kpt1[:, None, :, 0] - kpt2[None, :, :, 0]) ** 2 + (kpt1[:, None, :, 1] - kpt2[None, :, :, 1]) ** 2
+    sigma = np.asarray(sigma, np.float32)
+    kpt_mask = kpt1[..., 2] != 0  # (N, K)
+    e = d / ((2 * sigma) ** 2 * (area[:, None, None] + eps) * 2)
+    return (np.exp(-e) * kpt_mask[:, None]).sum(-1) / (kpt_mask.sum(-1)[:, None] + eps)
+
+
 def _box_iou_np(box1: np.ndarray, box2: np.ndarray, eps: float = 1e-7) -> np.ndarray:
     """(N,4) x (M,4) xyxy -> (N,M) plain IoU, host-side."""
     a1, a2 = box1[:, None, :2], box1[:, None, 2:]

@@ -4,7 +4,8 @@ The port's modules carry the reference torch parameter names, so JAX
 variables map onto them one to one through ``flax_path_to_torch_key``:
 ``m{i}`` -> ``model.{i}``, ``m_{j}`` -> ``m.{j}``, ``cv2_{i}_{j}`` ->
 ``cv2.{i}.{j}``, with the exceptions the BS-YOLO graph needs: DWConv's ``dw``
-wrapper level is dropped, MSCA's SE convs are ``SEn.conv.0``, ELA's channel
+wrapper level and the Segment and Pose heads' nested ``detect`` level (the
+port's heads inherit Detect, as the reference's do) are dropped, MSCA's SE convs are ``SEn.conv.0``, ELA's channel
 conv is ``ch_att.2``, ``conv0_1``-style strip-conv names stay whole, and ELA's
 fusion weights are bare parameters.
 """
@@ -23,7 +24,7 @@ from bsyolo_tpu_torch.utils import LOGGER
 
 def _translate_component(comp: str) -> Tuple[str, ...]:
     """One flax path component -> zero or more torch components."""
-    if comp == "dw":
+    if comp in ("dw", "detect"):
         return ()
     m = re.match(r"^m(\d+)$", comp)
     if m:
@@ -67,8 +68,8 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
 def _to_torch_layout(a: np.ndarray, leaf: str) -> np.ndarray:
     if leaf != "kernel":
         return a
-    if a.ndim == 4:  # flax Conv2d (kH, kW, in/g, out) -> torch (out, in/g, kH, kW)
-        return a.transpose(3, 2, 0, 1)
+    if a.ndim == 4:  # flax Conv2d (kH, kW, in/g, out) -> torch (out, in/g, kH, kW); the same permutation
+        return a.transpose(3, 2, 0, 1)  # takes a transpose_kernel ConvTranspose's (kH, kW, out, in) to (in, out, kH, kW)
     if a.ndim == 3:  # flax Conv1d (k, in/g, out) -> torch (out, in/g, k)
         return a.transpose(2, 1, 0)
     if a.ndim == 2:  # Dense (in, out) -> Linear (out, in)
@@ -224,8 +225,9 @@ def jax_paths(model: torch.nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...]]]:
     statistics: torch key -> (collection, flax path), from the port's own module types, so no
     JAX state is needed. Consecutive list indices join their list's name (``cv2.1.0`` ->
     ``cv2_1_0``), ``model.{i}`` is ``m{i}``, DWConv gets its ``dw`` level back, an _SE's
-    ``conv.0`` is the SE level itself, ELA's ``ch_att.2`` is ``ch_conv``; a norm's weight is
-    ``scale``, a conv's or linear's ``kernel``."""
+    ``conv.0`` is the SE level itself, ELA's ``ch_att.2`` is ``ch_conv``, a Segment or Pose
+    head's box and class branches (``cv2``, ``cv3``) sit under its ``detect`` level; a norm's
+    weight is ``scale``, a conv's or linear's ``kernel``."""
     mods = dict(model.named_modules())
     out = {}
     names = [n for n, _ in model.named_parameters()] + [n for n, _ in model.named_buffers()
@@ -250,6 +252,8 @@ def jax_paths(model: torch.nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...]]]:
                 continue
             if i == 0 and c == "model":
                 path.append("m" + parents[1])
+            elif c in ("cv2", "cv3") and type(owner).__name__ in ("Segment", "Pose"):
+                path += ["detect", "_".join(parents[i:j])]
             else:
                 path.append("_".join(parents[i:j]))
             if type(mods[".".join(parents[:j])]).__name__ == "DWConv":
@@ -259,7 +263,8 @@ def jax_paths(model: torch.nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...]]]:
         collection = "batch_stats" if leaf in ("running_mean", "running_var") else "params"
         if isinstance(module, _NORMS) and leaf == "weight":
             name = "scale"
-        elif isinstance(module, (torch.nn.Conv1d, torch.nn.Conv2d, torch.nn.Linear)) or leaf != "weight":
+        elif isinstance(module, (torch.nn.Conv1d, torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Linear)) \
+                or leaf != "weight":
             name = _LEAF_FROM_TORCH.get(leaf, leaf)
         else:
             name = leaf

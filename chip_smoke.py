@@ -43,7 +43,13 @@ this checkout; exits non-zero without them. Phases, each of which fails the run 
    laid out as the conv path lays them out, so the wrapper copies nothing);
    the same 74 products through the kernel's bf16 epilogue beside
    ``torch._int_mm`` with a dequantization to bf16, and their bound with
-   bf16 output.
+   bf16 output. Phase 2 also holds the box decode kernel on the heads of
+   real forwards of yolo11n-seg (nc 80, 32 mask coefficients: 176 channels
+   per anchor) and yolo11n-pose (nc 1, 17 x 3 keypoints: 116), where it
+   must step over the channels past the class logits; phase 3 also times
+   plain predict at batch 4 with the predictor's letterbox (OpenCV's integer
+   INTER_LINEAR) and the earlier bilinear one in turns, and holds the
+   letterbox on the card byte-equal to the CPU's.
 
 7. the train step at the same width (``make_train_step``, SGD, lr0 0.01, nbs
    64, the default warmup), on seeded synthetic batches in the padded-label
@@ -140,8 +146,24 @@ this checkout; exits non-zero without them. Phases, each of which fails the run 
    in turns, with img/s and the share of the wall time spent waiting on the
    reader; ``embed`` against the CPU's.
 
+13. the Segment and Pose task heads at full width: yolo11n-seg (nc 80) and
+   yolo11n-pose (nc 1, 17 x 3 keypoints, COCO's flip_idx), each on a seeded
+   JPEG dataset (32 train and 8 val 480x640 frames written by the port's
+   encoder: filled polygons, or boxes with 17 keypoints): (a) one train step
+   at batch 2 from the same drawn weights and loader batch, card against
+   CPU, the loss items held within 1e-3; (b) ``YOLO.train`` 2 epochs at
+   batch 8 with 2 workers, ``YOLO(best.ckpt)`` rebuilding the task's head,
+   ``val`` and ``predict`` (segment with and without ``retina_masks``): the
+   box decode kernel once per validation and predict batch and its plain
+   version never; ms per step, loader-wait share, peak memory; (c) predict
+   at conf 0.25 on drawn weights: head maps and prototypes against the
+   CPU's, rows against the CPU's predictor run on the card's head maps
+   (paired at least 0.98), the paired rows' masks (mean IoU at least 0.99)
+   or keypoints (within 0.05 px), the CPU's own graph paired and printed;
+   ms per batch of 4 and ``process_mask``'s device time.
+
 Phases 10a to 10c run right after phase 6, on the float graph phases 3 to 6
-used; 10d and 10e after phase 9, 11 and 12 last. Each phase prints its seconds. Every launch counter is set to 0 just before a path is driven and read just
+used; 10d and 10e after phase 9, 11, 12 and 13 last. Each phase prints its seconds. Every launch counter is set to 0 just before a path is driven and read just
 after, so each path shows the kernels it went through.
 
 TF32 is off for convolutions and matrix products throughout, so the card and
@@ -151,7 +173,9 @@ convolutions in TF32). The last two lines are the kernels JSON and
 launches on phase 10's bf16 paths (``bf16_launches``), on phase 11's
 product path (``product_launches``) and on phase 12's photos
 (``photo_launches``) among all its launches, and
-``int8_matmul`` its bf16 epilogue's figures (``bf16_out``).
+``int8_matmul`` its bf16 epilogue's figures (``bf16_out``); each also carries
+its launches on phase 13's task paths (``task_launches``), and
+``decode_box_best`` phase 2's task-head figures (``task_heads``).
 """
 
 from __future__ import annotations
@@ -858,7 +882,70 @@ def predict_path(dev, host, model, frames):
     cpu_res = [r.boxes.data for r in host.predict(frames, imgsz=IMGSZ, batch=4, conf=CONF)]
     for batch, dets in runs.items():
         compare_with_cpu(f"predict batch {batch}", dets, cpu_res)
+    letterbox_in_turns(dev, model, frames)
     return launches
+
+
+def interpolate_letterbox(frame, new_shape, device, pad_value: int = 114):
+    """The predictor's letterbox as it was before it resized uint8 frames as OpenCV does: PyTorch's
+    bilinear interpolation, rounded and clamped (within a grey level of OpenCV's); kept to time the two."""
+    import torch
+    import torch.nn.functional as F
+
+    from bsyolo_tpu_torch.ops.letterbox import letterbox_params
+
+    frame = torch.from_numpy(np.ascontiguousarray(frame)) if isinstance(frame, np.ndarray) else frame
+    shape = tuple(frame.shape[:2])
+    _, (dw, dh), new_unpad = letterbox_params(shape, new_shape)
+    im = frame.to(device, non_blocking=True).permute(2, 0, 1)
+    if shape[::-1] != new_unpad:
+        x = F.interpolate(im[None].float(), size=(new_unpad[1], new_unpad[0]), mode="bilinear", align_corners=False)
+        im = x[0].round_().clamp_(0, 255).to(torch.uint8)
+    top, bottom = int(round(dh - 0.1)), int(round(dh + 0.1))
+    left, right = int(round(dw - 0.1)), int(round(dw + 0.1))
+    return F.pad(im, (left, right, top, bottom), value=pad_value).flip(0)
+
+
+def letterbox_in_turns(dev, model, frames, turns: int = 4):
+    """Phase 3's plain predict at batch 4 with the predictor's letterbox (OpenCV's integer INTER_LINEAR,
+    ``ops/resize.py``) and with the earlier PyTorch bilinear one, in turns, on the host clock; and each
+    letterbox alone over the 8 frames (synchronised)."""
+    import torch
+
+    from bsyolo_tpu_torch.engine import predictor as predictor_module
+    from bsyolo_tpu_torch.ops.letterbox import letterbox
+
+    fns = {"integer (OpenCV's)": letterbox, "interpolate (before)": interpolate_letterbox}
+    for fn in fns.values():  # warm-up: the first call of each resize's kernels
+        predictor_module.letterbox = fn
+        model.predict(frames[:4], imgsz=IMGSZ, batch=4, conf=CONF)
+    predictor_module.letterbox = letterbox
+    times = {k: [] for k in fns}
+    alone = {k: [] for k in fns}
+    try:
+        for t in range(turns):
+            for name, fn in (fns.items() if t % 2 == 0 else reversed(fns.items())):
+                predictor_module.letterbox = fn
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.predict(frames, imgsz=IMGSZ, batch=4, conf=CONF)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3 / math.ceil(len(frames) / 4))
+                t0 = time.perf_counter()
+                for f in frames:
+                    fn(f, (IMGSZ, IMGSZ), dev)
+                torch.cuda.synchronize()
+                alone[name].append((time.perf_counter() - t0) * 1e3 / len(frames))
+    finally:
+        predictor_module.letterbox = letterbox
+    same = [torch.equal(letterbox(f, (IMGSZ, IMGSZ), dev).cpu(), letterbox(f, (IMGSZ, IMGSZ), "cpu")) for f in frames]
+    for name in fns:
+        print(f"predict batch 4 with the {name} letterbox, in turns: ms per batch {[round(v, 2) for v in times[name]]} "
+              f"(host clock); the letterbox alone, ms per frame {[round(v, 3) for v in alone[name]]}")
+    print(f"the letterbox on the card equals the CPU's, byte for byte, on {sum(same)} of {len(same)} frames")
+    if not all(same):
+        raise SystemExit("the predictor's letterbox on the card differs from the CPU's")
+    return {k: float(np.median(v)) for k, v in times.items()}
 
 
 def tta_path(host, model, frames):
@@ -2700,14 +2787,361 @@ def photo_path(dev):
     return {k: trained[k] + predicted[k] for k in trained}
 
 
+# phase 13: the Segment and Pose task heads (yolo11n-seg at nc 80, yolo11n-pose at nc 1 with 17 x 3 keypoints)
+P13_TRAIN, P13_VAL, P13_HW = 32, 8, (480, 640)
+P13_BATCH, P13_WORKERS, P13_STEP_BATCH = 8, 2, 2
+# card vs CPU predict. The task graphs with draw_weights give logits packed within 1e-5 of each other (on the
+# CPU, yolo11n-seg's 361 best candidates of a frame, one class on the stride-32 level, span 4.020 to 4.073, with
+# duplicates): which of them NMS keeps is decided by float rounding, and cuDNN's rounds otherwise than the CPU's
+# (0.942 and 0.908 of the rows paired, conf 0.25 and 0.98, NVIDIA H100 80GB HBM3, 700 W; the matched rows within
+# 1.5e-4 px). So the graph is held on its head maps (as phase 3 holds them), and the path after it (the decode
+# kernel, NMS, the masks and keypoints) on the card's own head maps replayed through the CPU's predictor; the
+# rows of the CPU's own graph are paired and printed beside it.
+P13_HEAD_RTOL = 1e-4  # head maps and prototypes, card vs CPU, of their largest magnitude (phase 3's gate)
+P13_CONF = 0.25  # a served threshold
+P13_MASK_IOU = 0.99  # mean mask IoU of the paired rows, card vs CPU
+P13_KPT_PX = 0.05  # keypoints of the paired rows, card vs CPU
+P13_LOSS_RTOL = 1e-3  # one train step's loss items, card vs CPU (the mask and keypoint terms sum more terms)
+TASKS = (("segment", "yolo11n-seg.yaml", 80), ("pose", "yolo11n-pose.yaml", 1))
+COCO_FLIP_IDX = [0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15]
+
+
+def task_graph(yaml: str, nc: int, dev, seed: int):
+    """The task graph at full width with ``nc`` classes on ``dev``, weights from ``draw_weights``."""
+    from bsyolo_tpu_torch.cfg import model_yaml_path
+    from bsyolo_tpu_torch.nn.model import build_model
+    from bsyolo_tpu_torch.nn.parser import load_model_yaml, parse_model_yaml
+
+    d = load_model_yaml(model_yaml_path(yaml))
+    d["nc"] = nc
+    graph = build_model(parse_model_yaml(d, scale=d.get("scale", "")), "cpu")
+    draw_weights(graph, seed)
+    return graph.to(dev)
+
+
+def check_decode_task_heads(dev):
+    """Phase 2: decode_box on the Segment head (64 + 80 + 32 channels) and the Pose head (64 + 1 + 51) of
+    a real forward at 640 px, batch 4, against its plain version; the kernel's time beside its bound."""
+    import torch
+
+    from bsyolo_tpu_torch.kernels.decode import REG_MAX, box_best_cuda, box_best_reference
+
+    x = torch.from_numpy(np.random.default_rng(SEED + 13).integers(0, 256, (4, 3, IMGSZ, IMGSZ), dtype=np.uint8))
+    x = x.to(dev).float() / 255.0
+    rows = {}
+    for task, yaml, nc in TASKS:
+        graph = task_graph(yaml, nc, dev, SEED + 13)
+        with torch.inference_mode():
+            out = graph(x)
+        feats = out["feats"] if task == "segment" else out
+        strides, b, no = graph.spec.head_strides, feats[0].shape[0], feats[0].shape[1]
+        a = sum(f.shape[2] * f.shape[3] for f in feats)
+        boxes, best, cls = box_best_cuda(feats, strides, nc)
+        want_boxes, want_best, want_cls = box_best_reference(feats, strides, nc)
+        torch.cuda.synchronize()
+        err = (boxes - want_boxes).abs().max().item()
+        best_err = (best - want_best).abs().max().item()
+        cls_equal = torch.equal(cls, want_cls)
+        ok = bool(torch.isfinite(boxes).all()) and err <= BOX_ATOL_PX and best_err == 0.0 and cls_equal
+        print(f"decode_box_best on the {task} head of a real forward: B={b} A={a} nc={nc}, {no} channels per "
+              f"anchor ({no - 4 * REG_MAX - nc} past the class logits): max|box err| {err:.3g} px (tol "
+              f"{BOX_ATOL_PX}), max|best err| {best_err:.3g} (tol 0), class logits equal {cls_equal}; "
+              f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"decode_box_best disagrees with its plain version on the {task} head")
+        bytes_moved = b * a * (4 * REG_MAX + nc) * 4 + b * a * (4 + 1 + nc) * 4  # the channels it reads, its outputs
+        ops = b * a * (4 * (6 * REG_MAX + 1) + nc + 8)
+        rows[task] = dict(channels=no, max_abs_err=err, **time_against_plain(
+            f"{task} head B4 640", box_best_cuda, box_best_reference, (feats, strides, nc), bytes_moved, ops))
+        del graph, out, feats
+        torch.cuda.empty_cache()
+    return rows
+
+
+def write_task_jpeg_dataset(root, task: str, nc: int, seed: int):
+    """P13_TRAIN + P13_VAL seeded 480x640 JPEG frames (the port's encoder, quality 95), 1 to 4 instances
+    each: filled convex polygons of 8 to 16 vertices, one colour per class (segment rows ``cls x1 y1 ...``),
+    or boxes with 17 keypoints inside, each drawn as a dot, about a fifth of them invisible (pose rows
+    ``cls cx cy w h kx ky v ...``); returns the dataset YAML's path."""
+    from bsyolo_tpu_torch.data.cv import fill_poly
+    from bsyolo_tpu_torch.data.imread import imwrite
+
+    rng = np.random.default_rng(seed)
+    colours = rng.integers(40, 256, (nc, 3))
+    h, w = P13_HW
+    for split, n in (("train", P13_TRAIN), ("val", P13_VAL)):
+        (root / "images" / split).mkdir(parents=True)
+        (root / "labels" / split).mkdir(parents=True)
+        for i in range(n):
+            img = rng.integers(0, 40, (h, w, 3), dtype=np.uint8)
+            rows = []
+            for _ in range(int(rng.integers(1, 5))):
+                c = int(rng.integers(0, nc))
+                cx, cy = rng.uniform(0.2, 0.8) * w, rng.uniform(0.2, 0.8) * h
+                rx, ry = rng.uniform(w / 20, w / 6), rng.uniform(h / 20, h / 6)
+                if task == "segment":
+                    ang = np.sort(rng.uniform(0, 2 * np.pi, int(rng.integers(8, 17))))
+                    poly = np.stack([cx + rx * np.cos(ang), cy + ry * np.sin(ang)], -1)
+                    mask = fill_poly(np.zeros((h, w), np.uint8), [np.round(poly).astype(np.int32)], 1)
+                    img[mask > 0] = colours[c]
+                    rows.append(f"{c} " + " ".join(f"{x / w:.6f} {y / h:.6f}" for x, y in poly))
+                else:
+                    x0, y0, x1, y1 = cx - rx, cy - ry, cx + rx, cy + ry
+                    img[int(y0) : int(y1), int(x0) : int(x1)] = colours[c]
+                    k = np.stack([rng.uniform(x0, x1, 17), rng.uniform(y0, y1, 17),
+                                  np.where(rng.uniform(0, 1, 17) < 0.8, 2.0, 0.0)], -1)
+                    for kx, ky, v in k:
+                        if v:
+                            img[int(ky) - 2 : int(ky) + 3, int(kx) - 2 : int(kx) + 3] = 255
+                    rows.append(f"{c} {cx / w:.6f} {cy / h:.6f} {2 * rx / w:.6f} {2 * ry / h:.6f} "
+                                + " ".join(f"{kx / w:.6f} {ky / h:.6f} {v:.0f}" for kx, ky, v in k))
+            imwrite(root / "images" / split / f"{i:04d}.jpg", img)
+            (root / "labels" / split / f"{i:04d}.txt").write_text("\n".join(rows) + "\n")
+    extra = f"kpt_shape: [17, 3]\nflip_idx: {COCO_FLIP_IDX}\n" if task == "pose" else ""
+    yaml = root / "data.yaml"
+    yaml.write_text(f"path: {root}\ntrain: images/train\nval: images/val\n{extra}names:\n"
+                    + "".join(f"  {i}: {'person' if task == 'pose' else f'class{i}'}\n" for i in range(nc)))
+    return yaml
+
+
+def task_step_against_cpu(dev, task, yaml, nc, data):
+    """Phase 13a: one train step at batch 2 from the same drawn weights and loader batch, card against CPU."""
+    import torch
+
+    from bsyolo_tpu_torch.cfg import DEFAULT_CFG_DICT
+    from bsyolo_tpu_torch.data import DataLoader, YOLODataset, load_dataset_yaml
+    from bsyolo_tpu_torch.engine.train_step import init_train_state, make_train_step, task_criterion
+    from bsyolo_tpu_torch.engine.trainer import to_device
+
+    d = load_dataset_yaml(str(data))
+    ds = YOLODataset(d["train"], imgsz=IMGSZ, augment=True, hyp=dict(DEFAULT_CFG_DICT), task=task,
+                     flip_idx=d.get("flip_idx"))
+    batch = next(iter(DataLoader(ds, P13_STEP_BATCH, shuffle=True, seed=3)))
+    host_graph = task_graph(yaml, nc, "cpu", SEED + 14)
+    results = {}
+    for where, graph in (("cpu", host_graph), ("card", copy.deepcopy(host_graph).to(dev))):
+        cfg = train_config(graph.spec, P13_STEP_BATCH)
+        criterion, names = task_criterion(graph.spec)
+        on = torch.device(dev) if where == "card" else torch.device("cpu")
+        t0 = time.perf_counter()
+        state, metrics = make_train_step(graph, cfg, criterion, names)(init_train_state(graph, cfg),
+                                                                         to_device(batch, on))
+        items = np.array([float(metrics[k]) for k in names])
+        results[where] = (items, {n: p.detach().cpu() for n, p in state.params.items()}, time.perf_counter() - t0)
+    (gi, gp, gs), (wi, wp, ws) = results["card"], results["cpu"]
+    rel = np.abs(gi - wi) / np.maximum(np.abs(wi), 1e-30)
+    param = max(_rel_max(gp[n], wp[n]) for n in wp)
+    print(f"phase 13a {task} train step, batch {P13_STEP_BATCH} at {IMGSZ}, card vs CPU: loss items {names} "
+          f"{gi.tolist()} vs {wi.tolist()}, rel diff {rel.tolist()} (tol {P13_LOSS_RTOL}); params after the step, "
+          f"max |diff| over the tensor's max |value| {param:.3g}; card {gs:.2f} s, CPU {ws:.2f} s")
+    if not (np.isfinite(gi).all() and (rel <= P13_LOSS_RTOL).all()):
+        raise SystemExit(f"the {task} train step's loss items on the card differ from the CPU's")
+
+
+def mask_iou(a: np.ndarray, b: np.ndarray) -> float:
+    union = np.logical_or(a > 0.5, b > 0.5).sum()
+    return float(np.logical_and(a > 0.5, b > 0.5).sum() / union) if union else 1.0
+
+
+class Replay:
+    """Stands in for a graph: returns recorded outputs, in order, whatever it is given (and keeps what it
+    was given)."""
+
+    def __init__(self, outputs):
+        self.outputs, self.inputs = list(outputs), []
+
+    def __call__(self, x):
+        self.inputs.append(x)
+        return self.outputs.pop(0)
+
+    def modules(self):
+        return iter(())
+
+
+def _to(out, dev):
+    return {k: _to(v, dev) for k, v in out.items()} if isinstance(out, dict) else (
+        [t.to(dev) for t in out] if isinstance(out, list) else out.to(dev))
+
+
+def _paired_payloads(task, got, want):
+    """(mean mask IoU, min) or (max |keypoint xy diff|, max |visibility diff|) over the rows match_pairs pairs."""
+    ious, kpt, vis = [], 0.0, 0.0
+    for g, w in zip(got, want):
+        for gi, wi, _, _ in match_pairs(g.boxes.data, w.boxes.data):
+            if task == "segment":
+                ious.append(mask_iou(g.masks.data[gi], w.masks.data[wi]))
+            else:
+                kpt = max(kpt, float(np.abs(g.keypoints.data[gi, :, :2] - w.keypoints.data[wi, :, :2]).max()))
+                vis = max(vis, float(np.abs(g.keypoints.data[gi, :, 2] - w.keypoints.data[wi, :, 2]).max()))
+    if task == "segment":
+        return (float(np.mean(ious)) if ious else 0.0), (min(ious) if ious else 0.0)
+    return kpt, vis
+
+
+def task_predict_against_cpu(dev, task, best, frames):
+    """Phase 13c: YOLO(best.ckpt) with drawn weights on the card, at batch 4 and conf 0.25 (segment with and
+    without retina_masks): the head maps and prototypes against the CPU graph's, the rows, masks and keypoints
+    against the CPU's predictor run on the card's head maps (see P13_HEAD_RTOL), and, printed, against the CPU's
+    own graph; ms per batch of 4 and process_mask's device time."""
+    import torch
+
+    from bsyolo_tpu_torch import YOLO
+    from bsyolo_tpu_torch.ops.letterbox import letterbox
+    from bsyolo_tpu_torch.ops.masks import process_mask
+
+    host, card = YOLO(best, device="cpu"), YOLO(best)
+    draw_weights(host.model, SEED + 15)
+    card.model.load_state_dict(host.model.state_dict())
+    x = torch.stack([letterbox(f, (IMGSZ, IMGSZ), "cpu") for f in frames[:4]]).float() / 255.0
+    with torch.inference_mode():
+        want_head, got_head = host.model(x), _to(card.model(x.to(dev)), "cpu")
+    pairs = [("feats", w, g) for w, g in zip(want_head["feats"] if task == "segment" else want_head,
+                                            got_head["feats"] if task == "segment" else got_head)]
+    if task == "segment":
+        pairs.append(("proto", want_head["proto"], got_head["proto"]))
+    for name, w, g in pairs:
+        err, scale = (g - w).abs().max().item(), w.abs().max().item()
+        print(f"  {task} {name} {tuple(w.shape[1:])} card vs CPU: max|err| {err:.3g} at max|value| {scale:.3g}")
+        if not err <= P13_HEAD_RTOL * scale:
+            raise SystemExit(f"{task} head on the card disagrees with the CPU beyond {P13_HEAD_RTOL} of its scale")
+    out = {}
+    for kw in ({}, {"retina_masks": True}) if task == "segment" else ({},):
+        card.predict(frames[:4], imgsz=IMGSZ, batch=4, conf=P13_CONF, **kw)  # warm-up
+        recorded, inputs = [], []
+
+        def record(module, args, output):  # returns None: the output passes on unchanged
+            inputs.append(args[0].cpu())
+            recorded.append(_to(output, "cpu"))
+
+        hook = card.model.register_forward_hook(record)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            got = card.predict(frames, imgsz=IMGSZ, batch=4, conf=P13_CONF, **kw)
+            torch.cuda.synchronize()
+        finally:
+            hook.remove()
+        ms = (time.perf_counter() - t0) * 1e3 / math.ceil(len(frames) / 4)
+        replay = YOLO(best, device="cpu")
+        replay.model = Replay(recorded)
+        want = replay.predict(frames, imgsz=IMGSZ, batch=4, conf=P13_CONF, **kw)
+        # the uint8 letterboxed batches (the graph's input is x / 255, which the card divides otherwise)
+        if not all(torch.equal((a * 255).round(), (b * 255).round()) for a, b in zip(inputs, replay.model.inputs)):
+            raise SystemExit(f"{task}: the card's letterboxed batches differ from the CPU's")
+        label = f"{task} predict{' retina_masks' if kw else ''}"
+        frac = compare_with_cpu(f"{label}, the CPU's path on the card's head maps", [r.boxes.data for r in got],
+                                [r.boxes.data for r in want])
+        first, second = _paired_payloads(task, got, want)
+        own = host.predict(frames, imgsz=IMGSZ, batch=4, conf=P13_CONF, **kw)
+        own_frac = len([1 for g, w in zip(got, own) for _ in match_pairs(g.boxes.data, w.boxes.data)]) / max(
+            sum(len(r) for r in own), sum(len(r) for r in got), 1)
+        own_first, _ = _paired_payloads(task, got, own)
+        rows = sum(len(r) for r in got)
+        if task == "segment":
+            print(f"  {label}: {ms:.1f} ms per batch of 4 on the card (host clock, letterbox to masks at the frame's "
+                  f"size), {rows} rows; mean mask IoU of the paired rows {first:.5f} (min {second:.5f}; tol "
+                  f"{P13_MASK_IOU}); against the CPU's own graph: {own_frac:.4f} of the rows paired, mean mask IoU "
+                  f"{own_first:.5f} (printed)")
+            if first < P13_MASK_IOU:
+                raise SystemExit(f"{label}: masks on the card differ from the CPU's (mean IoU {first})")
+        else:
+            print(f"  {label}: {ms:.1f} ms per batch of 4 on the card (host clock), {rows} rows; keypoints of the "
+                  f"paired rows max |xy diff| {first:.3g} px (tol {P13_KPT_PX}), max |visibility diff| {second:.3g}; "
+                  f"against the CPU's own graph: {own_frac:.4f} of the rows paired, keypoints within {own_first:.3g} "
+                  "px (printed)")
+            if first > P13_KPT_PX:
+                raise SystemExit(f"{label}: keypoints on the card differ from the CPU's by {first} px")
+        out[label] = {"ms_per_batch": ms, "paired": frac, "paired_own_graph": own_frac, "rows": rows}
+    if task == "segment":  # process_mask alone, at one frame's kept rows
+        dets, coeffs, proto = card.predictor.forward(torch.stack([letterbox(frames[0], (IMGSZ, IMGSZ), dev)]))
+        keep = dets[0, :, 4] > 0
+        n = int(keep.sum())
+        args = (proto[0], coeffs[0][keep], dets[0][keep][:, :4], (IMGSZ, IMGSZ))
+        call_ms, dev_ms = cuda_time_ms(process_mask, [args], 20)
+        print(f"  process_mask at {n} kept rows, prototypes {tuple(proto.shape[1:])} -> {n} masks at {IMGSZ}x{IMGSZ}: "
+              f"{dev_ms * 1e3:.1f} us on the device, {call_ms * 1e3:.1f} us per call (events)")
+        out["process_mask"] = {"rows": n, "device_ms": dev_ms, "call_ms": call_ms}
+    return out
+
+
+def task_path(dev, root):
+    """Phase 13: for yolo11n-seg (nc 80) and yolo11n-pose (nc 1, 17 x 3 keypoints) at full width: a seeded
+    JPEG dataset; (a) one train step card vs CPU; (b) YOLO.train 2 epochs at batch 8, YOLO(best.ckpt).val
+    and .predict (segment: with and without retina_masks), one decode_box launch per validation and
+    predict batch, no plain decode; (c) card vs CPU predict on drawn weights. Returns the launches."""
+    import torch
+
+    from bsyolo_tpu_torch import YOLO, kernels
+    from bsyolo_tpu_torch.data.imread import imread
+
+    total = {"decode_box_best": 0, "decode_xywh": 0, "int8_matmul": 0}
+    for task, yaml, nc in TASKS:
+        t0 = time.perf_counter()
+        data = write_task_jpeg_dataset(Path(root) / task, task, nc, SEED + 30)
+        frames = [imread(p) for p in sorted((Path(root) / task / "images" / "val").glob("*.jpg"))]
+        print(f"phase 13 {task} dataset: {P13_TRAIN} train + {P13_VAL} val JPEG frames {P13_HW[0]}x{P13_HW[1]}, "
+              f"{nc} classes, written in {time.perf_counter() - t0:.2f} s")
+        task_step_against_cpu(dev, task, yaml, nc, data)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with plain_decode_calls() as plain_calls:
+            kernels.reset_launch_counts()
+            model = YOLO(yaml)
+            t1 = time.perf_counter()
+            model.train(data=str(data), epochs=2, close_mosaic=1, imgsz=IMGSZ, batch=P13_BATCH, amp=False,
+                        plots=False, workers=P13_WORKERS, seed=3, project=str(Path(root) / "runs"), name=task,
+                        exist_ok=True)
+            train_s = time.perf_counter() - t1
+            best = Path(root) / "runs" / task / "weights" / "best.ckpt"
+            loaded = YOLO(best)
+            if loaded.task != task or loaded.spec.nc != nc:
+                raise SystemExit(f"YOLO(best.ckpt) rebuilt a {loaded.task} graph with nc {loaded.spec.nc}")
+            t2 = time.perf_counter()
+            metrics = loaded.val(data=str(data), batch=P13_BATCH)
+            torch.cuda.synchronize()
+            val_s = time.perf_counter() - t2
+            results = [loaded.predict(frames, imgsz=IMGSZ, batch=4, conf=CONF, **kw)
+                       for kw in (({}, {"retina_masks": True}) if task == "segment" else ({},))]
+            torch.cuda.synchronize()
+            n_val = -(-P13_VAL // P13_BATCH)
+            expected = {"decode_box_best": 2 * n_val + n_val + len(results) * -(-len(frames) // 4), "decode_xywh": 0,
+                        "int8_matmul": 0}
+            launches = expect_launches(f"{task} trainer and facade", expected)
+        if plain_calls:
+            raise SystemExit(f"phase 13 ran the decode's plain version {len(plain_calls)} times on the card")
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        for e, (wait, wall, n) in enumerate(model.trainer.loader_wait):
+            print(f"  {task} epoch {e}: {n} steps in {wall:.2f} s, {wall * 1e3 / n:.1f} ms per step (host clock, "
+                  f"loader in the loop, {P13_WORKERS} workers), loader-wait share {wait / wall:.3f}"
+                  + (", the pool starts" if e == 0 else ""))
+        print(f"phase 13b {task}: YOLO.train 2 epochs in {train_s:.1f} s, peak memory allocated {peak_gb:.2f} GB; "
+              f"val {val_s * 1e3 / P13_VAL:.2f} ms per image: "
+              f"{', '.join(f'{k} {float(v):.4f}' for k, v in metrics.results_dict.items())}; predict "
+              f"{[sum(len(r) for r in res) for res in results]} rows over {len(frames)} frames")
+        for res in results:
+            payload = [r.masks if task == "segment" else r.keypoints for r in res]
+            if any(len(r) and (p is None or len(p) != len(r)) for p, r in zip(payload, res)):
+                raise SystemExit(f"{task} results lack their masks or keypoints")
+            if not all(np.isfinite(r.boxes.data).all() for r in res):  # 2 epochs from the default init: few rows
+                raise SystemExit(f"{task} predict through best.ckpt gave rows that are not finite")
+        kernels.reset_launch_counts()
+        task_predict_against_cpu(dev, task, best, frames)
+        launches = {k: launches[k] + v for k, v in expect_launches(
+            f"{task} card vs CPU predict", {"decode_box_best": (2 if task == "segment" else 1) * 3 + (
+                1 if task == "segment" else 0), "decode_xywh": 0, "int8_matmul": 0}).items()}
+        total = {k: total[k] + launches[k] for k in total}
+    return total
+
+
 def kernel_entry(name, source, replaces, launches, row, bf16_launches, bf16_head=None, product_launches=0,
-                 photo_launches=0):
+                 photo_launches=0, task_launches=0):
     """One entry of the kernels line; ``launches`` counts every path's run, ``bf16_launches`` those of
     phase 10's bf16 paths among them, ``product_launches`` those of phase 11's product path,
-    ``photo_launches`` those of phase 12's real photos, ``bf16_head`` the kernel on a real forward's bf16
-    head."""
+    ``photo_launches`` those of phase 12's real photos, ``task_launches`` those of phase 13's Segment and
+    Pose paths, ``bf16_head`` the kernel on a real forward's bf16 head."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "bf16_launches": bf16_launches, "product_launches": product_launches, "photo_launches": photo_launches,
+            "task_launches": task_launches, **({"task_heads": row["task_heads"]} if "task_heads" in row else {}),
             **({"bf16_head": bf16_head} if bf16_head else {}),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
@@ -2743,6 +3177,7 @@ def main() -> int:
     phase("1 (build)", build_kernels)
     t2 = time.perf_counter()
     box_row = check_decode_kernel(dev)
+    box_row["task_heads"] = check_decode_task_heads(dev)
     xywh_row = check_decode_xywh_kernel(dev)
     half_rows = check_decode_2_byte_levels(dev)
     box_row["two_byte_levels"] = half_rows["decode_box_best"]
@@ -2771,15 +3206,18 @@ def main() -> int:
         amp_launches = phase("10e", amp_trainer_path, dev, data, root)
     product_launches = phase("11", product_path, dev)
     photo_launches = phase("12", photo_path, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        task_launches = phase("13", task_path, dev, root)
     bf16 = {k: half_launches[k] + half_xywh_launches[k] + half_int8_launches[k] + amp_launches[k]
             for k in half_launches}
     kernels_line = {"kernels": [
         kernel_entry("decode_box_best", "bsyolo_tpu_torch/kernels/csrc/decode.cu", "bsyolo_tpu/kernels/decode.py:124",
                      predict_launches["decode_box_best"] + val_launches["decode_box_best"]
                      + trainer_launches["decode_box_best"] + bf16["decode_box_best"]
-                     + product_launches["decode_box_best"] + photo_launches["decode_box_best"], box_row,
-                     bf16["decode_box_best"], box_half, product_launches["decode_box_best"],
-                     photo_launches["decode_box_best"]),
+                     + product_launches["decode_box_best"] + photo_launches["decode_box_best"]
+                     + task_launches["decode_box_best"], box_row, bf16["decode_box_best"], box_half,
+                     product_launches["decode_box_best"], photo_launches["decode_box_best"],
+                     task_launches["decode_box_best"]),
         kernel_entry("decode_xywh", "bsyolo_tpu_torch/kernels/csrc/decode.cu",
                      "bsyolo_tpu/kernels/decode.py:34",
                      tta_launches["decode_xywh"] + tiled_launches["decode_xywh"] + bf16["decode_xywh"], xywh_row,

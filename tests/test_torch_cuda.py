@@ -851,3 +851,64 @@ def test_predict_from_jpeg_files_on_the_card_matches_the_cpu(cuda_device, tmp_pa
     assert n > 0 and frac >= PHOTO_MIN_FRACTION
     assert len(list((tmp_path / "p" / "labels").glob("*.txt"))) == 8
     assert 0 <= card.predictor.reader_wait <= card.predictor.wall
+
+
+# the Segment (nc 80, 32 mask coefficients) and Pose (nc 1, 17 x 3 keypoints) heads at 640 px: levels
+# with channels past 64 + nc, which the box kernel must step over
+TASK_HEADS = {"segment": (4, 80, 32), "pose": (4, 1, 51)}
+
+
+@pytest.mark.parametrize("task", list(TASK_HEADS))
+def test_decode_kernel_reads_task_heads(cuda_device, task):
+    from bsyolo_tpu_torch.kernels.decode import box_best_cuda, box_best_reference
+
+    b, nc, extra = TASK_HEADS[task]
+    sizes, strides = _square(640)
+    rng = np.random.default_rng(nc + extra)
+    levels = []
+    for h, w in sizes:
+        f = rng.normal(0, 2, (b, 64 + nc + extra, h, w)).astype(np.float32)
+        f[:, 64 + nc :] = 1e4 * np.sign(f[:, 64 + nc :])  # read as a class or a bin, these would show
+        levels.append(torch.from_numpy(f))
+    before = box_best_cuda.launches
+    boxes, best, cls = box_best_cuda([f.to(cuda_device) for f in levels], strides, nc)
+    torch.cuda.synchronize()
+    assert box_best_cuda.launches == before + 1
+    want_boxes, want_best, want_cls = box_best_reference(levels, strides, nc)
+    assert float(best.abs().max()) < 100
+    np.testing.assert_allclose(boxes.cpu().numpy(), want_boxes.numpy(), rtol=1e-5, atol=2e-3)
+    np.testing.assert_array_equal(best.cpu().numpy(), want_best.numpy())
+    np.testing.assert_array_equal(cls.cpu().numpy(), want_cls.numpy())
+
+
+@pytest.mark.parametrize("graph", ["tinyseg.yaml", "tinypose.yaml"])
+def test_task_predict_on_the_card_matches_the_cpu(cuda_device, graph):
+    """Segment (masks and retina masks) and Pose (keypoints) predict on the card against the CPU, from
+    the same weights: one box-kernel launch per batch, rows within 2e-3 px, masks equal on at least
+    0.999 of the pixels, keypoints within 2e-3 px."""
+    from pathlib import Path
+
+    from bsyolo_tpu_torch import YOLO
+    from bsyolo_tpu_torch.kernels.decode import box_best_cuda
+
+    path = str(Path(__file__).parent / "fixtures" / graph)
+    host = YOLO(path, device="cpu")
+    g = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for p in host.model.parameters():
+            p.copy_(torch.empty_like(p).uniform_(-1, 1, generator=g) * (3.0 / max(p[0].numel(), 1)) ** 0.5)
+    card = YOLO(path, device="cuda")
+    card.model.load_state_dict(host.model.state_dict())
+    frames = [np.random.default_rng(i).integers(0, 256, (96, 128, 3), dtype=np.uint8) for i in range(4)]
+    for kw in ({}, {"retina_masks": True}) if "seg" in graph else ({},):
+        before = box_best_cuda.launches
+        got = card.predict(frames, imgsz=128, conf=0.05, batch=2, **kw)
+        assert box_best_cuda.launches == before + 2
+        want = host.predict(frames, imgsz=128, conf=0.05, batch=2, **kw)
+        for a, b in zip(got, want):
+            assert a.boxes.data.shape == b.boxes.data.shape and len(a) > 0
+            np.testing.assert_allclose(a.boxes.data[:, :4], b.boxes.data[:, :4], rtol=0, atol=2e-3)
+            if a.masks is not None:
+                assert np.mean(a.masks.data == b.masks.data) >= 0.999
+            if a.keypoints is not None:
+                np.testing.assert_allclose(a.keypoints.data[..., :2], b.keypoints.data[..., :2], rtol=0, atol=2e-3)

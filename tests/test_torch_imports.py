@@ -103,3 +103,47 @@ def test_product_path_runs_without_opencv_and_its_opencv_calls_name_the_roadmap_
     refused = out.stdout.strip().rsplit("\n", 1)[-1]
     assert refused == str(["queue 1, item 24", "queue 1, item 24", "queue 1, item 25", "queue 1, item 25",
                            "queue 1, item 24"]), out.stdout
+
+
+_TASKS = r'''
+import importlib.abc, json, sys
+from pathlib import Path
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("cv2", "PIL", "yaml", "jax", "jaxlib", "flax", "bsyolo_tpu"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+sys.path.insert(0, "tests")
+from torch_port import write_task_dataset
+from bsyolo_tpu_torch import YOLO
+
+root = Path(sys.argv[1])
+out = []
+for task, graph in (("segment", "tests/fixtures/tinyseg.yaml"), ("pose", "tests/fixtures/tinypose.yaml")):
+    data = str(write_task_dataset(root / task, task, n_train=8, n_val=4))
+    m = YOLO(graph, device="cpu")
+    m.train(data=data, epochs=1, imgsz=64, batch=4, nbs=4, workers=0, amp=False, plots=False,
+            project=str(root / "runs"), name=task)
+    best = YOLO(str(root / "runs" / task / "weights" / "best.ckpt"), device="cpu")
+    metrics = best.val(data=data, batch=4, imgsz=64, save_json=True, save_dir=str(root / "val" / task))
+    records = json.loads((root / "val" / task / "predictions.json").read_text())
+    r = best.predict(str(root / task / "images" / "val"), imgsz=64, conf=0.001, batch=2,
+                     retina_masks=task == "segment")
+    payload = r[0].masks if task == "segment" else r[0].keypoints
+    out.append((best.task, len(metrics.results_dict), len(records) > 0, "segmentation" in records[0] or
+                "keypoints" in records[0], len(r), len(payload) == len(r[0])))
+print(out)
+'''
+
+
+def test_segment_and_pose_train_val_predict_without_opencv_pil_or_jax(tmp_path):
+    """The Segment and Pose tasks end to end through the facade (polygon fill, task samples, losses,
+    validators with save_json, predict with retina_masks) with OpenCV, PIL, PyYAML and JAX refused."""
+    out = subprocess.run([sys.executable, "-c", _TASKS, str(tmp_path)], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300, env={"PYTHONPATH": str(ROOT), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().rsplit("\n", 1)[-1] == str([("segment", 7, True, True, 4, True),
+                                                          ("pose", 5, True, True, 4, True)]), out.stdout

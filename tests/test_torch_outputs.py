@@ -4,10 +4,10 @@ The JAX facade and the port's share seeded weights on tiny.yaml (carried by
 ``state_dict_from_jax``) and run at imgsz 64 on the bundled bsyolo8 photos:
 
 - ``predict(save_txt, save_conf, save_crop)``: the same files. The port
-  letterboxes on its device with PyTorch's bilinear resize and the JAX
-  predictor on the host with OpenCV's, so the JAX predictor is given the
-  port's letterbox here (its ``letterbox_image`` patched): both graphs then
-  see the same input, and the outputs are held tight: label lines within
+  letterboxes on its device and the JAX predictor on the host with OpenCV,
+  byte for byte alike; the JAX predictor is given the port's letterbox here
+  (its ``letterbox_image`` patched), so both graphs see one input by
+  construction, and the outputs are held tight: label lines within
   1e-5 (6 decimals written), rows paired one to one within equal classes,
   crops byte-equal (JAX writes them with ``cv2.imwrite``, the port with its
   own encoder).

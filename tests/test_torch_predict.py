@@ -5,11 +5,10 @@ so NMS works on every candidate. Frames that need no resize (96x128 and
 128x128) go through the same letterbox on both sides, so their detections
 are compared row by row: classes equal, scores within rtol 1e-5, boxes
 within atol 1e-3 px (as tests/test_kernels.py). A bundled photo goes
-through the resize path: the port's letterbox is within 1 grey level of the
-OpenCV one (the tolerance tests/test_torch_ops.py measures), and the rest of
-the path is held to the same row-by-row tolerances by giving the JAX
-predictor the port's own letterboxed frame and scaling its boxes back with
-the JAX scale_boxes.
+through the resize path: the port's letterbox is byte-equal to the OpenCV
+one (tests/test_torch_ops.py), and the JAX predictor is given the port's own
+letterboxed frame, its boxes scaled back with the JAX scale_boxes, so the
+rest of the path is held to the same row-by-row tolerances.
 """
 
 import sys

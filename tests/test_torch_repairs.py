@@ -3,7 +3,7 @@
 - Glob sources: ``predict("…/images/*/*.jpg")`` gives the same Results, paths
   and order as the JAX facade; the rows are held as tests/test_torch_predict.py
   holds resized photos (the JAX predictor is given the port's letterboxed
-  frames, whose resize is within 1 grey level of OpenCV's): classes equal,
+  frames, byte-equal to OpenCV's): classes equal,
   scores within rtol 1e-5, boxes within 1e-3 px.
 - Float frames: a float32 (h, w, 3) frame on the 0-255 scale is letterboxed
   as it is and divided by 255, as in the JAX predictor; the rows match at the

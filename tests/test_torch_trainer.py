@@ -258,7 +258,7 @@ def test_unported_processes_modes_tasks_and_formats_raise(monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="item 14"):
         DetectionTrainer(overrides=dict(COMMON, data="x.yaml", device="cpu"))
-    for argv, item in ((["benchmark"], "item 15"), (["export"], "item 15"), (["segment", "train"], "item 12")):
+    for argv, item in ((["benchmark"], "item 15"), (["export"], "item 15"), (["obb", "train"], "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             main(argv)
     with pytest.raises(NotImplementedError, match="item 15"):
