@@ -8,14 +8,17 @@
     python -m bsyolo_tpu_torch track model=best.ckpt source=clip.mp4 tracker=bytetrack.yaml
     python -m bsyolo_tpu_torch segment train data=coco8-seg.yaml model=yolo11n-seg.yaml amp=False
     python -m bsyolo_tpu_torch pose predict model=runs/pose/train/weights/best.ckpt source=images/
+    python -m bsyolo_tpu_torch obb train data=dota8.yaml model=yolo11n-obb.yaml imgsz=1024 amp=False
+    python -m bsyolo_tpu_torch classify train data=<root of class folders> model=yolo11n-cls.yaml imgsz=224 amp=False
 
 Arguments are ``key=value`` pairs of ``cfg/default.yaml`` plus ``model``, ``data`` and
 ``source``; ``device=cpu`` runs on the host (the card is the default). Every other
 key goes on to ``YOLO.train``, ``YOLO.val``, ``YOLO.predict`` or ``YOLO.track``, which raise on the
 options the port does not have yet. The task, if given (as a word or ``task=``), is
-``detect``, ``segment`` or ``pose`` and must be the model's; without ``model`` it picks
-``yolo11n.yaml``, ``yolo11n-seg.yaml`` or ``yolo11n-pose.yaml``. Other modes and tasks
-raise, naming the ROADMAP item that brings them.
+``detect``, ``segment``, ``pose``, ``obb`` or ``classify`` and must be the model's; without
+``model`` it picks ``yolo11n.yaml``, ``yolo11n-seg.yaml``, ``yolo11n-pose.yaml``,
+``yolo11n-obb.yaml`` or ``yolo11n-cls.yaml``. Other modes raise, naming the ROADMAP item that
+brings them.
 """
 
 from __future__ import annotations
@@ -29,8 +32,8 @@ from bsyolo_tpu_torch.utils import LOGGER
 
 MODES = {"train", "val", "predict", "track"}
 _NOT_PORTED_MODES = {"export": "item 15", "benchmark": "item 15"}
-TASK_MODELS = {"detect": "yolo11n.yaml", "segment": "yolo11n-seg.yaml", "pose": "yolo11n-pose.yaml"}
-_NOT_PORTED_TASKS = {"obb": "item 12", "classify": "item 12"}
+TASK_MODELS = {"detect": "yolo11n.yaml", "segment": "yolo11n-seg.yaml", "pose": "yolo11n-pose.yaml",
+               "obb": "yolo11n-obb.yaml", "classify": "yolo11n-cls.yaml"}
 
 
 def parse_kv(args: List[str]) -> Dict:
@@ -70,8 +73,6 @@ def main(argv=None) -> int:
             mode = a
         elif a in TASK_MODELS:
             task = a
-        elif a in _NOT_PORTED_TASKS:
-            raise NotImplementedError(f"task '{a}' is not ported yet (ROADMAP queue 1, {_NOT_PORTED_TASKS[a]})")
         else:
             rest.append(a)
     if mode in _NOT_PORTED_MODES:
@@ -81,8 +82,6 @@ def main(argv=None) -> int:
     overrides = parse_kv(rest)
     check_dict_alignment({**DEFAULT_CFG_DICT, "model": None, "data": None, "source": None}, overrides)
     task = overrides.pop("task", None) or task
-    if task in _NOT_PORTED_TASKS:
-        raise NotImplementedError(f"task '{task}' is not ported yet (ROADMAP queue 1, {_NOT_PORTED_TASKS[task]})")
 
     from bsyolo_tpu_torch import YOLO
 
@@ -103,5 +102,8 @@ def main(argv=None) -> int:
         fn = model.track if mode == "track" else model.predict
         results = fn(source, **{k: v for k, v in overrides.items() if v is not None})
         LOGGER.info(f"{len(results)} frames processed")
-        print(f"{len(results)} frames, {sum(len(r) for r in results)} detections")
+        if model.task == "classify":
+            print(f"{len(results)} frames, top-1 classes {[r.probs.top1 for r in results]}")
+        else:
+            print(f"{len(results)} frames, {sum(len(r) for r in results)} detections")
     return 0

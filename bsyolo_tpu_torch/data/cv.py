@@ -1,7 +1,7 @@
-"""numpy counterparts of the OpenCV calls on the detect data path.
+"""numpy counterparts of the OpenCV calls on the data paths.
 
 The port's data pipeline runs where OpenCV may not be installed, so each cv2
-call that ``bsyolo_tpu/data`` makes on the detect path has a numpy version
+call that ``bsyolo_tpu/data`` makes on the paths the port serves has a numpy version
 here, on uint8 (h, w[, c]) images:
 
 | function | replaces |
@@ -11,11 +11,15 @@ here, on uint8 (h, w[, c]) images:
 | ``rotation_matrix_2d`` | ``cv2.getRotationMatrix2D`` |
 | ``bgr2hsv``, ``hsv2bgr``, ``lut`` | ``cv2.cvtColor`` BGR2HSV / HSV2BGR (8-bit, H in [0, 180)), ``cv2.LUT`` |
 | ``blur``, ``median_blur`` | ``cv2.blur`` (BORDER_REFLECT_101), ``cv2.medianBlur`` (BORDER_REPLICATE) |
+| ``gaussian_blur5``, ``equalize_hist`` | ``cv2.GaussianBlur(img, (5, 5), 0)``, ``cv2.equalizeHist`` |
+| ``convex_hull``, ``min_area_rect`` | ``cv2.convexHull``, ``cv2.minAreaRect`` (float32 points) |
 | ``rgb2gray`` | ``cv2.cvtColor`` RGB2GRAY (OpenCV's 15-bit fixed-point weights) |
 | ``clahe`` | ``cv2.createCLAHE(...).apply`` on the L channel of ``cv2.cvtColor`` RGB2LAB |
 
-``lut``, ``blur``, ``median_blur``, ``rgb2gray``, ``bgr2hsv``, ``rgb2lab`` and the
-INTER_LINEAR ``resize`` compute what OpenCV computes, byte for byte. The others compute
+``lut``, ``blur``, ``median_blur``, ``gaussian_blur5``, ``equalize_hist``, ``rgb2gray``, ``bgr2hsv``,
+``rgb2lab``, ``convex_hull`` and the INTER_LINEAR ``resize`` compute what OpenCV computes, byte for byte;
+``min_area_rect`` finds OpenCV's rectangle up to the last bits of its size and angle (ties between
+hull edges aside). The others compute
 the same function in floating point where OpenCV uses fixed point or other roundings,
 and may differ from it by a grey level on some bytes; ``tests/test_torch_data.py`` measures each
 op's residue against the installed OpenCV (ROADMAP, "Known differences").
@@ -217,6 +221,34 @@ def median_blur(img: np.ndarray, k: int) -> np.ndarray:
     return np.partition(win, k * k // 2, axis=-1)[..., k * k // 2]
 
 
+def gaussian_blur5(img: np.ndarray) -> np.ndarray:
+    """``cv2.GaussianBlur(img, (5, 5), 0)`` on uint8: OpenCV's 5-tap kernel (1, 4, 6, 4, 1) / 16 in each
+    direction, border BORDER_REFLECT_101, the 1/256 sum rounded half up as OpenCV's fixed-point path does."""
+    pad = [(2, 2), (2, 2)] + [(0, 0)] * (img.ndim - 2)
+    x = np.pad(img.astype(np.int64), pad, mode="reflect")
+    h, w = img.shape[:2]
+    k = (1, 4, 6, 4, 1)
+    rows = sum(k[j] * x[:, j : j + w] for j in range(5))
+    s = sum(k[i] * rows[i : i + h] for i in range(5))
+    return ((s + 128) >> 8).astype(np.uint8)
+
+
+def equalize_hist(gray: np.ndarray) -> np.ndarray:
+    """``cv2.equalizeHist`` of a uint8 image: the cumulative histogram past the first occupied level,
+    scaled by 255 / (pixels - that level's count) in float32 and rounded to nearest even; a constant
+    image keeps its level."""
+    hist = np.bincount(gray.reshape(-1), minlength=256)
+    first = int(np.flatnonzero(hist)[0])
+    total = gray.size
+    if hist[first] == total:
+        return np.full_like(gray, first)
+    scale = np.float32(255.0) / np.float32(total - hist[first])
+    table = np.zeros(256, np.uint8)
+    cum = np.cumsum(hist[first + 1 :]).astype(np.float32)
+    table[first + 1 :] = np.clip(np.rint(cum * scale), 0, 255).astype(np.uint8)
+    return table[gray]
+
+
 # --- CLAHE on the L channel of Lab -------------------------------------------------------------------
 
 _D65 = np.array([0.950456, 1.0, 1.088754])
@@ -356,3 +388,192 @@ def fill_poly(img: np.ndarray, polys, color: int = 1) -> np.ndarray:
     _fill_lib.bsy_fill_poly(img.ctypes.data, img.shape[0], img.shape[1], pts.ctypes.data, npts.ctypes.data,
                             len(polys), int(color))
     return img
+
+
+# --- minimum-area rectangle ---------------------------------------------------------------------------
+
+
+def _sign(v) -> int:
+    return int(v > 0) - int(v < 0)
+
+
+def _sklansky(p, start: int, end: int, nsign: int, sign2: int):
+    """OpenCV's ``Sklansky_``: the indices (into the x-sorted points ``p``) of one quarter of the hull
+    from ``start`` towards ``end``, the last one dropped."""
+    incr = 1 if end > start else -1
+    if start == end or (p[start][0] == p[end][0] and p[start][1] == p[end][1]):
+        return [start]
+    pprev, pcur, pnext = start, start + incr, start + 2 * incr
+    stack = [pprev, pcur, pnext] + [0] * (abs(end - start) + 3)
+    size = 3
+    end += incr
+    while pnext != end:
+        by = p[pnext][1] - p[pcur][1]
+        if _sign(by) != nsign:
+            ax, bx = p[pcur][0] - p[pprev][0], p[pnext][0] - p[pcur][0]
+            ay = p[pcur][1] - p[pprev][1]
+            if _sign(float(ay) * float(bx) - float(ax) * float(by)) == sign2 and (ax != 0 or ay != 0):
+                pprev, pcur = pcur, pnext
+                pnext += incr
+                stack[size] = pnext
+                size += 1
+            elif pprev == start:
+                pcur = pnext
+                stack[1] = pcur
+                pnext += incr
+                stack[2] = pnext
+            else:
+                stack[size - 2] = pnext
+                pcur = pprev
+                pprev = stack[size - 4]
+                size -= 1
+        else:
+            pnext += incr
+            stack[size - 1] = pnext
+    return stack[: size - 1]
+
+
+def convex_hull(points: np.ndarray) -> np.ndarray:
+    """``cv2.convexHull(points)`` of float32 (n, 2) points (clockwise=False, the points returned): Sklansky's
+    scan over the points sorted by x then y, upper and lower halves, then the cyclic shift OpenCV applies so
+    that the point indices ascend or descend."""
+    pts = np.asarray(points, np.float32).reshape(-1, 2)
+    total = len(pts)
+    if total == 0:
+        return pts
+    order = sorted(range(total), key=lambda i: (pts[i][0], pts[i][1]))
+    p = [pts[i] for i in order]
+    miny = maxy = 0
+    for i in range(1, total):
+        if p[miny][1] > p[i][1]:
+            miny = i
+        if p[maxy][1] < p[i][1]:
+            maxy = i
+    if p[0][0] == p[-1][0] and p[0][1] == p[-1][1]:
+        return pts[[order[0]]]
+    tr = _sklansky(p, 0, maxy, -1, 1)  # counter-clockwise: the two upper quarters swap
+    tl = _sklansky(p, total - 1, maxy, -1, -1)
+    hull = [order[tl[i]] for i in range(len(tl) - 1)] + [order[tr[i]] for i in range(len(tr) - 1, 0, -1)]
+    stop = tr[1] if len(tr) > 2 else (tl[-2] if len(tl) > 2 else -1)
+    bl = _sklansky(p, 0, miny, 1, -1)
+    br = _sklansky(p, total - 1, miny, 1, 1)
+    nbl, nbr = len(bl), len(br)
+    if stop >= 0:
+        check = bl[1] if nbl > 2 else (br[2 - nbl] if nbl + nbr > 2 else -1)
+        if check == stop or (check >= 0 and p[check][0] == p[stop][0] and p[check][1] == p[stop][1]):
+            nbl, nbr = min(nbl, 2), min(nbr, 2)  # collinear: the lower half mirrors the upper one
+    hull += [order[bl[i]] for i in range(nbl - 1)] + [order[br[i]] for i in range(nbr - 1, 0, -1)]
+    n = len(hull)
+    if n >= 3:  # cyclic shift towards an ascending or descending index sequence
+        mn = mx = lt = 0
+        for i in range(1, n):
+            lt += hull[i - 1] < hull[i]
+            if 1 < lt <= i - 2:
+                break
+            mn = i if hull[i] < hull[mn] else mn
+            mx = i if hull[i] > hull[mx] else mx
+        mm = abs(mx - mn)
+        if (mm == 1 or mm == n - 1) and (lt <= 1 or lt >= n - 2):
+            asc = (mx + 1) % n == mn
+            j = mn if asc else mx
+            if j > 0:
+                shifted = []
+                for i in range(n):
+                    shifted.append(hull[j])
+                    nj = (j + 1) % n
+                    if i < n - 1 and asc != (hull[j] < hull[nj]):
+                        break
+                    j = nj
+                else:
+                    hull = shifted
+    return pts[hull]
+
+
+def _rotating_calipers(p):
+    """OpenCV's rotating calipers over a convex polygon (float32 (n, 2), n > 2), in float32: the corner
+    and the two side vectors of the minimum-area rectangle, the last of the equal minima, and the unit
+    direction of the first side."""
+    f = np.float32
+    n = len(p)
+    vect, inv = [], []
+    left = bottom = right = top = 0
+    for i in range(n):
+        x, y = p[i]
+        if x < p[left][0]:
+            left = i
+        if x > p[right][0]:
+            right = i
+        if y > p[top][1]:
+            top = i
+        if y < p[bottom][1]:
+            bottom = i
+        dx, dy = p[(i + 1) % n][0] - x, p[(i + 1) % n][1] - y
+        vect.append((dx, dy))
+        inv.append(f(1.0 / math.sqrt(float(dx) ** 2 + float(dy) ** 2)))
+    orientation = f(0)
+    ax, ay = float(vect[-1][0]), float(vect[-1][1])
+    for bx, by in vect:
+        c = ax * float(by) - ay * float(bx)
+        if c != 0:
+            orientation = f(1) if c > 0 else f(-1)
+            break
+        ax, ay = float(bx), float(by)
+    base_a, base_b = orientation, f(0)
+    seq = [bottom, right, top, left]
+    minarea, best = f(np.finfo(np.float32).max), None
+    for _ in range(n):
+        v = [vect[s] for s in seq]
+        dp = (base_a * v[0][0] + base_b * v[0][1], -base_b * v[1][0] + base_a * v[1][1],
+              -base_a * v[2][0] - base_b * v[2][1], base_b * v[3][0] - base_a * v[3][1])
+        main, maxcos = 0, dp[0] * inv[seq[0]]
+        for i in range(1, 4):
+            c = dp[i] * inv[seq[i]]
+            if c > maxcos:
+                main, maxcos = i, c
+        k = seq[main]
+        lx, ly = vect[k][0] * inv[k], vect[k][1] * inv[k]
+        base_a, base_b = ((lx, ly), (ly, -lx), (-lx, -ly), (-ly, lx))[main]
+        seq[main] = (seq[main] + 1) % n
+        width = (p[seq[1]][0] - p[seq[3]][0]) * base_a + (p[seq[1]][1] - p[seq[3]][1]) * base_b
+        height = -(p[seq[2]][0] - p[seq[0]][0]) * base_b + (p[seq[2]][1] - p[seq[0]][1]) * base_a
+        area = width * height
+        if area <= minarea:
+            minarea, best = area, (seq[3], base_a, width, base_b, height, seq[0])
+    lft, a1, width, b1, height, bot = best
+    a2, b2 = -b1, a1
+    c1 = a1 * p[lft][0] + p[lft][1] * b1
+    c2 = a2 * p[bot][0] + p[bot][1] * b2
+    idet = f(1) / (a1 * b2 - a2 * b1)
+    corner = ((c1 * b2 - c2 * b1) * idet, (a1 * c2 - a2 * c1) * idet)
+    return corner, (a1 * width, b1 * width), (a2 * height, b2 * height), (a1, b1)
+
+
+def min_area_rect(points: np.ndarray):
+    """``cv2.minAreaRect(points)``: ((cx, cy), (w, h), angle in degrees) of the smallest rectangle around
+    float32 (n, 2) points, in OpenCV 5's convention: the angle in [-90, 0), width and height swapped each
+    time it is turned by 90 degrees into that range. The convex hull (``convex_hull``) and the rotating
+    calipers are OpenCV's in float32; the size and angle may differ from OpenCV's in their last bits, and
+    where two rectangles tie for the least area (a square, a right triangle) the other one may be chosen.
+    A rectangle of zero width (collinear points) takes the angle of the calipers' base."""
+    f = np.float32
+    hull = convex_hull(points)
+    n = len(hull)
+    if n > 2:
+        c, u, v, base = _rotating_calipers(hull)
+        center = (c[0] + (u[0] + v[0]) * f(0.5), c[1] + (u[1] + v[1]) * f(0.5))
+        w = math.sqrt(float(u[0]) ** 2 + float(u[1]) ** 2)
+        h = math.sqrt(float(v[0]) ** 2 + float(v[1]) ** 2)
+        angle = math.atan2(float(u[1]), float(u[0])) if w else math.atan2(float(base[1]), float(base[0]))
+    elif n == 2:
+        center = ((hull[0][0] + hull[1][0]) * f(0.5), (hull[0][1] + hull[1][1]) * f(0.5))
+        dx, dy = float(hull[1][0]) - float(hull[0][0]), float(hull[1][1]) - float(hull[0][1])
+        w, h, angle = math.sqrt(dx * dx + dy * dy), 0.0, math.atan2(dy, dx)
+    else:
+        center = (hull[0][0], hull[0][1]) if n else (f(0), f(0))
+        w = h = angle = 0.0
+    w, h, angle = f(w), f(h), f(f(angle) * 180 / math.pi)
+    while angle >= 0:
+        angle, w, h = f(angle - 90), h, w
+    while angle < -90:
+        angle, w, h = f(angle + 90), h, w
+    return (float(center[0]), float(center[1])), (float(w), float(h)), float(angle)

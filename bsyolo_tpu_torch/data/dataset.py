@@ -1,10 +1,12 @@
-"""YOLO-format datasets of the detect, segment and pose tasks (counterpart of ``bsyolo_tpu/data/dataset.py``).
+"""YOLO-format datasets of the detect, segment, pose and OBB tasks (counterpart of ``bsyolo_tpu/data/dataset.py``).
 
 A dataset YAML (path / train / val / names, and ``flip_idx`` for pose) names
 image folders or lists; each image's labels are the sibling
 ``labels/<stem>.txt`` rows, normalized: ``class cx cy w h`` (detect),
 ``class x1 y1 ... xn yn`` polygons (segment; the box is the polygon's extent),
-``class cx cy w h kx ky v ...`` (pose). Images are read by ``data/imread.py``
+``class cx cy w h kx ky v ...`` (pose), ``class x1 y1 x2 y2 x3 y3 x4 y4``
+corners (OBB; the box is the minimum-area rectangle around them, ``cv.min_area_rect``,
+as xywhr with the angle in [-pi/4, 3pi/4)). Images are read by ``data/imread.py``
 (PNG, BMP, JPEG and .npy without OpenCV) and pre-resized by ``data/cv.py``.
 The parsed labels are cached in ``labels.cache.npz`` beside the label folder
 in the JAX package's format and hash, so both packages share one cache.
@@ -14,7 +16,9 @@ image) filled at 1 / ``mask_ratio`` of the canvas (``cv.fill_poly``), larger
 instances first so smaller ones win where they overlap, pixel value g + 1
 for instance g, the instances reordered to match. A pose sample carries
 ``keypoints`` (max_gt, nkpt, 3): x, y normalized to the canvas and the
-visibility.
+visibility. An OBB sample carries ``rboxes`` (max_gt, 5): x, y, w, h normalized to the canvas
+and the angle in radians; in training the four corners are warped with the image and the
+rectangle fitted again around them.
 """
 
 from __future__ import annotations
@@ -77,6 +81,21 @@ def load_dataset_yaml(path) -> Dict:
     return out
 
 
+def _rbox_from_corners(pts: np.ndarray) -> np.ndarray:
+    """(cx, cy, w, h, r) float32 of the minimum-area rectangle around 4 corner points, w the longer side,
+    the angle canonicalized into [-pi/4, 3pi/4), the OBB head's range."""
+    (cx, cy), (bw, bh), ang = cv.min_area_rect(np.asarray(pts, np.float32))
+    r = np.deg2rad(ang)
+    if bw < bh:
+        bw, bh = bh, bw
+        r += np.pi / 2
+    while r >= 3 * np.pi / 4:
+        r -= np.pi
+    while r < -np.pi / 4:
+        r += np.pi
+    return np.asarray([cx, cy, bw, bh, r], np.float32)
+
+
 def img2label_path(img_path: str) -> str:
     """images/xxx.jpg -> labels/xxx.txt."""
     sa, sb = f"{os.sep}images{os.sep}", f"{os.sep}labels{os.sep}"
@@ -91,14 +110,18 @@ class YOLODataset:
     def __init__(self, img_path, imgsz: int = 640, augment: bool = True, hyp: Optional[Dict] = None,
                  max_gt: int = 128, single_cls: bool = False, fraction: float = 1.0, task: str = "detect",
                  cache: object = False, mask_ratio: int = 4, flip_idx: Optional[List[int]] = None):
+        if task == "classify":
+            raise ValueError("classify data is folder-per-class: data/classify.py ClassificationDataset")
         if task not in HEAD_TASKS.values():
-            raise NotImplementedError(f"task {task!r} datasets are not ported yet (ROADMAP queue 1, item 12)")
+            raise ValueError(f"unknown task {task!r}")
         self.task = task
         self.mask_ratio = mask_ratio
         # left/right keypoint permutation for horizontal flips; None turns them off for pose
         self.flip_idx = None if flip_idx is None else np.asarray(flip_idx, np.int64)
         self.segments: Dict[int, list] = {}  # image -> per-row (n, 2) normalized polygon or None
         self.keypoints: Dict[int, list] = {}  # image -> per-row (nkpt, 3) normalized keypoints or None
+        self.rboxes: Dict[int, list] = {}  # image -> per-row (5,) normalized xywhr or None (OBB)
+        self.rcorners: Dict[int, list] = {}  # image -> per-row (4, 2) normalized corners or None (OBB)
         self.img_files = self._list_images(img_path)
         if fraction < 1.0:
             self.img_files = self.img_files[: max(1, round(len(self.img_files) * fraction))]
@@ -144,7 +167,7 @@ class YOLODataset:
 
         try:
             np.savez(self._cache_path(), hash=self._cache_hash(), labels=obj(self.labels), segments=obj(self.segments),
-                     keypoints=obj(self.keypoints), rboxes=obj({}), rcorners=obj({}), allow_pickle=True)
+                     keypoints=obj(self.keypoints), rboxes=obj(self.rboxes), rcorners=obj(self.rcorners), allow_pickle=True)
         except OSError:
             pass  # a read-only label folder: the cache is best-effort
 
@@ -159,6 +182,8 @@ class YOLODataset:
             self.labels = list(z["labels"][0])
             self.segments = dict(z["segments"][0])
             self.keypoints = dict(z["keypoints"][0])
+            self.rboxes = dict(z["rboxes"][0])
+            self.rcorners = dict(z["rcorners"][0])
             return True
         except Exception:
             return False
@@ -180,12 +205,13 @@ class YOLODataset:
     def _load_label(self, i: int):
         """(cls (n,), normalized xywh (n, 4) clipped to [0, 1]) from the label file's rows of 5 or more.
         Segment: a row of an odd count of 7 or more values is a polygon (kept in ``segments[i]``; its box
-        is its extent). Pose: a row of 5 + 3 k values carries k keypoints (``keypoints[i]``). Other
-        rows of 5 or more are boxes (None in the task's payload)."""
+        is its extent). Pose: a row of 5 + 3 k values carries k keypoints (``keypoints[i]``). OBB: a row of
+        9 values carries 4 corners (``rcorners[i]``), its box is the rectangle fitted around them
+        (``rboxes[i]``, xywhr). Other rows of 5 or more are boxes (None in the task's payload)."""
         lp = self.label_files[i]
         if not os.path.exists(lp):
             return np.zeros((0,), np.float32), np.zeros((0, 4), np.float32)
-        rows, polys, kpts = [], [], []
+        rows, polys, kpts, rbs, rcs = [], [], [], [], []
         for parts in (line.split() for line in Path(lp).read_text().splitlines()):
             if self.task == "segment" and len(parts) >= 7 and len(parts) % 2 == 1:
                 vals = [float(x) for x in parts]
@@ -193,6 +219,13 @@ class YOLODataset:
                 lo, hi = poly.min(0), poly.max(0)
                 rows.append([vals[0], *((lo + hi) / 2), *(hi - lo)])
                 polys.append(poly)
+            elif self.task == "obb" and len(parts) == 9:
+                vals = [float(x) for x in parts]
+                pts = np.asarray(vals[1:], np.float32).reshape(4, 2)
+                rb = _rbox_from_corners(pts)
+                rows.append([vals[0], *rb[:4]])
+                rbs.append(rb)
+                rcs.append(pts)
             elif self.task == "pose" and len(parts) > 5 and (len(parts) - 5) % 3 == 0:
                 vals = [float(x) for x in parts]
                 rows.append(vals[:5])
@@ -201,12 +234,16 @@ class YOLODataset:
                 rows.append([float(x) for x in parts[:5]])
                 polys.append(None)
                 kpts.append(None)
+                rbs.append(None)
+                rcs.append(None)
         if not rows:
             return np.zeros((0,), np.float32), np.zeros((0, 4), np.float32)
         if self.task == "segment":
             self.segments[i] = polys
         if self.task == "pose":
             self.keypoints[i] = kpts
+        if self.task == "obb":
+            self.rboxes[i], self.rcorners[i] = rbs, rcs
         arr = np.asarray(rows, np.float32)
         cls = arr[:, 0] * (0 if self.single_cls else 1)
         return cls, np.clip(arr[:, 1:5], 0, 1)
@@ -269,11 +306,13 @@ class YOLODataset:
     def get_sample(self, i: int, rng: np.random.Generator, mosaic: bool = True,
                    shape: Optional[Tuple[int, int]] = None) -> Dict:
         """One sample: img (uint8 RGB HWC), cls, bboxes (normalized xywh), mask, padded to max_gt, and
-        the task's masks or keypoints. ``shape``: the letterbox canvas of a rect val bucket, in place
+        the task's masks, keypoints or rboxes. ``shape``: the letterbox canvas of a rect val bucket, in place
         of the square."""
         if self.task != "detect":
             if self.augment:
                 return self._aug_task_sample(i, rng, mosaic)
+            if self.task == "obb":
+                return self._val_obb_sample(i, shape)
             return self._val_task_sample(i, shape)
         if self.augment:
             use_mosaic = mosaic and rng.random() < self.hyp.get("mosaic", 1.0)
@@ -300,7 +339,7 @@ class YOLODataset:
         out_img, out_cls, out_box, out_mask = format_labels(img, cls, boxes, self.max_gt)
         return {"img": out_img, "cls": out_cls, "bboxes": out_box, "mask": out_mask}
 
-    # --- the segment and pose tasks: instances with points ------------------------------------------
+    # --- the segment, pose and OBB tasks: instances with points -------------------------------------
     @property
     def nkpt(self) -> int:
         """The dataset's keypoint count (the most any row has), for one batch shape."""
@@ -311,10 +350,20 @@ class YOLODataset:
     def _task_payload(self, j: int, shape: Tuple[int, int], k: int):
         """(cls, boxes xyxy px, points (n, K, 2) px, visibility (n, K) or None) of image ``j`` at its
         pre-resized ``shape``: polygons resampled to ``k`` points (a box row's outline where a row
-        has none), or keypoints (zeros where a row has none)."""
+        has none), OBB corners (likewise), or keypoints (zeros where a row has none)."""
         h, w = shape
         cls, boxes = self.label_pixels(j, shape)
         n = len(cls)
+        if self.task == "obb":
+            corners = self.rcorners.get(j, [])
+            pts = np.zeros((n, 4, 2), np.float32)
+            for t in range(n):
+                if t < len(corners) and corners[t] is not None:
+                    pts[t] = corners[t] * np.asarray([w, h], np.float32)
+                else:
+                    x1, y1, x2, y2 = boxes[t]
+                    pts[t] = [[x1, y1], [x2, y1], [x2, y2], [x1, y2]]
+            return cls, boxes, pts, None
         if self.task == "segment":
             polys = self.segments.get(j, [None] * n)
             pts = np.zeros((n, k, 2), np.float32)
@@ -384,6 +433,12 @@ class YOLODataset:
             masks, order = self._rasterize_overlap(pts, self.imgsz)
             cls, boxes = cls[order], boxes[order]
             out["masks"] = masks
+        elif kind == "obb":  # the rectangle fitted again around the warped corners
+            out_rb = np.zeros((self.max_gt, 5), np.float32)
+            for t in range(len(pts)):
+                rb = _rbox_from_corners(pts[t])
+                out_rb[t] = [rb[0] / self.imgsz, rb[1] / self.imgsz, rb[2] / self.imgsz, rb[3] / self.imgsz, rb[4]]
+            out["rboxes"] = out_rb
         else:
             out_kpts = np.zeros((self.max_gt, pts.shape[1], 3), np.float32)
             if len(pts):
@@ -437,3 +492,26 @@ class YOLODataset:
         out_img, out_cls, out_box, out_mask = format_labels(img, cls, boxes, self.max_gt)
         out.update({"img": out_img, "cls": out_cls, "bboxes": out_box, "mask": out_mask})
         return out
+
+    def _val_obb_sample(self, i: int, shape: Optional[Tuple[int, int]] = None) -> Dict:
+        """A validation OBB sample: letterboxed without enlarging, each rotated box's centre and size
+        mapped onto the canvas (the angle kept); a box row is its axis-aligned box at angle 0."""
+        im = self.load_image(i)
+        h, w = im.shape[:2]
+        cls, boxes = self.label_pixels(i, (h, w))
+        img, r, (dw, dh) = letterbox_image(im, shape or (self.imgsz, self.imgsz), scaleup=False)
+        th, tw = img.shape[:2]
+        if len(boxes):
+            boxes = boxes * r
+            boxes[:, [0, 2]] += dw
+            boxes[:, [1, 3]] += dh
+        out_rb = np.zeros((self.max_gt, 5), np.float32)
+        for j, rb in enumerate(self.rboxes.get(i, [])[: self.max_gt]):
+            if rb is None:
+                x1, y1, x2, y2 = boxes[j]
+                out_rb[j] = [(x1 + x2) / 2 / tw, (y1 + y2) / 2 / th, (x2 - x1) / tw, (y2 - y1) / th, 0.0]
+            else:
+                out_rb[j] = [(rb[0] * w * r + dw) / tw, (rb[1] * h * r + dh) / th, rb[2] * w * r / tw,
+                             rb[3] * h * r / th, rb[4]]
+        out_img, out_cls, out_box, out_mask = format_labels(img, cls, boxes, self.max_gt)
+        return {"img": out_img, "cls": out_cls, "bboxes": out_box, "mask": out_mask, "rboxes": out_rb}

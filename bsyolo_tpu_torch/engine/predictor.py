@@ -1,4 +1,4 @@
-"""Detection predictor (counterpart of ``bsyolo_tpu/engine/predictor.py``, detect branch).
+"""The predictor of the five tasks (counterpart of ``bsyolo_tpu/engine/predictor.py``).
 
 Sources (numpy frames, lists of them, image files, directories, globs, video
 files and URLs read with OpenCV every ``vid_stride``-th frame, webcam indices
@@ -28,6 +28,12 @@ resized to the original frame (OpenCV's float INTER_LINEAR) and thresholded at
 host, which assembles each mask at the frame's own size (the reference's
 ``process_mask_native``). Pose: keypoints decoded in pixels, then mapped back
 to the frame.
+
+OBB graphs decode rotated boxes (``decode_obb``) and suppress them by probIoU
+within a class (``nms_rotated``) on the card; the kept rows' centres and sizes
+are mapped back to the frame, their angles kept. Classify graphs run the same
+letterboxed batches, and the softmax of the logits is taken on the card: one
+(B, nc) copy to the host per batch.
 """
 
 from __future__ import annotations
@@ -48,11 +54,12 @@ from bsyolo_tpu_torch.data.imread import imread
 from bsyolo_tpu_torch.data.streams import LoadStreams
 from bsyolo_tpu_torch.engine.results import Results
 from bsyolo_tpu_torch.kernels.postprocess import detect_postprocess
-from bsyolo_tpu_torch.nn.heads import decode_detections, decode_extras, decode_keypoints, gather_anchors
+from bsyolo_tpu_torch.nn.heads import decode_detections, decode_extras, decode_keypoints, decode_obb, gather_anchors
 from bsyolo_tpu_torch.ops.boxes import scale_boxes
 from bsyolo_tpu_torch.ops.letterbox import letterbox, letterbox_params
 from bsyolo_tpu_torch.ops.masks import process_mask, resize_linear
 from bsyolo_tpu_torch.ops.nms import non_max_suppression
+from bsyolo_tpu_torch.ops.obb import nms_rotated
 from bsyolo_tpu_torch.utils import CV2_VIDEO, LOGGER, import_cv2
 
 IMG_SUFFIXES = {".bmp", ".jpeg", ".jpg", ".png", ".tif", ".tiff", ".webp"}
@@ -173,6 +180,8 @@ class DetectionPredictor:
             LOGGER.warning("augment=True is only supported for Detect-head models; reverting to single-scale "
                            "prediction")
             augment = False
+        if agnostic_nms and self.task == "obb":
+            LOGGER.warning("agnostic_nms: the rotated NMS suppresses within each class only, as in the JAX package")
         self.augment = augment
         self.retina_masks = retina_masks
         self.stream_buffer = stream_buffer
@@ -185,11 +194,17 @@ class DetectionPredictor:
         """(B, 3, S, S) RGB on the device, uint8 or float32 on the 0-255 scale -> (B, max_det, 6)
         detections on the device; for a Segment graph also the rows' (B, max_det, nm) mask
         coefficients and the (B, nm, Hm, Wm) prototypes, for a Pose graph the rows'
-        (B, max_det, nkpt, ndim) keypoints in input pixels (zeros on padding rows)."""
+        (B, max_det, nkpt, ndim) keypoints in input pixels (zeros on padding rows); for an OBB graph
+        (B, min(max_det, 512, A), 7) rotated rows, for a Classify graph (B, nc) probabilities."""
         x = x.float() / 255.0
         if self.augment:
             return self._forward_augment(x)
         out = self.model(x)
+        if self.task == "classify":
+            return torch.softmax(out.float(), -1)
+        if self.task == "obb":
+            return nms_rotated(decode_obb(out, self.spec.head_strides, self.spec.nc, self.spec.reg_max),
+                               conf_thres=self.conf, iou_thres=self.iou, max_det=self.max_det, nc=self.spec.nc)
         feats = out["feats"] if self.task == "segment" else out
         strides, nc = self.spec.head_strides, self.spec.nc
         kw = dict(conf_thres=self.conf, iou_thres=self.iou, max_det=self.max_det, agnostic=self.agnostic_nms,
@@ -308,7 +323,7 @@ class DetectionPredictor:
             for frames, paths, x, t_pre in batches:
                 t1 = time.perf_counter()
                 out = self.forward(x)
-                if self.task == "detect":
+                if self.task in ("detect", "obb", "classify"):
                     out = (out,)
                 dets = out[0].cpu().numpy()  # the copy waits for the device
                 inf_ms = (time.perf_counter() - t1) * 1000 / len(frames)
@@ -317,7 +332,11 @@ class DetectionPredictor:
                     out = tuple(t.cpu() for t in out)
                 for i, (frame, path) in enumerate(zip(frames, paths)):
                     t2 = time.perf_counter()
-                    if self.task == "segment" and self.retina_masks:
+                    if self.task == "classify":
+                        res = Results(frame, path, self.names, probs=dets[i])
+                    elif self.task == "obb":
+                        res = self._to_results_obb(dets[i], frame, path)
+                    elif self.task == "segment" and self.retina_masks:
                         res = self._to_results_retina(dets[i], out[1][i], out[2][i], frame, path)
                     elif self.task == "segment":
                         res = self._to_results_segment(dets[i], out[1][i], out[2][i], frame, path)
@@ -390,6 +409,16 @@ class DetectionPredictor:
         x1, y1, x2, y2 = (d[:, j].reshape(-1, 1, 1) for j in range(4))
         m = m * ((xx >= x1) & (xx < x2) & (yy >= y1) & (yy < y2))
         return Results(frame, path, self.names, boxes=d, masks=(m > 0.5).astype(np.float32))
+
+    def _to_results_obb(self, dets: np.ndarray, frame: np.ndarray, path: str) -> Results:
+        """Kept rotated rows, their centres and sizes mapped from the letterboxed input back to the frame."""
+        d = dets[self._keep(dets)].copy()
+        h0, w0 = frame.shape[:2]
+        gain = min(self.imgsz / h0, self.imgsz / w0)
+        d[:, 0] = (d[:, 0] - round((self.imgsz - w0 * gain) / 2 - 0.1)) / gain
+        d[:, 1] = (d[:, 1] - round((self.imgsz - h0 * gain) / 2 - 0.1)) / gain
+        d[:, 2:4] /= gain
+        return Results(frame, path, self.names, obb=d)
 
     def _to_results_pose(self, dets: np.ndarray, kpts: np.ndarray, frame: np.ndarray, path: str) -> Results:
         """Kept rows and their keypoints, mapped from the letterboxed input back to the frame."""

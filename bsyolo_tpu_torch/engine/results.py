@@ -1,10 +1,11 @@
-"""Results API of the detect, segment and pose tasks (counterpart of ``bsyolo_tpu/engine/results.py``).
+"""Results API of the five tasks (counterpart of ``bsyolo_tpu/engine/results.py``).
 
 Host numpy containers: by the time results exist, the device work is done.
 ``save_txt``, ``save_crop`` (JPEG crops through the port's own encoder),
 ``summary`` and ``to_json`` need no OpenCV; drawing (``plot``, ``save``)
 does, and imports it only when called (without it they raise ImportError
-naming the ROADMAP item). Mask contours (``Masks.xy``, ``xyn``) and a
+naming the ROADMAP item; rotated boxes and class probabilities are not drawn yet, ROADMAP
+queue 1, item 25). Mask contours (``Masks.xy``, ``xyn``) and a
 segment result's ``save_txt`` lines, which the JAX package traces with
 ``cv2.findContours``, are not ported (ROADMAP queue 1, item 31).
 """
@@ -117,12 +118,77 @@ class Keypoints:
         return self.data[..., 2] if self.data.shape[-1] == 3 else None
 
 
+def _corners(xywhr: np.ndarray) -> np.ndarray:
+    """(n, 5) xywhr -> (n, 4, 2) float32 corners (``ops/obb.py xywhr2xyxyxyxy`` in float32)."""
+    import torch
+
+    from bsyolo_tpu_torch.ops.obb import xywhr2xyxyxyxy
+
+    return xywhr2xyxyxyxy(torch.from_numpy(np.ascontiguousarray(xywhr, np.float32))).numpy()
+
+
+class OBBoxes:
+    """Rotated boxes; ``data`` is (n, 7): x, y, w, h, conf, cls, angle in radians, or (n, 8) with a track id
+    after h."""
+
+    def __init__(self, data: np.ndarray, orig_shape):
+        if data.ndim == 1:
+            data = data[None]
+        self.data = data
+        self.orig_shape = orig_shape
+        self.is_track = data.shape[-1] == 8
+
+    def __len__(self):
+        return len(self.data)
+
+    @property
+    def xywhr(self):
+        return np.concatenate([self.data[:, :4], self.data[:, -1:]], -1)
+
+    @property
+    def conf(self):
+        return self.data[:, -3]
+
+    @property
+    def cls(self):
+        return self.data[:, -2]
+
+    @property
+    def xyxyxyxy(self):
+        return _corners(self.xywhr)
+
+
+class Probs:
+    """Class probabilities of one image, ``data`` (nc,)."""
+
+    def __init__(self, data: np.ndarray):
+        self.data = data
+
+    @property
+    def top1(self):
+        return int(np.argmax(self.data))
+
+    @property
+    def top5(self):
+        return np.argsort(-self.data)[:5].tolist()
+
+    @property
+    def top1conf(self):
+        return float(self.data[self.top1])
+
+    @property
+    def top5conf(self):
+        return self.data[self.top5]
+
+
 class Results:
-    """Detections of one image, with their masks (segment) or keypoints (pose)."""
+    """Detections of one image, with their masks (segment) or keypoints (pose); or its rotated boxes (OBB);
+    or its class probabilities (classify)."""
 
     def __init__(self, orig_img: np.ndarray, path: str, names: Dict[int, str], boxes: Optional[np.ndarray] = None,
                  speed: Optional[Dict[str, float]] = None, masks: Optional[np.ndarray] = None,
-                 keypoints: Optional[np.ndarray] = None):
+                 keypoints: Optional[np.ndarray] = None, obb: Optional[np.ndarray] = None,
+                 probs: Optional[np.ndarray] = None):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.path = path
@@ -130,25 +196,33 @@ class Results:
         self.boxes = Boxes(boxes, self.orig_shape) if boxes is not None else None
         self.masks = Masks(masks, self.orig_shape) if masks is not None else None
         self.keypoints = Keypoints(keypoints, self.orig_shape) if keypoints is not None else None
+        self.obb = OBBoxes(obb, self.orig_shape) if obb is not None else None
+        self.probs = Probs(probs) if probs is not None else None
         self.speed = speed or {}
 
     def __len__(self):
-        return len(self.boxes) if self.boxes is not None else 0
+        for c in (self.boxes, self.obb):
+            if c is not None:
+                return len(c)
+        return 0
 
     def __getitem__(self, idx):
         pick = lambda c: None if c is None else c.data[idx]
         return Results(self.orig_img, self.path, self.names, boxes=pick(self.boxes), masks=pick(self.masks),
-                       keypoints=pick(self.keypoints))
+                       keypoints=pick(self.keypoints), obb=pick(self.obb),
+                       probs=None if self.probs is None else self.probs.data)
 
     def new(self, boxes: Optional[np.ndarray] = None):
         return Results(self.orig_img, self.path, self.names, boxes=boxes)
 
     @property
     def verbose_line(self) -> str:
+        if self.probs is not None:
+            return ", ".join(f"{self.names.get(j, str(j))} {float(self.probs.data[j]):.2f}" for j in self.probs.top5)
         if not len(self):
             return "(no detections)"
         counts: Dict[str, int] = {}
-        for c in self.boxes.cls.astype(int):
+        for c in (self.boxes if self.boxes is not None else self.obb).cls.astype(int):
             name = self.names.get(int(c), str(c))
             counts[name] = counts.get(name, 0) + 1
         return ", ".join(f"{v} {k}{'s' if v > 1 else ''}" for k, v in counts.items())
@@ -156,12 +230,24 @@ class Results:
     def save_txt(self, txt_file, save_conf: bool = False):
         """YOLO-format labels, one ``cls cx cy w h [kx ky [v] ...] [conf]`` line per box
         (normalized xywh, then each keypoint's normalized x, y and visibility for a pose result,
-        6 decimals), as the JAX package's ``Results.save_txt`` writes them. A segment result's
-        polygon lines are not ported (ROADMAP queue 1, item 31)."""
+        6 decimals); ``cls x1 y1 ... x4 y4 [conf]`` per rotated box (its corners, normalized); the top
+        5 classes as ``conf name`` (2 decimals) for class probabilities; as the JAX package's
+        ``Results.save_txt`` writes them. A segment result's polygon lines are not ported (ROADMAP
+        queue 1, item 31)."""
         if self.masks is not None:
             raise NotImplementedError(f"save_txt of a segment result writes mask polygons: {_CONTOURS}")
         lines = []
-        if self.boxes is not None:
+        h, w = self.orig_shape
+        if self.probs is not None:
+            lines = [f"{float(self.probs.data[j]):.2f} {self.names.get(int(j), j)}" for j in self.probs.top5]
+        elif self.obb is not None:
+            polys = self.obb.xyxyxyxy.reshape(len(self.obb), 8) / np.asarray([w, h] * 4, np.float32)
+            for row, poly in zip(self.obb.data, polys):
+                parts = [str(int(row[-2])), *(f"{v:.6f}" for v in poly)]
+                if save_conf:
+                    parts.append(f"{float(row[-3]):.6f}")
+                lines.append(" ".join(parts))
+        elif self.boxes is not None:
             kpts = self.keypoints
             for j, (row, xywhn) in enumerate(zip(self.boxes.data, self.boxes.xywhn)):
                 parts = [str(int(row[-1])), *(f"{v:.6f}" for v in xywhn)]
@@ -199,12 +285,29 @@ class Results:
     def summary(self, normalize: bool = False) -> list:
         """One dict per box: name, class, confidence (5 decimals), box x1/y1/x2/y2 (pixels to 2
         decimals, or normalized to 5), track_id for tracked boxes and the keypoints' x and y lists
-        for a pose result."""
+        for a pose result; per rotated box its cx, cy, w, h and angle (5 decimals); for class
+        probabilities one dict of the top class."""
         rows = []
-        if self.boxes is None:
-            return rows
         h, w = self.orig_shape
         div = (w, h, w, h) if normalize else (1, 1, 1, 1)
+        nd = 5 if normalize else 2
+        if self.probs is not None:
+            top = self.probs.top1
+            return [{"name": self.names.get(top, str(top)), "class": top,
+                     "confidence": round(float(self.probs.top1conf), 5)}]
+        if self.boxes is None and self.obb is not None:
+            for row in self.obb.data:
+                cls = int(row[-2])
+                rec = {"name": self.names.get(cls, str(cls)), "class": cls, "confidence": round(float(row[-3]), 5)}
+                if self.obb.is_track:
+                    rec["track_id"] = int(row[4])
+                rec["box"] = {"cx": round(float(row[0]) / div[0], nd), "cy": round(float(row[1]) / div[1], nd),
+                              "w": round(float(row[2]) / div[0], nd), "h": round(float(row[3]) / div[1], nd),
+                              "angle": round(float(row[-1]), 5)}
+                rows.append(rec)
+            return rows
+        if self.boxes is None:
+            return rows
         for i, row in enumerate(self.boxes.data):
             cls = int(row[-1])
             rec = {
@@ -230,6 +333,9 @@ class Results:
              labels: bool = True, kpt_radius: int = 3) -> np.ndarray:
         """Draw the masks (blended in their class colour), the boxes (with ``id:`` labels on tracked
         boxes) and the keypoints of visibility 0.5 or more on a copy of the original (BGR) image."""
+        if self.obb is not None or self.probs is not None:
+            raise NotImplementedError("drawing rotated boxes and class probabilities is not ported yet (ROADMAP "
+                                      "queue 1, item 25)")
         cv2 = import_cv2("Results.plot", CV2_DRAWING)
 
         img = self.orig_img.copy()

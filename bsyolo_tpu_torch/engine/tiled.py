@@ -86,7 +86,8 @@ def predict_tiled(
     if mesh is not None:
         raise NotImplementedError("sharding the tiles over a device mesh is not ported yet (ROADMAP queue 1, item 14)")
     if getattr(spec, "task", "detect") != "detect":
-        raise NotImplementedError(f"predict_tiled on a {spec.task} graph is not ported yet (ROADMAP queue 1, item 12)")
+        raise NotImplementedError(f"predict_tiled serves Detect graphs only, as the JAX package does; this is a "
+                                  f"{spec.task} graph")
     if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
         raise ValueError(f"expected a uint8 (h, w, 3) BGR frame, got {image.dtype} {image.shape}")
     device = next(model.parameters()).device

@@ -31,9 +31,12 @@ import torch
 import torch.nn as nn
 
 from bsyolo_tpu_torch.engine import optim as O
+from bsyolo_tpu_torch.losses.classify import classification_loss
 from bsyolo_tpu_torch.losses.detect import DetectionLossConfig, LossState, detection_loss, init_loss_state
+from bsyolo_tpu_torch.losses.obb import obb_loss
 from bsyolo_tpu_torch.losses.pose import pose_loss
 from bsyolo_tpu_torch.losses.segment import segmentation_loss
+from bsyolo_tpu_torch.nn.heads import Classify
 from bsyolo_tpu_torch.ops.normalize import normalize_image_batch
 
 Tensors = Dict[str, torch.Tensor]
@@ -114,9 +117,10 @@ def detect_criterion(outputs, batch, loss_state: LossState, cfg: DetectionLossCo
 
 
 def task_criterion(spec, overlap_mask: bool = True, pose_gain: float = 12.0, kobj_gain: float = 1.0):
-    """(criterion, loss item names) of ``spec``'s task, as the JAX trainer picks them: the detection
+    """(criterion, loss item names) of ``spec``'s task, as the JAX trainers pick them: the detection
     loss; the segmentation loss on the batch's overlap-encoded ``masks`` (items box, seg, cls,
-    dfl); the pose loss on its ``keypoints`` (items box, pose, kobj, cls, dfl)."""
+    dfl); the pose loss on its ``keypoints`` (items box, pose, kobj, cls, dfl); the OBB loss on its
+    ``rboxes`` (items box, cls, dfl); the cross-entropy of a Classify graph's logits (item cls)."""
     if spec.task == "segment":
         nm = spec.head.args[1]
 
@@ -131,6 +135,16 @@ def task_criterion(spec, overlap_mask: bool = True, pose_gain: float = 12.0, kob
                              cfg, kpt_shape=spec.kpt_shape, pose_gain=pose_gain, kobj_gain=kobj_gain)
 
         return criterion, ("box_loss", "pose_loss", "kobj_loss", "cls_loss", "dfl_loss")
+    if spec.task == "obb":
+        def criterion(outputs, batch, loss_state, cfg):
+            return obb_loss(outputs, batch["cls"], batch["rboxes"], batch["mask"], loss_state, cfg)
+
+        return criterion, DETECT_ITEMS
+    if spec.task == "classify":
+        def criterion(outputs, batch, loss_state, cfg):
+            return classification_loss(outputs, batch["cls"], loss_state, cfg)
+
+        return criterion, ("cls_loss",)
     return detect_criterion, DETECT_ITEMS
 
 
@@ -151,9 +165,15 @@ def make_train_step(model: nn.Module, cfg: StepConfig, criterion: Optional[Calla
     criterion = criterion or detect_criterion
     if cfg.remat:
         raise NotImplementedError("remat is not ported yet (ROADMAP queue 1, item 19)")
-    if cfg.pass_targets or cfg.needs_dropout_rng:
-        raise NotImplementedError("targets fed into the model and dropout belong to other model families "
-                                  "(ROADMAP queue 1, items 12 and 13)")
+    if cfg.pass_targets:
+        raise NotImplementedError("targets fed into the model (RT-DETR's denoising queries) are not ported yet "
+                                  "(ROADMAP queue 1, item 13)")
+    dropout_gen = None
+    if cfg.needs_dropout_rng:  # the step's own generator, reseeded from the iteration: one mask per step number
+        dropout_gen = torch.Generator(device=next(model.parameters()).device)
+        for m in model.modules():
+            if isinstance(m, Classify):
+                m.generator = dropout_gen
     lf = O.lr_lambda(cfg.optim)
     groups = O.param_groups(model)
     prefixes = frozen_prefixes(cfg.frozen)
@@ -164,6 +184,8 @@ def make_train_step(model: nn.Module, cfg: StepConfig, criterion: Optional[Calla
         model.train()
         for p in params.values():
             p.grad = None
+        if dropout_gen is not None:
+            dropout_gen.manual_seed((7 << 32) + state.step)
         outputs = model(normalize_image_batch(batch["img"]))
         total, items, new_ls = criterion(outputs, batch, state.loss_state, cfg.loss)
         total.backward()

@@ -1,4 +1,4 @@
-"""Trainer of the detect, segment and pose tasks (counterpart of ``bsyolo_tpu/engine/trainer.py``, one process).
+"""Trainer of the detect, segment, pose and OBB tasks (counterpart of ``bsyolo_tpu/engine/trainer.py``, one process).
 
 Around the train step (``engine/train_step.py``) it does what the JAX
 trainer does: the dataset YAML and the graph with the data's classes, the
@@ -25,9 +25,11 @@ with ``losses/segment.py`` on the loader's overlap-encoded masks (at
 1 / ``mask_ratio`` of the image; ``overlap_mask``) and validates with
 ``SegmentationValidator``, a Pose graph with ``losses/pose.py`` (gains
 ``pose`` and ``kobj``; the data's ``flip_idx`` for horizontal flips) and
-``PoseValidator``. Those graphs train in float32 only: ``amp=True``, the
+``PoseValidator``, an OBB graph with ``losses/obb.py`` on the loader's
+``rboxes`` and ``OBBValidator``. Those graphs train in float32 only: ``amp=True``, the
 default, raises for them (the bf16 graph on them is ROADMAP queue 1, item
-12), so pass ``amp=False``.
+12), so pass ``amp=False``. Classify graphs train with ``engine/classify.py
+ClassificationTrainer``.
 
 Options not ported yet raise ``NotImplementedError`` naming their ROADMAP
 item: ``plots=True`` and ``profile=True`` and ``batch=-1`` (item 16),
@@ -51,7 +53,7 @@ from bsyolo_tpu_torch.cfg import get_cfg, model_yaml_path
 from bsyolo_tpu_torch.data import DataLoader, YOLODataset, load_dataset_yaml
 from bsyolo_tpu_torch.engine.optim import OptimConfig, resolve_auto
 from bsyolo_tpu_torch.engine.train_step import StepConfig, init_train_state, make_train_step, task_criterion
-from bsyolo_tpu_torch.engine.validator import DetectionValidator, PoseValidator, SegmentationValidator
+from bsyolo_tpu_torch.engine.validator import DetectionValidator, OBBValidator, PoseValidator, SegmentationValidator
 from bsyolo_tpu_torch.losses import DetectionLossConfig
 from bsyolo_tpu_torch.nn.model import build_model
 from bsyolo_tpu_torch.nn.parser import load_model_yaml, parse_model_yaml
@@ -99,7 +101,7 @@ def val_batches(loader, device):
 
 
 class DetectionTrainer:
-    """Train a detect, segment or pose graph from a model YAML and a dataset YAML."""
+    """Train a detect, segment, pose or OBB graph from a model YAML and a dataset YAML."""
 
     def __init__(self, overrides: Optional[Dict] = None, callbacks=None):
         self.args = get_cfg(overrides=overrides or {})
@@ -128,6 +130,8 @@ class DetectionTrainer:
             d["names"] = data["names"]
         self.spec = parse_model_yaml(d, scale=d.get("scale", ""))
         task = self.spec.task
+        if task == "classify":
+            raise ValueError(f"{args.model} is a Classify graph: engine/classify.py ClassificationTrainer trains it")
         if args.amp and task != "detect":
             raise NotImplementedError(f"train(amp=True), the default, runs the bf16 graph, which on a {task} graph is "
                                       "not ported yet (ROADMAP queue 1, item 12); pass amp=False")
@@ -167,7 +171,8 @@ class DetectionTrainer:
         criterion, self.item_names = task_criterion(self.spec, bool(args.overlap_mask), args.pose, args.kobj)
         self.train_step = make_train_step(self.model, self.step_cfg, criterion, self.item_names)
         self.state = init_train_state(self.model, self.step_cfg)
-        validator_cls = {"segment": SegmentationValidator, "pose": PoseValidator}.get(task, DetectionValidator)
+        validator_cls = {"segment": SegmentationValidator, "pose": PoseValidator, "obb": OBBValidator}.get(
+            task, DetectionValidator)
         self.validator = validator_cls(self.model, self.spec, names=data.get("names"), device=self.device)
         self.csv_path = self.save_dir / "results.csv"
         self._ms_sizes = None

@@ -1,4 +1,4 @@
-"""Validators of the detect, segment and pose tasks (counterpart of ``bsyolo_tpu/engine/validator.py``).
+"""Validators of the detect, segment, pose and OBB tasks (counterpart of ``bsyolo_tpu/engine/validator.py``).
 
 Each batch runs the graph and ``detect_postprocess`` on the card (one launch
 of the box decode kernel per batch, then the NMS), and the host matches the
@@ -11,12 +11,15 @@ the card at prototype size (``process_mask(upsample=False)``, thresholded at
 0.5) and matched by mask IoU against the overlap-encoded ground truth (pixel
 value g + 1 marks instance g). ``PoseValidator`` adds OKS keypoint mAP
 (``kpt_iou_np``, areas 0.53 of the boxes', COCO's sigmas for 17 x 3
-keypoints, else 1 / nkpt each).
+keypoints, else 1 / nkpt each). ``OBBValidator`` decodes rotated boxes
+(``decode_obb``) and suppresses them by probIoU within a class
+(``nms_rotated``) on the card, then matches the kept rows by probIoU
+(``batch_probiou``), which the confusion matrix uses too.
 
 Batches follow the JAX package's padded-label contract, with the image NCHW:
 img (B, 3, H, W) uint8, cls (B, M), bboxes (B, M, 4) normalized xywh,
 mask (B, M), masks (B, H / 4, W / 4) overlap-encoded (segment), keypoints
-(B, M, nkpt, 3) normalized (pose) and, from a val loader, im_idx (B,),
+(B, M, nkpt, 3) normalized (pose), rboxes (B, M, 5) normalized xywhr (OBB) and, from a val loader, im_idx (B,),
 negative on the rows that pad the last batch of a canvas shape. Batches may change shape from one to
 the next (rect val batches).
 
@@ -26,7 +29,8 @@ into ``<save_dir>/predictions.json`` (COCO results); with ``save_txt`` into
 score; detect only). Both need the images' files, in the loader's order (``im_files``).
 Segment results carry each mask, brought back to the original image
 (``mask_to_original``), as RLE; pose results their keypoints in original
-pixels.
+pixels; OBB results their rotated box (``rbox``, the centre shifted back by the pad, the
+size scaled back, the angle kept) and its corners (``poly``).
 The original size is that of the image as ``imread`` decodes it, after the
 JPEG Exif orientation; the JAX package takes PIL's size, before it.
 """
@@ -44,13 +48,15 @@ from bsyolo_tpu_torch import select_device
 from bsyolo_tpu_torch.data.imread import decoded_size
 from bsyolo_tpu_torch.kernels.postprocess import detect_postprocess
 from bsyolo_tpu_torch.losses.pose import OKS_SIGMA
-from bsyolo_tpu_torch.nn.heads import decode_extras, decode_keypoints, gather_anchors
+from bsyolo_tpu_torch.nn.heads import decode_extras, decode_keypoints, decode_obb, gather_anchors
 from bsyolo_tpu_torch.ops.boxes import xywh2xyxy
 from bsyolo_tpu_torch.ops.letterbox import letterbox_params
 from bsyolo_tpu_torch.ops.masks import process_mask
 from bsyolo_tpu_torch.ops.normalize import normalize_image_batch
+from bsyolo_tpu_torch.ops.obb import batch_probiou, nms_rotated
 from bsyolo_tpu_torch.utils import LOGGER
-from bsyolo_tpu_torch.utils.coco import pose_pred_to_json, pred_to_json, save_predictions_json, seg_pred_to_json
+from bsyolo_tpu_torch.utils.coco import (obb_pred_to_json, pose_pred_to_json, pred_to_json, save_predictions_json,
+                                         seg_pred_to_json)
 from bsyolo_tpu_torch.utils.metrics import (ConfusionMatrix, DetMetrics, Metric, _box_iou_np, ap_per_class,
                                             kpt_iou_np, match_predictions)
 
@@ -269,6 +275,19 @@ class DetectionValidator:
     def _extra_json(self, d, pred, im_file, input_hw):
         return pred_to_json(boxes_to_original(d, unletterbox(im_file, input_hw)), im_file, class_map=self.class_map)
 
+    def _ground_truth(self, batch, i: int, mask: np.ndarray, input_hw) -> np.ndarray:
+        """Image ``i``'s ground-truth geometry in input pixels: (n, 4) xyxy boxes."""
+        h, w = input_hw
+        xywh = np.asarray(batch["bboxes"][i])[mask]
+        return xywh2xyxy(torch.as_tensor(xywh)).numpy() * np.array([w, h, w, h], np.float32)
+
+    def _iou(self, gt: np.ndarray, d: np.ndarray) -> np.ndarray:
+        """(n_gt, n_rows) overlaps of the ground truths and the kept rows."""
+        return _box_iou_np(gt, d[:, :4])
+
+    def _confuse(self, confusion: ConfusionMatrix, d: np.ndarray, gt: np.ndarray, gt_cls: np.ndarray, iou) -> None:
+        confusion.process_batch(d, gt, gt_cls)
+
     def _metrics(self) -> DetMetrics:
         return DetMetrics(names=self.names)
 
@@ -299,7 +318,6 @@ class DetectionValidator:
             dets = _filter_classes(dets, self.classes)
             b, h, w = batch["img"].shape[0], batch["img"].shape[2], batch["img"].shape[3]
             n_img += b
-            scale = np.array([w, h, w, h], np.float32)
             im_idx = batch.get("im_idx")
             for i in range(b):
                 k = int(im_idx[i]) if im_idx is not None else n_img - b + i
@@ -307,7 +325,7 @@ class DetectionValidator:
                     continue  # a row that pads the last batch of its shape
                 mask = np.asarray(batch["mask"][i]) > 0
                 gt_cls = np.asarray(batch["cls"][i])[mask].astype(np.float32)
-                gt_xyxy = xywh2xyxy(torch.as_tensor(np.asarray(batch["bboxes"][i])[mask])).numpy() * scale
+                gt = self._ground_truth(batch, i, mask, (h, w))
                 keep = np.flatnonzero(dets[i][:, 4] > 0)
                 d = dets[i][keep]
                 pred = self._image_extras(extras, i, keep, d, (h, w))
@@ -325,16 +343,16 @@ class DetectionValidator:
                         stats["conf"].append(np.zeros(0))
                         stats["pred_cls"].append(np.zeros(0))
                         stats["target_cls"].append(gt_cls)
-                        confusion.process_batch(None, gt_xyxy, gt_cls)
+                        confusion.process_batch(None, gt, gt_cls)
                     continue
-                iou = _box_iou_np(gt_xyxy, d[:, :4])
+                iou = self._iou(gt, d)
                 stats["tp"].append(match_predictions(d[:, 5], gt_cls, iou, self.iouv))
-                for key, tp in zip(self.extra, self._extra_tp(pred, d, batch, i, gt_cls, gt_xyxy, (h, w))):
+                for key, tp in zip(self.extra, self._extra_tp(pred, d, batch, i, gt_cls, gt, (h, w))):
                     stats[key].append(tp)
                 stats["conf"].append(d[:, 4])
                 stats["pred_cls"].append(d[:, 5])
                 stats["target_cls"].append(gt_cls)
-                confusion.process_batch(d, gt_xyxy, gt_cls)
+                self._confuse(confusion, d, gt, gt_cls, iou)
         if write and self.save_json:
             out = self.save_dir / "predictions.json"
             out.parent.mkdir(parents=True, exist_ok=True)
@@ -445,3 +463,38 @@ class PoseValidator(DetectionValidator):
 
     def _metrics(self):
         return PoseMetrics(names=self.names)
+
+
+class OBBValidator(DetectionValidator):
+    """Rotated-box mAP of an OBB graph: rows matched by probIoU at 10 thresholds, the confusion matrix on
+    probIoU too. NMS has no agnostic mode here, as in the JAX package: with ``single_cls`` the classes
+    collapse after the class-wise suppression. ``save_txt`` is not written (detect only, as in the JAX
+    package)."""
+
+    def _postprocess(self, feats):
+        """-> (B, min(max_det, 512, A), 7) rows x, y, w, h, conf, cls, angle on the device."""
+        preds = decode_obb(feats, self.spec.head_strides, self.spec.nc, self.spec.reg_max)
+        return nms_rotated(preds, conf_thres=self.conf, iou_thres=self.iou, max_det=self.max_det, nc=self.spec.nc)
+
+    def _ground_truth(self, batch, i, mask, input_hw):
+        """(n, 5) xywhr rotated boxes in input pixels."""
+        h, w = input_hw
+        return np.asarray(batch["rboxes"][i])[mask] * np.array([w, h, w, h, 1.0], np.float32)
+
+    def _iou(self, gt, d):
+        return batch_probiou(torch.from_numpy(gt), torch.from_numpy(np.concatenate([d[:, :4], d[:, 6:7]], -1))
+                             ).numpy()
+
+    def _confuse(self, confusion, d, gt, gt_cls, iou):
+        keep = d[:, 4] > confusion.conf
+        confusion.process_batch(d[keep], gt, gt_cls, iou=iou[:, keep])
+
+    def _extra_json(self, d, pred, im_file, input_hw):
+        """The rows' centres shifted back by the pad and sizes scaled back to the original image, the
+        angle kept."""
+        _, r, dw, dh = unletterbox(im_file, input_hw)
+        d0 = d.copy()
+        d0[:, 0] = (d0[:, 0] - dw) / r
+        d0[:, 1] = (d0[:, 1] - dh) / r
+        d0[:, 2:4] /= r
+        return obb_pred_to_json(d0, im_file, class_map=self.class_map)

@@ -1,4 +1,4 @@
-"""The YOLO model facade (counterpart of ``bsyolo_tpu/model.py``): detect, segment and pose tasks.
+"""The YOLO model facade (counterpart of ``bsyolo_tpu/model.py``): detect, segment, pose, OBB and classify tasks.
 
     from bsyolo_tpu_torch import YOLO
     m = YOLO("yolo11n.yaml")                  # BS-YOLO graph on cuda:0, seeded init
@@ -18,7 +18,10 @@
     m = YOLO("yolo11n-seg.yaml")               # the task follows the head: results carry masks,
     results = m.predict(frames, retina_masks=True)  # here assembled at each frame's own size
     m = YOLO("yolo11n-pose.yaml")              # results carry keypoints; val gives OKS mAP
-    m.train(data="coco8-pose.yaml", amp=False)  # segment and pose train in float32 (ROADMAP item 12)
+    m.train(data="coco8-pose.yaml", amp=False)  # the task graphs train in float32 (ROADMAP item 12)
+    m = YOLO("yolo11n-obb.yaml")               # results carry rotated boxes (r.obb); val gives probIoU mAP
+    m = YOLO("yolo11n-cls.yaml")               # results carry class probabilities (r.probs)
+    m.train(data="<root with train/ and val/ class folders>", imgsz=224, amp=False)  # top-1 / top-5
 
 ``half=True`` runs a bfloat16 copy of the graph (``YOLO.half_graph``, built by
 ``nn.model.cast_inference_graph``: convolution weights cast once and kept until
@@ -85,7 +88,7 @@ class YOLO:
         raises when CUDA is absent and no other device is given), with weights
         drawn from ``seed``."""
         if task is not None and task not in HEAD_TASKS.values():
-            raise NotImplementedError(f"task {task!r} is not ported yet (ROADMAP queue 1, item 12)")
+            raise ValueError(f"unknown task {task!r}: one of {sorted(HEAD_TASKS.values())}")
         self.model_path = str(model)
         suffix = Path(self.model_path).suffix
         if suffix not in (".yaml", ".ckpt", ".pt"):
@@ -113,7 +116,7 @@ class YOLO:
 
     @property
     def task(self) -> str:
-        """detect, segment or pose: the graph's head decides."""
+        """detect, segment, pose, obb or classify: the graph's head decides."""
         return self.spec.task
 
     def _new(self, yaml_name: str, seed: int = 0, nc: Optional[int] = None, names=None, kpt_shape=None):
@@ -184,9 +187,10 @@ class YOLO:
         <stem>_<i>.jpg`` (``runs/detect/predict`` by default; not with ``stream=True``). ``embed`` is
         accepted and changes nothing, as in the JAX facade: ``embed()`` gives the vectors.
         A Segment graph's results carry masks at each frame's size (``retina_masks=True``: assembled
-        from the prototypes at that size, on the host); a Pose graph's carry keypoints. ``half``
-        and int8 on those graphs are not ported (ROADMAP queue 1, item 12); ``augment`` on them
-        warns and predicts at one scale, as in the JAX package."""
+        from the prototypes at that size, on the host); a Pose graph's carry keypoints, an OBB graph's
+        rotated boxes (``Results.obb``), a Classify graph's class probabilities (``Results.probs``).
+        ``half`` and int8 on those graphs are not ported (ROADMAP queue 1, item 12); ``augment`` on
+        them warns and predicts at one scale, as in the JAX package."""
         for k, v in kwargs.items():
             if k in _NOT_PORTED and v:
                 raise NotImplementedError(f"predict({k}=...) is not ported yet (ROADMAP {_NOT_PORTED[k]})")
@@ -194,8 +198,7 @@ class YOLO:
                 raise TypeError(f"predict() got an unexpected keyword argument {k!r}")
         if kwargs.get("retina_masks") and self.task != "segment":
             raise NotImplementedError(f"predict(retina_masks=True) assembles the masks of a Segment graph; this graph "
-                                      f"has a {self.spec.head.module} head (the other task heads: ROADMAP queue 1, "
-                                      "item 12)")
+                                      f"has a {self.spec.head.module} head")
         if self.task != "detect" and any(isinstance(m, Conv) and m.int8 for m in self.model.modules()):
             raise NotImplementedError(f"int8 inference on a {self.task} graph is not ported yet (ROADMAP queue 1, "
                                       "item 12)")
@@ -258,16 +261,19 @@ class YOLO:
         return self.predict(source, stream=stream, **kwargs)
 
     def train(self, **kwargs):
-        """Train with ``DetectionTrainer`` (overrides as in ``cfg/default.yaml``; the graph is this
-        model's unless ``model=`` names another), on this model's device unless ``device=`` names
-        another; then adopt the trained EMA weights and the trainer's graph (the bf16 graph under
-        ``amp=True``, the default). Returns the last validation's metrics."""
+        """Train with ``DetectionTrainer`` (``ClassificationTrainer`` for a Classify graph, ``data`` its
+        folder-per-class root; overrides as in ``cfg/default.yaml``; the graph is this model's unless
+        ``model=`` names another), on this model's device unless ``device=`` names another; then adopt
+        the trained EMA weights and the trainer's graph (the bf16 graph under ``amp=True``, the
+        default). Returns the last validation's metrics."""
+        from bsyolo_tpu_torch.engine.classify import ClassificationTrainer
         from bsyolo_tpu_torch.engine.trainer import DetectionTrainer
 
         overrides = dict(kwargs)
         overrides.setdefault("model", self.model_path)
         overrides.setdefault("device", str(self._device))
-        self.trainer = trainer = DetectionTrainer(overrides=overrides, callbacks=self._callbacks)
+        trainer_cls = ClassificationTrainer if self.task == "classify" else DetectionTrainer
+        self.trainer = trainer = trainer_cls(overrides=overrides, callbacks=self._callbacks)
         self.metrics = trainer.train()
         # a copy of the trained graph with the EMA weights and the live BatchNorm statistics; the
         # trainer's state keeps its own parameters
@@ -283,19 +289,24 @@ class YOLO:
         (square, or three aspect buckets with ``rect=True``, detect only); NMS at conf 0.001, IoU 0.7
         unless ``conf``, ``iou``, ``max_det`` say otherwise; ``half=True`` on the bf16 graph. Box mAP,
         and mask mAP for a Segment graph (``SegmentMetrics``), OKS keypoint mAP for a Pose graph
-        (``PoseMetrics``).
+        (``PoseMetrics``), probIoU mAP for an OBB graph (``OBBValidator``); top-1 and top-5 accuracy of a
+        Classify graph on the ``val`` (else ``test``) class folders of the root ``data``
+        (``ClassifyMetrics``).
         ``save_json`` writes ``<save_dir>/predictions.json`` (COCO results, the official category ids
         for a COCO set of 80 classes), ``save_txt`` (with ``save_conf``) ``<save_dir>/labels/<stem>.txt``
         per image, in original-image pixels; ``save_dir`` is ``runs/val`` by default."""
         from bsyolo_tpu_torch.data import DataLoader, YOLODataset, load_dataset_yaml
         from bsyolo_tpu_torch.engine.trainer import val_batches
-        from bsyolo_tpu_torch.engine.validator import DetectionValidator, PoseValidator, SegmentationValidator
+        from bsyolo_tpu_torch.engine.validator import (DetectionValidator, OBBValidator, PoseValidator,
+                                                       SegmentationValidator)
 
         if kwargs.get("plots"):
             raise NotImplementedError("val(plots=True) is not ported yet (ROADMAP queue 1, item 16)")
         data = data or (self.trainer.args.data if self.trainer is not None else None)
         if data is None:
             raise ValueError("val() needs data=<dataset yaml>")
+        if self.task == "classify":
+            return self._val_classify(data, batch, imgsz or self._img_size, **kwargs)
         d = load_dataset_yaml(data)
         split = kwargs.get("split", "val")
         if not d.get(split):
@@ -325,10 +336,22 @@ class YOLO:
             coco = "coco" in str(data).lower() and self.spec.nc == 80  # official COCO category ids
             vkw.update(save_json=True, save_dir=save_dir, class_map=COCO80_TO_COCO91 if coco else None)
         model = self.half_graph() if kwargs.get("half") else self.model
-        validator_cls = {"segment": SegmentationValidator, "pose": PoseValidator}.get(task, DetectionValidator)
+        validator_cls = {"segment": SegmentationValidator, "pose": PoseValidator, "obb": OBBValidator}.get(
+            task, DetectionValidator)
         validator = validator_cls(model, self.spec, names=d.get("names"), single_cls=single_cls, device=self._device,
                                   **vkw)
         self.metrics = validator(None, val_batches(loader, self._device), im_files=ds.img_files)
+        return self.metrics
+
+    def _val_classify(self, data, batch: int, imgsz: int, **kwargs):
+        from bsyolo_tpu_torch.data.classify import ClassificationDataset, ClassifyLoader
+        from bsyolo_tpu_torch.engine.classify import ClassificationValidator, val_root
+
+        ds = ClassificationDataset(val_root(data), imgsz=imgsz, augment=False,
+                                   crop_fraction=float(kwargs.get("crop_fraction", 1.0) or 1.0))
+        model = self.half_graph() if kwargs.get("half") else self.model
+        self.metrics = ClassificationValidator(model, self._device)(
+            None, ClassifyLoader(ds, batch, shuffle=False, drop_last=False))
         return self.metrics
 
     def save(self, path: Union[str, Path]) -> Union[str, Path]:

@@ -1,26 +1,28 @@
-"""Task heads (counterpart of ``bsyolo_tpu/nn/heads.py``): Detect, Segment, Pose.
+"""Task heads (counterpart of ``bsyolo_tpu/nn/heads.py``): Detect, Segment, Pose, OBB, Classify.
 
 ``Detect`` returns raw per-level maps (B, 4 * reg_max + nc, H, W), box
-channels first in the side-major DFL layout. ``Segment`` and ``Pose`` are
-Detect with extra per-anchor channels after the class logits: 32 (``nm``)
-mask coefficients, or ``nkpt * ndim`` raw keypoint values; ``Segment`` also
-returns the mask prototypes of ``Proto``. They inherit Detect, so their box
-and class branches carry the reference torch names (``model.23.cv2.0.0``).
-Decoding is a separate pure function, as in the JAX package, so the
-predictor can fuse decode and NMS.
+channels first in the side-major DFL layout. ``Segment``, ``Pose`` and ``OBB``
+are Detect with extra per-anchor channels after the class logits: 32 (``nm``)
+mask coefficients, ``nkpt * ndim`` raw keypoint values, or ``ne`` raw angle
+values; ``Segment`` also returns the mask prototypes of ``Proto``. They
+inherit Detect, so their box and class branches carry the reference torch
+names (``model.23.cv2.0.0``). Decoding is a separate pure function, as in the
+JAX package, so the predictor can fuse decode and NMS. ``Classify`` is a
+1x1 conv to 1280 channels, global average pooling, dropout in train mode and a
+linear layer to the class logits.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
 from bsyolo_tpu_torch.kernels.decode import decode_xywh
-from bsyolo_tpu_torch.nn.modules import Conv, Conv2d, DWConv
-from bsyolo_tpu_torch.ops.anchors import make_anchors
+from bsyolo_tpu_torch.nn.modules import Conv, Conv2d, DWConv, dfl_decode
+from bsyolo_tpu_torch.ops.anchors import dist2rbox, make_anchors
 
 
 class Detect(nn.Module):
@@ -107,6 +109,41 @@ class Pose(Detect):
         return [torch.cat([d, self.cv4[i](x)], 1) for i, (d, x) in enumerate(zip(det, feats))]
 
 
+class OBB(Detect):
+    """Detect + ``ne`` raw rotation-angle values per anchor; levels (B, 4 * reg_max + nc + ne, H, W)."""
+
+    def __init__(self, nc: int, ne: int, ch: Tuple[int, ...], strides: Tuple[int, ...], reg_max: int = 16):
+        super().__init__(nc, ch, strides, reg_max)
+        self.ne = ne
+        self.cv4 = _extra_branch(ch, max(ch[0] // 4, ne), ne)
+
+    def forward(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        det = super().forward(feats)
+        return [torch.cat([d, self.cv4[i](x)], 1) for i, (d, x) in enumerate(zip(det, feats))]
+
+
+class Classify(nn.Module):
+    """Conv 1x1 to 1280 channels, global average pooling, dropout at ``dropout`` in train mode, a linear
+    layer to ``c2`` class logits (B, c2). The dropout draws from ``generator``, which the train step sets
+    (``engine/train_step.py``); a train-mode forward with dropout and no generator raises."""
+
+    def __init__(self, c1: int, c2: int, dropout: float = 0.0):
+        super().__init__()
+        self.conv = Conv(c1, 1280, 1, 1)
+        self.linear = nn.Linear(1280, c2)
+        self.dropout = float(dropout)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x).mean((2, 3))
+        if self.training and self.dropout > 0:
+            if self.generator is None:
+                raise RuntimeError("Classify dropout in train mode needs a torch.Generator (Classify.generator)")
+            keep = torch.rand(x.shape, generator=self.generator, device=x.device) < 1.0 - self.dropout
+            x = torch.where(keep, x / (1.0 - self.dropout), 0.0)
+        return self.linear(x)
+
+
 def decode_extras(feats: Sequence[torch.Tensor], nc: int, reg_max: int = 16) -> torch.Tensor:
     """The per-anchor channels past ``4 * reg_max + nc`` (mask coefficients, raw keypoints) of
     per-level (B, no, H, W) maps -> (B, A, no - 4 * reg_max - nc), anchors level-major."""
@@ -145,3 +182,16 @@ def decode_detections(feats: Sequence[torch.Tensor], strides: Sequence[int], nc:
     Channels past ``4 * reg_max + nc`` are ignored.
     """
     return decode_xywh(feats, strides, nc, reg_max)
+
+
+def decode_obb(feats: Sequence[torch.Tensor], strides: Sequence[int], nc: int, reg_max: int = 16,
+               ne: int = 1) -> torch.Tensor:
+    """Raw OBB maps -> (B, A, 4 + nc + 1) float32: x, y, w, h in pixels, sigmoid scores, angle in radians
+    (``(sigmoid(raw) - 0.25) * pi``), the box decoded around its angle (``dist2rbox``)."""
+    anchors, stride_t = make_anchors([f.shape[2:] for f in feats], strides, 0.5, device=feats[0].device)
+    b = feats[0].shape[0]
+    flat = torch.cat([f.reshape(b, f.shape[1], -1) for f in feats], 2).transpose(1, 2).float()
+    base = 4 * reg_max + nc
+    angle = (torch.sigmoid(flat[..., base : base + ne]) - 0.25) * math.pi
+    rbox = dist2rbox(dfl_decode(flat[..., : 4 * reg_max], reg_max), angle, anchors[None]) * stride_t[None]
+    return torch.cat([rbox, torch.sigmoid(flat[..., 4 * reg_max : base]), angle], -1)

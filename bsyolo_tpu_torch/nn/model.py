@@ -16,11 +16,11 @@ import torch
 import torch.nn as nn
 
 from bsyolo_tpu_torch.nn import modules as M
-from bsyolo_tpu_torch.nn.heads import Detect, Pose, Segment
+from bsyolo_tpu_torch.nn.heads import OBB, Classify, Detect, Pose, Segment
 from bsyolo_tpu_torch.nn.parser import LayerSpec, ModelSpec
 
 
-def _build_layer(spec: LayerSpec, strides) -> nn.Module:
+def _build_layer(spec: LayerSpec, strides, dropout: float = 0.0) -> nn.Module:
     m, a, c1 = spec.module, spec.args, spec.c1
 
     def opt(i, default):
@@ -59,12 +59,17 @@ def _build_layer(spec: LayerSpec, strides) -> nn.Module:
         return Segment(a[0], a[1], a[2], a[3], strides)
     if m == "Pose":
         return Pose(a[0], a[1], a[2], strides)
+    if m == "OBB":
+        return OBB(a[0], a[1], a[2], strides)
+    if m == "Classify":
+        return Classify(c1, a[0], dropout)
     raise NotImplementedError(f"module {m} has no layer constructor in DetectionGraph")
 
 
 class DetectionGraph(nn.Module):
     """Executes a ModelSpec; the output is the head's: a list of raw per-level maps (Detect,
-    Pose), or ``{"feats": levels, "proto": prototypes}`` (Segment)."""
+    Pose, OBB), ``{"feats": levels, "proto": prototypes}`` (Segment), or (B, nc) class logits
+    (Classify)."""
 
     def __init__(self, spec: ModelSpec):
         super().__init__()
@@ -74,7 +79,7 @@ class DetectionGraph(nn.Module):
             if layer.n > 1:  # plain repeated modules become a Sequential, children 0..n-1
                 layers.append(nn.Sequential(*(_build_layer(layer, spec.head_strides) for _ in range(layer.n))))
             else:
-                layers.append(_build_layer(layer, spec.head_strides))
+                layers.append(_build_layer(layer, spec.head_strides, spec.dropout))
         self.model = nn.ModuleList(layers)
 
     def forward(self, x: torch.Tensor, embed: Sequence[int] = ()):
@@ -104,9 +109,9 @@ COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 def refuse_task_head(model: nn.Module, what: str) -> None:
     """Raise NotImplementedError for ``what`` (the bf16 graph, int8 inference, tiled predict) on a
-    graph with a Segment or Pose head: those modes are ported for the Detect graph only."""
+    graph with a Segment, Pose, OBB or Classify head: those modes are ported for the Detect graph only."""
     for m in model.modules():
-        if isinstance(m, (Segment, Pose)):
+        if isinstance(m, (Segment, Pose, OBB, Classify)):
             raise NotImplementedError(f"{what} on a {type(m).__name__} graph is not ported yet (ROADMAP queue 1, "
                                       "item 12)")
 
@@ -119,7 +124,8 @@ def build_model(spec: ModelSpec, device, seed: int = 0, dtype: torch.dtype = tor
     model = DetectionGraph(spec)
     g = torch.Generator().manual_seed(seed)
     M.reset_parameters(model, g)
-    model.model[-1].bias_init()
+    if isinstance(model.model[-1], Detect):
+        model.model[-1].bias_init()
     set_compute_dtype(model, dtype)
     return model.to(device).eval()
 

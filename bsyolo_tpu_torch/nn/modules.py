@@ -48,10 +48,10 @@ def at_least_f32(t: torch.Tensor) -> torch.Tensor:
 
 
 def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
-    """Draw every conv weight from U(+-1/sqrt(fan_in)) with ``generator``; zero
-    conv biases; norms start at identity; ELA's fusion weights at zero."""
+    """Draw every conv and linear weight from U(+-1/sqrt(fan_in)) with ``generator``; zero
+    their biases; norms start at identity; ELA's fusion weights at zero."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d)):
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             fan_in = m.weight[0].numel()
             bound = 1.0 / math.sqrt(fan_in)
             with torch.no_grad():

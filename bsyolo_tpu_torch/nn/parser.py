@@ -4,8 +4,9 @@ Turns a model YAML (backbone/head rows of ``[from, repeats, module, args]``
 with ``scales:`` compound scaling) into a static ``ModelSpec``: channel
 arithmetic, depth/width scaling and stride propagation all happen here. Only
 the modules of the BS-YOLO detection graphs (``cfg/models/11/yolo11.yaml`` and
-``yolo11old.yaml``) and the Segment and Pose heads (``yolo11-seg.yaml``,
-``yolo11-pose.yaml``) are accepted; any other module raises
+``yolo11old.yaml``) and the Segment, Pose, OBB and Classify heads
+(``yolo11-seg.yaml``, ``yolo11-pose.yaml``, ``yolo11-obb.yaml``,
+``yolo11-cls.yaml``) are accepted; any other module raises
 ``NotImplementedError`` naming it.
 """
 
@@ -25,7 +26,9 @@ _CONVLIKE = {"Conv", "DWConv", "Bottleneck", "SPPF", "C2PSA", "C2f", "C3", "C3k2
 # modules that take the (depth-scaled) repeat count as args[1]
 _REPEAT = {"C2f", "C3", "C3k2", "C3k2_gai", "C2PSA"}
 # the heads the port builds -> the task they serve
-HEAD_TASKS = {"Detect": "detect", "Segment": "segment", "Pose": "pose"}
+HEAD_TASKS = {"Detect": "detect", "Segment": "segment", "Pose": "pose", "OBB": "obb", "Classify": "classify"}
+# the heads on a detection trunk of several levels (every head but Classify)
+_LEVEL_HEADS = {"Detect", "Segment", "Pose", "OBB"}
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -52,8 +55,9 @@ class ModelSpec:
     nc: int
     scale: str
     names: Tuple[str, ...] = ()
-    task: str = "detect"  # from the head: detect, segment or pose
+    task: str = "detect"  # from the head: detect, segment, pose, obb or classify
     kpt_shape: Tuple[int, int] = (17, 3)  # (keypoints, dims) of a Pose head
+    dropout: float = 0.0  # the Classify head's dropout rate in train mode (the cfg's ``dropout``)
 
     @property
     def head(self) -> LayerSpec:
@@ -148,7 +152,11 @@ def parse_model_yaml(d: dict, ch: int = 3, scale: str = "") -> ModelSpec:
             out_stride = in_stride // int(args[1] if len(args) > 1 else 2)
         elif m == "Concat":
             c2 = sum(channels[x] if x != -1 else channels[-1] for x in fl)
-        elif m in HEAD_TASKS:
+        elif m == "Classify":
+            c2 = args[0]
+            args = [c2]
+            task = "classify"
+        elif m in _LEVEL_HEADS:
             if legacy:
                 raise NotImplementedError(f"legacy {m} (graphs without C3k2) is not ported")
             if m == "Segment":  # [nc, nm, npr]: the prototype width is width-scaled
@@ -156,6 +164,8 @@ def parse_model_yaml(d: dict, ch: int = 3, scale: str = "") -> ModelSpec:
             elif m == "Pose":
                 kpt_shape = tuple(args[1])
                 args = [args[0], kpt_shape]
+            elif m == "OBB":  # [nc, ne]: ne angle channels per anchor
+                args = [args[0], int(args[1]) if len(args) > 1 else 1]
             args = [*args, tuple(channels[x] for x in fl)]
             task = HEAD_TASKS[m]
             c2 = 0
@@ -171,8 +181,8 @@ def parse_model_yaml(d: dict, ch: int = 3, scale: str = "") -> ModelSpec:
         strides.append(out_stride)
 
     if layers[-1].module not in HEAD_TASKS:
-        raise NotImplementedError(f"graph head {layers[-1].module!r}: the port serves Detect, Segment and Pose graphs "
-                                  "only (OBB and Classify: ROADMAP queue 1, item 12)")
+        raise NotImplementedError(f"graph head {layers[-1].module!r}: the port serves Detect, Segment, Pose, OBB and "
+                                  "Classify graphs only")
     names_map = d.get("names") or {}
     class_names = tuple(names_map[k] for k in sorted(names_map)) if names_map else tuple(str(j) for j in range(nc))
     return ModelSpec(

@@ -43,3 +43,14 @@ def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor, reg_max: float) -
     """xyxy boxes -> (l, t, r, b) distances from the anchor points, clamped to [0, reg_max - 0.01]."""
     x1y1, x2y2 = bbox.chunk(2, -1)
     return torch.cat((anchor_points - x1y1, x2y2 - anchor_points), -1).clamp(0, reg_max - 0.01)
+
+
+def dist2rbox(pred_dist: torch.Tensor, pred_angle: torch.Tensor, anchor_points: torch.Tensor,
+              dim: int = -1) -> torch.Tensor:
+    """(l, t, r, b) distances in the box's own frame and its angle -> x, y, w, h: the centre offset
+    ``(r - l, b - t) / 2`` rotated by the angle around the anchor point, the size ``l + r, t + b``."""
+    lt, rb = pred_dist.chunk(2, dim)
+    cos, sin = torch.cos(pred_angle), torch.sin(pred_angle)
+    xf, yf = ((rb - lt) / 2).chunk(2, dim)
+    x, y = xf * cos - yf * sin, xf * sin + yf * cos
+    return torch.cat([torch.cat([x, y], dim) + anchor_points, lt + rb], dim)

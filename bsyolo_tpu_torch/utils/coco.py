@@ -1,4 +1,4 @@
-"""COCO-format results and their evaluation (counterpart of the detect, segment and pose parts
+"""COCO-format results and their evaluation (counterpart of the detect, segment, pose and OBB parts
 of ``bsyolo_tpu/utils/coco.py``).
 
 ``pred_to_json``, ``seg_pred_to_json`` (masks as compressed RLE,
@@ -7,7 +7,8 @@ of ``bsyolo_tpu/utils/coco.py``).
 annotation file with a self-contained evaluator built on
 ``utils/metrics.py`` (per-image greedy matching at IoU 0.50:0.95, 101-point
 AP). It never calls pycocotools, which the JAX package prefers where it is
-installed, and scores boxes only. The OBB serializer is ROADMAP queue 1, item 12.
+installed, and scores boxes only. ``obb_pred_to_json`` writes rotated boxes with
+both their ``rbox`` (cx, cy, w, h, r) and their corners (``poly``).
 """
 
 from __future__ import annotations
@@ -185,3 +186,24 @@ def evaluate_json(anno_json, pred_json, verbose: bool = True) -> Dict[str, float
     if verbose:
         print(f"COCO-json eval (built-in): mAP50-95 {out['mAP50-95']:.4f}  mAP50 {out['mAP50']:.4f}")
     return out
+
+
+def obb_pred_to_json(dets: np.ndarray, filename: str, class_map: Optional[List[int]] = None) -> List[Dict]:
+    """(n, 7) rotated rows (x, y, w, h, conf, cls, angle) of one image -> COCO-style dicts with ``rbox``
+    (cx, cy, w, h, r) and ``poly`` (the 8 corner coordinates), rounded to 3 decimals; rows of conf 0 are
+    skipped."""
+    import torch
+
+    from bsyolo_tpu_torch.ops.obb import xywhr2xyxyxyxy
+
+    stem = Path(filename).stem
+    image_id = int(stem) if stem.isnumeric() else stem
+    d = np.asarray(dets, np.float64)
+    if not len(d):
+        return []
+    rbox = np.concatenate([d[:, :4], d[:, 6:7]], -1)
+    poly = xywhr2xyxyxyxy(torch.from_numpy(rbox.astype(np.float32))).numpy().reshape(len(d), 8)
+    return [{"image_id": image_id, "category_id": class_map[int(row[5])] if class_map else int(row[5]),
+             "score": round(float(row[4]), 5), "rbox": [round(float(x), 3) for x in rbox[i]],
+             "poly": [round(float(x), 3) for x in poly[i]]}
+            for i, row in enumerate(d) if row[4] > 0]

@@ -4,7 +4,7 @@ The port's modules carry the reference torch parameter names, so JAX
 variables map onto them one to one through ``flax_path_to_torch_key``:
 ``m{i}`` -> ``model.{i}``, ``m_{j}`` -> ``m.{j}``, ``cv2_{i}_{j}`` ->
 ``cv2.{i}.{j}``, with the exceptions the BS-YOLO graph needs: DWConv's ``dw``
-wrapper level and the Segment and Pose heads' nested ``detect`` level (the
+wrapper level and the Segment, Pose and OBB heads' nested ``detect`` level (the
 port's heads inherit Detect, as the reference's do) are dropped, MSCA's SE convs are ``SEn.conv.0``, ELA's channel
 conv is ``ch_att.2``, ``conv0_1``-style strip-conv names stay whole, and ELA's
 fusion weights are bare parameters.
@@ -225,7 +225,7 @@ def jax_paths(model: torch.nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...]]]:
     statistics: torch key -> (collection, flax path), from the port's own module types, so no
     JAX state is needed. Consecutive list indices join their list's name (``cv2.1.0`` ->
     ``cv2_1_0``), ``model.{i}`` is ``m{i}``, DWConv gets its ``dw`` level back, an _SE's
-    ``conv.0`` is the SE level itself, ELA's ``ch_att.2`` is ``ch_conv``, a Segment or Pose
+    ``conv.0`` is the SE level itself, ELA's ``ch_att.2`` is ``ch_conv``, a Segment, Pose or OBB
     head's box and class branches (``cv2``, ``cv3``) sit under its ``detect`` level; a norm's
     weight is ``scale``, a conv's or linear's ``kernel``."""
     mods = dict(model.named_modules())
@@ -252,7 +252,7 @@ def jax_paths(model: torch.nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...]]]:
                 continue
             if i == 0 and c == "model":
                 path.append("m" + parents[1])
-            elif c in ("cv2", "cv3") and type(owner).__name__ in ("Segment", "Pose"):
+            elif c in ("cv2", "cv3") and type(owner).__name__ in ("Segment", "Pose", "OBB"):
                 path += ["detect", "_".join(parents[i:j])]
             else:
                 path.append("_".join(parents[i:j]))

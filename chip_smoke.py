@@ -162,8 +162,25 @@ this checkout; exits non-zero without them. Phases, each of which fails the run 
    or keypoints (within 0.05 px), the CPU's own graph paired and printed;
    ms per batch of 4 and ``process_mask``'s device time.
 
+14. The OBB and Classify task families at full width: yolo11n-obb (nc 15,
+   DOTA's classes) at 1024 px on a seeded set of 32 train and 8 val
+   1024x1024 JPEGs of rotated rectangles, and yolo11n-cls (nc 10, the
+   folder-per-class set of 10 x 16 train and 10 x 4 val JPEGs) at 224 px:
+   (a) one train step from the same drawn weights and loader batch (OBB at
+   batch 2, classify at batch 8), card against CPU, loss items within 1e-3;
+   (b) ``YOLO.train`` 2 epochs with 2 workers (OBB at batch 4, classify at
+   batch 32), ``YOLO(best.ckpt)`` rebuilding the head with the data's
+   classes, ``val`` and ``predict``: ms per step, loader-wait share, peak
+   memory; (c) predict at conf 0.25 and batch 4 on drawn weights: the OBB
+   head maps against the CPU's, the rotated rows against the CPU's
+   postprocess run on the card's head maps (paired at least 0.98, within
+   1e-3 px and 1e-5 rad), yolo11n-cls at nc 1000 (ImageNet's classes) with
+   its top 5 equal to the CPU's and probabilities within 1e-5; ms per batch
+   of 4. These paths reach no kernel of the port: every launch counter stays
+   0 through them, and phase 14 checks that.
+
 Phases 10a to 10c run right after phase 6, on the float graph phases 3 to 6
-used; 10d and 10e after phase 9, 11, 12 and 13 last. Each phase prints its seconds. Every launch counter is set to 0 just before a path is driven and read just
+used; 10d and 10e after phase 9, 11, 12, 13 and 14 last. Each phase prints its seconds. Every launch counter is set to 0 just before a path is driven and read just
 after, so each path shows the kernels it went through.
 
 TF32 is off for convolutions and matrix products throughout, so the card and
@@ -174,7 +191,7 @@ launches on phase 10's bf16 paths (``bf16_launches``), on phase 11's
 product path (``product_launches``) and on phase 12's photos
 (``photo_launches``) among all its launches, and
 ``int8_matmul`` its bf16 epilogue's figures (``bf16_out``); each also carries
-its launches on phase 13's task paths (``task_launches``), and
+its launches on phase 13's and 14's task paths (``task_launches``), and
 ``decode_box_best`` phase 2's task-head figures (``task_heads``).
 """
 
@@ -684,8 +701,9 @@ def check_int8_kernel(dev):
 def draw_weights(model, seed: int) -> None:
     """Seeded random weights that keep the signal through the graph's depth:
     convs at U(+-sqrt(3 / fan_in)), BatchNorm statistics away from the
-    identity, the head's last convs scaled by HEAD_GAIN (the default init
-    leaves every logit at its bias, so every score ties)."""
+    identity, the head's last convs (a Classify head's linear layer) scaled by
+    HEAD_GAIN (the default init leaves every logit at its bias, so every score
+    ties)."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
@@ -701,6 +719,9 @@ def draw_weights(model, seed: int) -> None:
             else:
                 p.copy_(torch.empty(p.shape).uniform_(-0.1, 0.1, generator=g))
         head = model.model[-1]
+        if hasattr(head, "linear"):  # a Classify head: spread its logits as the Detect family's
+            head.linear.weight.mul_(HEAD_GAIN)
+            return
         for branch in (*head.cv2, *head.cv3):
             branch[-1].weight.mul_(HEAD_GAIN)
 
@@ -3133,6 +3154,293 @@ def task_path(dev, root):
     return total
 
 
+# phase 14: the OBB and Classify task families (yolo11n-obb at nc 15 and 1024 px, yolo11n-cls at nc 10 and 224 px)
+P14_OBB_TRAIN, P14_OBB_VAL, P14_OBB_SIDE, P14_OBB_BATCH, P14_OBB_STEP_BATCH = 32, 8, 1024, 4, 2
+P14_CLS_NC, P14_CLS_TRAIN, P14_CLS_VAL, P14_CLS_HW, P14_CLS_IMGSZ = 10, 16, 4, (256, 320), 224
+P14_CLS_BATCH, P14_CLS_STEP_BATCH, P14_WORKERS = 32, 8, 2
+P14_ANGLE_RAD = 1e-5  # paired rotated rows, card vs CPU postprocess on the same head maps
+P14_BOX_PX = 1e-3
+P14_PROB_ATOL = 1e-5  # class probabilities, card vs CPU
+NO_LAUNCHES = {"decode_box_best": 0, "decode_xywh": 0, "int8_matmul": 0}
+
+
+def write_obb_jpeg_dataset(root, names, seed: int):
+    """P14_OBB_TRAIN + P14_OBB_VAL seeded square JPEG frames of P14_OBB_SIDE px (the port's encoder), 2 to 12
+    rotated rectangles each, 16 to 240 px long, one colour per class, labelled as DOTA-style corner rows
+    ``cls x1 y1 ... x4 y4`` (normalized); returns the dataset YAML's path."""
+    from bsyolo_tpu_torch.data.cv import fill_poly
+    from bsyolo_tpu_torch.data.imread import imwrite
+
+    rng = np.random.default_rng(seed)
+    colours = rng.integers(40, 256, (len(names), 3))
+    side = P14_OBB_SIDE
+    for split, n in (("train", P14_OBB_TRAIN), ("val", P14_OBB_VAL)):
+        (root / "images" / split).mkdir(parents=True)
+        (root / "labels" / split).mkdir(parents=True)
+        for i in range(n):
+            img = rng.integers(0, 40, (side, side, 3), dtype=np.uint8)
+            rows = []
+            for _ in range(int(rng.integers(2, 13))):
+                c = int(rng.integers(0, len(names)))
+                w, h, r = rng.uniform(16, 240), rng.uniform(8, 80), rng.uniform(-np.pi / 2, np.pi / 2)
+                cx, cy = rng.uniform(0.1, 0.9, 2) * side
+                d = np.array([[w / 2, h / 2], [-w / 2, h / 2], [-w / 2, -h / 2], [w / 2, -h / 2]])
+                pts = (d @ np.array([[np.cos(r), np.sin(r)], [-np.sin(r), np.cos(r)]]) + [cx, cy]).clip(0, side - 1)
+                img[fill_poly(np.zeros((side, side), np.uint8), [np.round(pts).astype(np.int32)], 1) > 0] = colours[c]
+                rows.append(f"{c} " + " ".join(f"{v / side:.6f}" for v in pts.reshape(-1)))
+            imwrite(root / "images" / split / f"{i:04d}.jpg", img)
+            (root / "labels" / split / f"{i:04d}.txt").write_text("\n".join(rows) + "\n")
+    yaml = root / "data.yaml"
+    yaml.write_text(f"path: {root}\ntrain: images/train\nval: images/val\nnames:\n"
+                    + "".join(f"  {i}: {n}\n" for i, n in enumerate(names)))
+    return yaml
+
+
+def write_cls_jpeg_dataset(root, seed: int):
+    """A folder-per-class set: P14_CLS_NC classes x (P14_CLS_TRAIN train + P14_CLS_VAL val) seeded JPEG frames
+    of P14_CLS_HW, each class a shape of its own colour and size on noise; returns the root."""
+    from bsyolo_tpu_torch.data.imread import imwrite
+
+    rng = np.random.default_rng(seed)
+    h, w = P14_CLS_HW
+    for split, n in (("train", P14_CLS_TRAIN), ("val", P14_CLS_VAL)):
+        for c in range(P14_CLS_NC):
+            d = root / split / f"class{c}"
+            d.mkdir(parents=True)
+            colour = np.random.default_rng(c).integers(40, 256, 3)
+            for i in range(n):
+                img = rng.integers(0, 60, (h, w, 3), dtype=np.uint8)
+                s = 20 + 12 * c
+                y, x = int(rng.integers(0, h - s)), int(rng.integers(0, w - s))
+                img[y : y + s, x : x + s] = colour
+                imwrite(d / f"{i:03d}.jpg", img)
+    return root
+
+
+def obb_pairs(got: np.ndarray, want: np.ndarray):
+    """[(i, j, max |xywh diff|, |angle diff|)]: each rotated row of ``got`` paired with an unused row of
+    ``want`` of its class within P14_BOX_PX, P14_ANGLE_RAD and MATCH_SCORE."""
+    used, out = set(), []
+    for i, g in enumerate(got):
+        for j, w in enumerate(want):
+            if j in used or g[5] != w[5] or abs(g[4] - w[4]) > MATCH_SCORE:
+                continue
+            box, ang = float(np.abs(g[:4] - w[:4]).max()), float(abs(g[6] - w[6]))
+            if box <= P14_BOX_PX and ang <= P14_ANGLE_RAD:
+                used.add(j)
+                out.append((i, j, box, ang))
+                break
+    return out
+
+
+def obb_cls_step_against_cpu(dev, task, graph, batch, label):
+    """Phase 14a: one train step from ``graph``'s weights on ``batch``, on the CPU and on the card."""
+    import torch
+
+    from bsyolo_tpu_torch.engine.train_step import init_train_state, make_train_step, task_criterion
+    from bsyolo_tpu_torch.engine.trainer import to_device
+
+    results = {}
+    for where, g in (("cpu", graph), ("card", copy.deepcopy(graph).to(dev))):
+        cfg = train_config(g.spec, len(batch["cls"]))
+        criterion, names = task_criterion(g.spec)
+        on = torch.device(dev) if where == "card" else torch.device("cpu")
+        t0 = time.perf_counter()
+        state, metrics = make_train_step(g, cfg, criterion, names)(init_train_state(g, cfg), to_device(batch, on))
+        items = np.array([float(metrics[k]) for k in names])
+        results[where] = (items, {n: p.detach().cpu() for n, p in state.params.items()}, time.perf_counter() - t0)
+    (gi, gp, gs), (wi, wp, ws) = results["card"], results["cpu"]
+    rel = np.abs(gi - wi) / np.maximum(np.abs(wi), 1e-30)
+    param = max(_rel_max(gp[n], wp[n]) for n in wp)
+    print(f"phase 14a {label}, card vs CPU: loss items {names} {gi.tolist()} vs {wi.tolist()}, rel diff "
+          f"{rel.tolist()} (tol {P13_LOSS_RTOL}); params after the step, max |diff| over the tensor's max |value| "
+          f"{param:.3g}; card {gs:.2f} s, CPU {ws:.2f} s")
+    if not (np.isfinite(gi).all() and (rel <= P13_LOSS_RTOL).all()):
+        raise SystemExit(f"the {task} train step's loss items on the card differ from the CPU's")
+
+
+def obb_predict_against_cpu(dev, best, frames):
+    """Phase 14c (OBB): YOLO(best.ckpt) with drawn weights on the card at batch 4 and conf 0.25: the head maps
+    against the CPU graph's, the rotated rows against the CPU's postprocess run on the card's head maps (a
+    Replay of them), and, printed, against the CPU's own graph; ms per batch of 4."""
+    import torch
+
+    from bsyolo_tpu_torch import YOLO
+    from bsyolo_tpu_torch.ops.letterbox import letterbox
+
+    host, card = YOLO(best, device="cpu"), YOLO(best)
+    draw_weights(host.model, SEED + 41)
+    card.model.load_state_dict(host.model.state_dict())
+    side = P14_OBB_SIDE
+    x = torch.stack([letterbox(f, (side, side), "cpu") for f in frames[:4]]).float() / 255.0
+    with torch.inference_mode():
+        want_head, got_head = host.model(x), _to(card.model(x.to(dev)), "cpu")
+    for w, g in zip(want_head, got_head):
+        err, scale = (g - w).abs().max().item(), w.abs().max().item()
+        print(f"  obb head level {tuple(w.shape[1:])} card vs CPU: max|err| {err:.3g} at max|value| {scale:.3g}")
+        if not err <= P13_HEAD_RTOL * scale:
+            raise SystemExit(f"the OBB head on the card disagrees with the CPU beyond {P13_HEAD_RTOL} of its scale")
+    card.predict(frames[:4], imgsz=side, batch=4, conf=P13_CONF)  # warm-up
+    recorded = []
+    hook = card.model.register_forward_hook(lambda module, args, output: recorded.append(_to(output, "cpu")))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        got = card.predict(frames, imgsz=side, batch=4, conf=P13_CONF)
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    ms = (time.perf_counter() - t0) * 1e3 / math.ceil(len(frames) / 4)
+    replay = YOLO(best, device="cpu")
+    replay.model = Replay(recorded)
+    want = replay.predict(frames, imgsz=side, batch=4, conf=P13_CONF)
+    pairs = [obb_pairs(g.obb.data, w.obb.data) for g, w in zip(got, want)]
+    rows, want_rows = sum(len(r) for r in got), sum(len(r) for r in want)
+    frac = sum(len(p) for p in pairs) / max(rows, want_rows, 1)
+    box = max((b for p in pairs for _, _, b, _ in p), default=0.0)
+    ang = max((a for p in pairs for _, _, _, a in p), default=0.0)
+    own = host.predict(frames, imgsz=side, batch=4, conf=P13_CONF)
+    own_frac = sum(len(obb_pairs(g.obb.data, w.obb.data)) for g, w in zip(got, own)) / max(
+        rows, sum(len(r) for r in own), 1)
+    print(f"  obb predict: {ms:.1f} ms per batch of 4 on the card (host clock, letterbox to rotated rows at the "
+          f"frame's size), {rows} rows; against the CPU's postprocess on the card's head maps: {frac:.4f} of the rows "
+          f"paired (tol {MATCH_MIN_FRACTION}), max |xywh diff| {box:.3g} px, max |angle diff| {ang:.3g} rad; against "
+          f"the CPU's own graph: {own_frac:.4f} paired (printed)")
+    if not (rows and all(np.isfinite(r.obb.data).all() for r in got)):
+        raise SystemExit("obb predict on drawn weights gave no rows, or rows that are not finite")
+    if frac < MATCH_MIN_FRACTION:
+        raise SystemExit(f"obb predict on the card pairs only {frac:.4f} of the CPU's rows")
+    return {"ms_per_batch": ms, "paired": frac, "paired_own_graph": own_frac, "rows": rows}
+
+
+def cls_predict_against_cpu(dev, frames, root):
+    """Phase 14c (classify): yolo11n-cls at nc 1000 with drawn weights, batch 4: top 5 and probabilities
+    against the CPU's; ms per batch of 4."""
+    import torch
+
+    from bsyolo_tpu_torch import YOLO
+    from bsyolo_tpu_torch.cfg import model_yaml_path
+
+    text = model_yaml_path("yolo11-cls.yaml").read_text()
+    name = str(root / "yolo11n-cls-imagenet.yaml")  # yolo11-cls.yaml at scale n with ImageNet's 1000 classes
+    Path(name).write_text(text.replace("\nnc: 80\n", "\nnc: 1000\nscale: n\n"))
+    host, card = YOLO(name, device="cpu"), YOLO(name)
+    if card.spec.nc != 1000:
+        raise SystemExit(f"the nc 1000 classify graph has nc {card.spec.nc}")
+    draw_weights(host.model, SEED + 42)
+    card.model.load_state_dict(host.model.state_dict())
+    card.predict(frames[:4], imgsz=P14_CLS_IMGSZ, batch=4)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = card.predict(frames, imgsz=P14_CLS_IMGSZ, batch=4)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / math.ceil(len(frames) / 4)
+    want = host.predict(frames, imgsz=P14_CLS_IMGSZ, batch=4)
+    top5 = all(g.probs.top5 == w.probs.top5 for g, w in zip(got, want))
+    err = max(float(np.abs(g.probs.data - w.probs.data).max()) for g, w in zip(got, want))
+    spread = float(np.mean([g.probs.top1conf for g in got]))
+    print(f"  classify predict (nc 1000): {ms:.1f} ms per batch of 4 on the card (host clock, letterbox to "
+          f"probabilities), {len(got)} frames; top 5 equal to the CPU's {top5}, max |prob diff| {err:.3g} (tol "
+          f"{P14_PROB_ATOL}); mean top-1 probability {spread:.4f}")
+    if not (top5 and err <= P14_PROB_ATOL):
+        raise SystemExit("classify predict on the card differs from the CPU's")
+    return {"ms_per_batch": ms, "max_prob_diff": err}
+
+
+def obb_classify_path(dev, root):
+    """Phase 14: yolo11n-obb (nc 15, 1024 px) and yolo11n-cls (nc 10, 224 px) at full width: seeded JPEG sets;
+    (a) one train step card vs CPU; (b) YOLO.train 2 epochs with 2 workers, YOLO(best.ckpt).val and .predict;
+    (c) card vs CPU predict on drawn weights (classify at nc 1000). No kernel of the port is on these paths:
+    every launch counter stays 0. Returns the launches."""
+    import torch
+
+    from bsyolo_tpu_torch import YOLO, kernels
+    from bsyolo_tpu_torch.cfg import DEFAULT_CFG_DICT, read_yaml
+    from bsyolo_tpu_torch.data import DataLoader, YOLODataset, load_dataset_yaml
+    from bsyolo_tpu_torch.data.classify import ClassificationDataset, ClassifyLoader
+    from bsyolo_tpu_torch.data.imread import imread
+
+    root = Path(root)
+    dota = read_yaml(Path(__file__).resolve().parent / "bsyolo_tpu_torch" / "cfg" / "datasets" / "DOTAv1.yaml")
+    names = [dota["names"][k] for k in sorted(dota["names"])]
+    t0 = time.perf_counter()
+    obb_data = write_obb_jpeg_dataset(root / "obb", names, SEED + 40)
+    cls_root = write_cls_jpeg_dataset(root / "cls", SEED + 43)
+    print(f"phase 14 datasets: OBB {P14_OBB_TRAIN} train + {P14_OBB_VAL} val JPEG frames {P14_OBB_SIDE}x"
+          f"{P14_OBB_SIDE}, {len(names)} classes (DOTA's); classify {P14_CLS_NC} classes x ({P14_CLS_TRAIN} train + "
+          f"{P14_CLS_VAL} val) JPEG frames {P14_CLS_HW[0]}x{P14_CLS_HW[1]}; written in {time.perf_counter() - t0:.2f} s")
+    d = load_dataset_yaml(str(obb_data))
+    ds = YOLODataset(d["train"], imgsz=P14_OBB_SIDE, augment=True, hyp=dict(DEFAULT_CFG_DICT), task="obb")
+    batch = next(iter(DataLoader(ds, P14_OBB_STEP_BATCH, shuffle=True, seed=3)))
+    obb_graph = task_graph("yolo11n-obb.yaml", len(names), "cpu", SEED + 44)
+    print(f"yolo11n-obb at nc {len(names)}: {sum(p.numel() for p in obb_graph.parameters())} parameters, head "
+          f"{obb_graph.spec.head.module} with ne {obb_graph.spec.head.args[1]}")
+    obb_cls_step_against_cpu(dev, "obb", obb_graph, batch, f"obb train step, batch {P14_OBB_STEP_BATCH} at "
+                             f"{P14_OBB_SIDE}")
+    cds = ClassificationDataset(cls_root / "train", imgsz=P14_CLS_IMGSZ, augment=True, auto_augment="randaugment",
+                                erasing=0.4)
+    cbatch = next(iter(ClassifyLoader(cds, P14_CLS_STEP_BATCH, seed=3)))
+    cls_graph = task_graph("yolo11n-cls.yaml", P14_CLS_NC, "cpu", SEED + 45)
+    print(f"yolo11n-cls at nc {P14_CLS_NC}: {sum(p.numel() for p in cls_graph.parameters())} parameters")
+    obb_cls_step_against_cpu(dev, "classify", cls_graph, cbatch, f"classify train step, batch {P14_CLS_STEP_BATCH} "
+                             f"at {P14_CLS_IMGSZ}")
+    out = {}
+    for task, yaml, data, kw in (
+            ("obb", "yolo11n-obb.yaml", str(obb_data), dict(imgsz=P14_OBB_SIDE, batch=P14_OBB_BATCH, close_mosaic=1,
+                                                             plots=False)),
+            ("classify", "yolo11n-cls.yaml", str(cls_root), dict(imgsz=P14_CLS_IMGSZ, batch=P14_CLS_BATCH))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        model = YOLO(yaml)
+        t1 = time.perf_counter()
+        model.train(data=data, epochs=2, amp=False, workers=P14_WORKERS, seed=3, project=str(root / "runs"),
+                    name=task, exist_ok=True, **kw)
+        train_s = time.perf_counter() - t1
+        best = root / "runs" / task / "weights" / "best.ckpt"
+        loaded = YOLO(best)
+        want_nc = len(names) if task == "obb" else P14_CLS_NC
+        if loaded.task != task or loaded.spec.nc != want_nc:
+            raise SystemExit(f"YOLO(best.ckpt) rebuilt a {loaded.task} graph with nc {loaded.spec.nc}")
+        t2 = time.perf_counter()
+        metrics = loaded.val(data=data, batch=kw["batch"])
+        torch.cuda.synchronize()
+        val_s = time.perf_counter() - t2
+        if task == "obb":
+            frames = [imread(p) for p in sorted((root / "obb" / "images" / "val").glob("*.jpg"))]
+            res = loaded.predict(frames, imgsz=kw["imgsz"], batch=4, conf=CONF)
+        else:  # from the files, so each result's path names its class folder
+            frames = [imread(p) for p in sorted((cls_root / "val").rglob("*.jpg"))]
+            res = loaded.predict(str(cls_root / "val"), imgsz=kw["imgsz"], batch=4)
+        torch.cuda.synchronize()
+        expect_launches(f"{task} trainer and facade", NO_LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        steps = []
+        for e, (wait, wall, n) in enumerate(model.trainer.loader_wait):
+            steps.append(wall * 1e3 / n)
+            print(f"  {task} epoch {e}: {n} steps in {wall:.2f} s, {wall * 1e3 / n:.1f} ms per step (host clock, "
+                  f"loader in the loop, {P14_WORKERS} workers), loader-wait share {wait / wall:.3f}"
+                  + (", the pool starts" if e == 0 else ""))
+        n_val = P14_OBB_VAL if task == "obb" else P14_CLS_NC * P14_CLS_VAL
+        payload = [r.obb.data if task == "obb" else r.probs.data for r in res]
+        if not all(np.isfinite(p).all() for p in payload) or (task == "classify" and any(
+                abs(float(p.sum()) - 1) > 1e-4 for p in payload)):
+            raise SystemExit(f"{task} predict through best.ckpt gave rows that are not finite (or not probabilities)")
+        print(f"phase 14b {task}: YOLO.train 2 epochs in {train_s:.1f} s, peak memory allocated {peak_gb:.2f} GB; "
+              f"val {val_s * 1e3 / n_val:.2f} ms per image: "
+              f"{', '.join(f'{k} {float(v):.4f}' for k, v in metrics.results_dict.items())}; predict over "
+              f"{len(res)} frames: " + (f"{sum(len(r) for r in res)} rows" if task == "obb" else "top-1 accuracy "
+                                        f"{np.mean([r.probs.top1 == int(Path(r.path).parent.name[5:]) for r in res]):.3f}"))
+        out[task] = {"train_s": train_s, "ms_per_step": steps, "peak_gb": peak_gb}
+        kernels.reset_launch_counts()
+        if task == "obb":
+            obb_predict_against_cpu(dev, best, frames)
+        else:
+            cls_predict_against_cpu(dev, frames, root)
+        expect_launches(f"{task} card vs CPU predict", NO_LAUNCHES)
+    return dict(NO_LAUNCHES)
+
+
 def kernel_entry(name, source, replaces, launches, row, bf16_launches, bf16_head=None, product_launches=0,
                  photo_launches=0, task_launches=0):
     """One entry of the kernels line; ``launches`` counts every path's run, ``bf16_launches`` those of
@@ -3208,6 +3516,9 @@ def main() -> int:
     photo_launches = phase("12", photo_path, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         task_launches = phase("13", task_path, dev, root)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        obb_cls_launches = phase("14", obb_classify_path, dev, root)
+    task_launches = {k: task_launches[k] + obb_cls_launches[k] for k in task_launches}
     bf16 = {k: half_launches[k] + half_xywh_launches[k] + half_int8_launches[k] + amp_launches[k]
             for k in half_launches}
     kernels_line = {"kernels": [

@@ -912,3 +912,33 @@ def test_task_predict_on_the_card_matches_the_cpu(cuda_device, graph):
                 assert np.mean(a.masks.data == b.masks.data) >= 0.999
             if a.keypoints is not None:
                 np.testing.assert_allclose(a.keypoints.data[..., :2], b.keypoints.data[..., :2], rtol=0, atol=2e-3)
+
+
+@pytest.mark.parametrize("graph", ["tinyobb.yaml", "tinycls.yaml"])
+def test_obb_and_classify_predict_on_the_card_match_the_cpu(cuda_device, graph):
+    """OBB (rotated rows) and Classify (probabilities) predict on the card against the CPU, from the same
+    weights: no kernel of the port launches; rows within 2e-3 px and 1e-5 rad, probabilities within 1e-6."""
+    from pathlib import Path
+
+    from bsyolo_tpu_torch import YOLO, kernels
+
+    path = str(Path(__file__).parent / "fixtures" / graph)
+    host = YOLO(path, device="cpu")
+    g = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for p in host.model.parameters():
+            p.copy_(torch.empty_like(p).uniform_(-1, 1, generator=g) * (3.0 / max(p[0].numel(), 1)) ** 0.5)
+    card = YOLO(path, device="cuda")
+    card.model.load_state_dict(host.model.state_dict())
+    frames = [np.random.default_rng(i).integers(0, 256, (96, 128, 3), dtype=np.uint8) for i in range(4)]
+    before = kernels.launch_counts()
+    got = card.predict(frames, imgsz=128, conf=0.05, batch=2)
+    assert kernels.launch_counts() == before
+    want = host.predict(frames, imgsz=128, conf=0.05, batch=2)
+    for a, b in zip(got, want):
+        if "cls" in graph:
+            np.testing.assert_allclose(a.probs.data, b.probs.data, rtol=0, atol=1e-6)
+            continue
+        assert a.obb.data.shape == b.obb.data.shape and len(a) > 0
+        np.testing.assert_allclose(a.obb.data[:, :4], b.obb.data[:, :4], rtol=0, atol=2e-3)
+        np.testing.assert_allclose(a.obb.data[:, 6], b.obb.data[:, 6], rtol=0, atol=1e-5)

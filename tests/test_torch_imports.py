@@ -147,3 +147,65 @@ def test_segment_and_pose_train_val_predict_without_opencv_pil_or_jax(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().rsplit("\n", 1)[-1] == str([("segment", 7, True, True, 4, True),
                                                           ("pose", 5, True, True, 4, True)]), out.stdout
+
+
+_OBB_CLS = r'''
+import importlib.abc, json, sys
+from pathlib import Path
+import numpy as np
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("cv2", "PIL", "yaml", "jax", "bsyolo_tpu"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+sys.path.insert(0, "tests")
+from torch_port import write_cls_dataset, write_obb_dataset
+from bsyolo_tpu_torch import YOLO
+from bsyolo_tpu_torch.data.converter import convert_coco
+from bsyolo_tpu_torch.data.imread import imwrite
+from bsyolo_tpu_torch.data.split_dota import split_trainval
+
+root = Path(sys.argv[1])
+out = []
+data = str(write_obb_dataset(root / "obb", n_train=8, n_val=4))
+m = YOLO("tests/fixtures/tinyobb.yaml", device="cpu")
+m.train(data=data, epochs=1, imgsz=64, batch=4, nbs=4, workers=0, amp=False, plots=False, project=str(root / "runs"),
+        name="obb")
+best = YOLO(str(root / "runs" / "obb" / "weights" / "best.ckpt"), device="cpu")
+metrics = best.val(data=data, batch=4, imgsz=64, save_json=True, save_dir=str(root / "val"))
+records = json.loads((root / "val" / "predictions.json").read_text())
+r = best.predict(str(root / "obb" / "images" / "val"), imgsz=64, conf=0.001, batch=2)
+out.append((best.task, len(metrics.results_dict), len(records) > 0 and "poly" in records[0], len(r), r[0].obb is not None))
+cls_root = write_cls_dataset(root / "cls", nc=2)
+c = YOLO("tests/fixtures/tinycls.yaml", device="cpu")
+c.train(data=str(cls_root), epochs=1, imgsz=32, batch=4, nbs=4, workers=0, amp=False, project=str(root / "runs"),
+        name="cls")
+cbest = YOLO(str(root / "runs" / "cls" / "weights" / "best.ckpt"), device="cpu")
+cr = cbest.predict(str(cls_root / "val" / "c0"), imgsz=32)
+out.append((cbest.task, len(cbest.val(data=str(cls_root), imgsz=32).results_dict), len(cr), cr[0].probs.data.shape))
+dota = root / "dota"
+(dota / "images" / "train").mkdir(parents=True)
+(dota / "labels" / "train").mkdir(parents=True)
+imwrite(dota / "images" / "train" / "P0.jpg", np.full((700, 900, 3), 90, np.uint8))
+(dota / "labels" / "train" / "P0.txt").write_text("3 100 100 200 100 200 150 100 150\n")
+n = split_trainval(str(dota), str(root / "split"), crop_size=512, gap=100)
+(root / "ann.json").write_text(json.dumps({"images": [{"id": 1, "file_name": "a.jpg", "width": 10, "height": 10}],
+                                           "annotations": [{"image_id": 1, "category_id": 1, "bbox": [1, 1, 4, 4]}]}))
+labels = convert_coco(str(root / "ann.json"), str(root / "conv"))
+out.append((n, (labels / "a.txt").read_text()))
+print(out)
+'''
+
+
+def test_obb_and_classify_train_val_predict_without_opencv_pil_or_jax(tmp_path):
+    """The OBB and Classify tasks end to end through the facade (minimum-area rectangles, RandAugment,
+    the classify transforms and loader, both validators, save_json), the DOTA splitter and the COCO
+    converter, with OpenCV, PIL, PyYAML and JAX refused."""
+    out = subprocess.run([sys.executable, "-c", _OBB_CLS, str(tmp_path)], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300, env={"PYTHONPATH": str(ROOT), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().rsplit("\n", 1)[-1] == str([("obb", 5, True, 4, True), ("classify", 3, 2, (2,)),
+                                                          (4, "0 0.300000 0.300000 0.400000 0.400000\n")]), out.stdout

@@ -148,9 +148,11 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
 def test_options_not_ported_raise(pair, frames):
     port = pair[3]
-    for kw in ({"visualize": True}, {"save": True}, {"show": True}, {"retina_masks": True}):
+    for kw in ({"visualize": True}, {"save": True}, {"show": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port.predict(frames[0], imgsz=IMG, **kw)
+    with pytest.raises(NotImplementedError, match="Segment graph"):  # retina_masks belongs to Segment graphs
+        port.predict(frames[0], imgsz=IMG, retina_masks=True)
     with pytest.raises(TypeError, match="bogus"):
         port.predict(frames[0], imgsz=IMG, bogus=1)
 

@@ -330,7 +330,8 @@ def test_rle_and_seg_json_match_jax():
 
 
 def test_unported_modes_on_task_graphs_raise_and_augment_reverts(seg, frames, tmp_path):
-    """bf16 (half, amp), int8 and tiled predict on a Segment graph raise naming ROADMAP item 12;
+    """bf16 (half, amp) and int8 on a Segment graph raise naming ROADMAP item 12, tiled predict as the
+    JAX package serves it for Detect graphs only;
     augment=True warns and predicts at one scale, as the JAX predictor does; the task follows the
     head, and the CLI takes the task's word."""
     from bsyolo_tpu_torch import YOLO
@@ -342,10 +343,11 @@ def test_unported_modes_on_task_graphs_raise_and_augment_reverts(seg, frames, tm
     data = str(write_task_dataset(tmp_path / "ds", "segment", n_train=2, n_val=2))
     for call in (lambda: port.predict(frames[0], imgsz=IMG, half=True),
                  lambda: set_int8_inference(port.model, True),
-                 lambda: predict_tiled(port.model, port.spec, frames[0], tile=64),
                  lambda: YOLO(SEG, device="cpu").train(data=data, plots=False, project=str(tmp_path))):
         with pytest.raises(NotImplementedError, match="item 12"):
             call()
+    with pytest.raises(NotImplementedError, match="Detect graphs only"):
+        predict_tiled(port.model, port.spec, frames[0], tile=64)
     plain = port.predict(frames[:2], imgsz=IMG, conf=0.05)
     tta = port.predict(frames[:2], imgsz=IMG, conf=0.05, augment=True)
     for a, b in zip(plain, tta):

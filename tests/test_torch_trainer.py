@@ -258,7 +258,7 @@ def test_unported_processes_modes_tasks_and_formats_raise(monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="item 14"):
         DetectionTrainer(overrides=dict(COMMON, data="x.yaml", device="cpu"))
-    for argv, item in ((["benchmark"], "item 15"), (["export"], "item 15"), (["obb", "train"], "item 12")):
+    for argv, item in ((["benchmark"], "item 15"), (["export"], "item 15")):
         with pytest.raises(NotImplementedError, match=item):
             main(argv)
     with pytest.raises(NotImplementedError, match="item 15"):
@@ -269,7 +269,7 @@ def test_unported_processes_modes_tasks_and_formats_raise(monkeypatch):
 
 @pytest.mark.parametrize("mode,option,item", [
     ("val", "plots=True", "item 16"), ("predict", "save=True", "item 25"), ("predict", "visualize=True", "item 16"),
-    ("predict", "show=True", "item 25"), ("predict", "retina_masks=True", "item 12"),
+    ("predict", "show=True", "item 25"), pytest.param("predict", "retina_masks=True", "Segment graph", id="predict-retina_masks=True-item 12"),
 ])
 def test_cli_passes_unported_val_and_predict_options_to_the_facade(mode, option, item, tmp_path):
     from bsyolo_tpu_torch.cli import main

@@ -244,3 +244,60 @@ def task_batch(seed: int, b: int, size: int, m: int, nc: int, task: str, nkpt: i
         out["keypoints"] = np.concatenate([rng.uniform(0, 1, (b, m, nkpt, 2)),
                                            (rng.uniform(0, 1, (b, m, nkpt, 1)) < 0.7) * 2.0], -1).astype(np.float32)
     return out
+
+
+def write_obb_dataset(root, n_train: int = 8, n_val: int = 8, seed: int = 0, nc: int = 1, size: int = 64):
+    """A seeded PNG dataset of ``size`` x ``size`` and ``size`` x 3/4 ``size`` frames with 1 to 3 rotated
+    rectangles each, filled in the image, labelled as DOTA-style corner rows ``cls x1 y1 ... x4 y4``
+    (normalized), of ``nc`` classes. Returns the data YAML's path."""
+    from pathlib import Path
+
+    from bsyolo_tpu_torch.data.cv import fill_poly
+    from bsyolo_tpu_torch.data.imread import imwrite_png
+
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("val", n_val)):
+        (root / "images" / split).mkdir(parents=True, exist_ok=True)
+        (root / "labels" / split).mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            h, w = (size, size) if i % 2 == 0 else (size * 3 // 4, size)
+            img = rng.integers(0, 60, (h, w, 3), dtype=np.uint8)
+            rows = []
+            for _ in range(int(rng.integers(1, 4))):
+                c = int(rng.integers(0, nc))
+                cx, cy = rng.uniform(0.3, 0.7) * w, rng.uniform(0.3, 0.7) * h
+                bw, bh = rng.uniform(0.25, 0.5) * min(h, w), rng.uniform(0.1, 0.25) * min(h, w)
+                r = rng.uniform(-np.pi / 2, np.pi / 2)
+                d = np.array([[bw / 2, bh / 2], [-bw / 2, bh / 2], [-bw / 2, -bh / 2], [bw / 2, -bh / 2]])
+                pts = (d @ np.array([[np.cos(r), np.sin(r)], [-np.sin(r), np.cos(r)]]) + [cx, cy]).clip(0, [w - 1, h - 1])
+                mask = np.zeros((h, w), np.uint8)
+                fill_poly(mask, [np.round(pts).astype(np.int32)], 1)
+                img[mask > 0] = (40 + 80 * (c % 3), 200 - 60 * (c % 3), 120)
+                rows.append(f"{c} " + " ".join(f"{x / w:.6f} {y / h:.6f}" for x, y in pts))
+            imwrite_png(root / "images" / split / f"{i:03d}.png", img)
+            (root / "labels" / split / f"{i:03d}.txt").write_text("\n".join(rows) + "\n")
+    names = "".join(f"  {i}: c{i}\n" for i in range(nc))
+    (root / "data.yaml").write_text(f"path: {root}\ntrain: images/train\nval: images/val\nnames:\n{names}")
+    return root / "data.yaml"
+
+
+def write_cls_dataset(root, nc: int = 2, n_train: int = 4, n_val: int = 2, seed: int = 0, size: int = 48):
+    """A seeded folder-per-class PNG set under ``root``/{train,val}/c<k>/: frames of about ``size`` px
+    (some not square), each class a colour of its own under noise. Returns ``root``."""
+    from pathlib import Path
+
+    from bsyolo_tpu_torch.data.imread import imwrite_png
+
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("val", n_val)):
+        for c in range(nc):
+            d = root / split / f"c{c}"
+            d.mkdir(parents=True, exist_ok=True)
+            for i in range(n):
+                h, w = (size, size + 8 * (i % 3)) if i % 2 else (size + 8 * (i % 3), size)
+                img = rng.integers(0, 80, (h, w, 3), dtype=np.uint8)
+                img[h // 4 : 3 * h // 4, w // 4 : 3 * w // 4] = (30 + 50 * c % 220, 200 - 40 * c % 180, 90 + 70 * c % 160)
+                imwrite_png(d / f"{i:03d}.png", img)
+    return root
