@@ -6,10 +6,11 @@
     python -m bsyolo_tpu_torch predict model=best.ckpt source=images/ conf=0.25 half=True
     python -m bsyolo_tpu_torch predict model=best.ckpt source=images/ save_txt=True save_crop=True name=run1
     python -m bsyolo_tpu_torch track model=best.ckpt source=clip.mp4 tracker=bytetrack.yaml
-    python -m bsyolo_tpu_torch segment train data=coco8-seg.yaml model=yolo11n-seg.yaml amp=False
+    python -m bsyolo_tpu_torch segment train data=coco8-seg.yaml model=yolo11n-seg.yaml
     python -m bsyolo_tpu_torch pose predict model=runs/pose/train/weights/best.ckpt source=images/
-    python -m bsyolo_tpu_torch obb train data=dota8.yaml model=yolo11n-obb.yaml imgsz=1024 amp=False
-    python -m bsyolo_tpu_torch classify train data=<root of class folders> model=yolo11n-cls.yaml imgsz=224 amp=False
+    python -m bsyolo_tpu_torch obb train data=dota8.yaml model=yolo11n-obb.yaml imgsz=1024
+    python -m bsyolo_tpu_torch obb val model=runs/obb/train/weights/best.ckpt data=dota8.yaml half=True
+    python -m bsyolo_tpu_torch classify train data=<root of class folders> model=yolo11n-cls.yaml imgsz=224
 
 Arguments are ``key=value`` pairs of ``cfg/default.yaml`` plus ``model``, ``data`` and
 ``source``; ``device=cpu`` runs on the host (the card is the default). Every other

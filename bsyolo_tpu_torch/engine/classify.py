@@ -6,10 +6,11 @@ cross-entropy criterion (``losses/classify.py``), validates the EMA weights
 every epoch (``ClassificationValidator``: top-1 and top-5 accuracy) and writes
 ``last.ckpt`` and ``best.ckpt`` in the JAX package's format, their meta
 naming the classes and the task, so ``YOLO(best.ckpt)`` rebuilds the graph
-with the data's class count. The graph trains in float32 only: ``amp=True``,
-the default, raises (the bf16 graph on task heads is ROADMAP queue 1, item
-12). With ``dropout > 0`` the head's dropout draws from a generator the train
-step owns. As the JAX classify trainer, it makes no plots and writes no
+with the data's class count. ``amp=True``, the default, builds the bf16 graph
+(float32 parameters, gradients, slots and EMA; bfloat16 logits, which the
+cross-entropy casts to float32), as the JAX classify trainer builds its
+``dtype=bfloat16`` graph. With ``dropout > 0`` the head's dropout draws from
+a generator the train step owns. As the JAX classify trainer, it makes no plots and writes no
 ``results.csv``; ``plots`` and ``profile`` change nothing here.
 """
 
@@ -144,15 +145,12 @@ class ClassificationTrainer:
         spec = parse_model_yaml(d, scale=d.get("scale", ""))
         if spec.task != "classify":
             raise ValueError(f"model {args.model} has a {spec.head.module} head, not a Classify head")
-        if args.amp:
-            raise NotImplementedError("train(amp=True), the default, runs the bf16 graph, which on a classify graph "
-                                      "is not ported yet (ROADMAP queue 1, item 12); pass amp=False")
         dropout = float(getattr(args, "dropout", 0.0) or 0.0)
         if dropout > 0:
             spec = dataclasses.replace(spec, dropout=dropout)
         self.spec = spec
         torch.manual_seed(args.seed)
-        self.model = build_model(spec, self.device, args.seed)
+        self.model = build_model(spec, self.device, args.seed, dtype=torch.bfloat16 if args.amp else torch.float32)
         self.paths = jax_paths(self.model)
         workers = min(int(args.workers or 0), max((os.cpu_count() or 1) - 1, 0))
         self.train_loader = ClassifyLoader(train_ds, args.batch, seed=args.seed, workers=workers)

@@ -26,10 +26,10 @@ with ``losses/segment.py`` on the loader's overlap-encoded masks (at
 ``SegmentationValidator``, a Pose graph with ``losses/pose.py`` (gains
 ``pose`` and ``kobj``; the data's ``flip_idx`` for horizontal flips) and
 ``PoseValidator``, an OBB graph with ``losses/obb.py`` on the loader's
-``rboxes`` and ``OBBValidator``. Those graphs train in float32 only: ``amp=True``, the
-default, raises for them (the bf16 graph on them is ROADMAP queue 1, item
-12), so pass ``amp=False``. Classify graphs train with ``engine/classify.py
-ClassificationTrainer``.
+``rboxes`` and ``OBBValidator``. ``amp`` builds their bf16 graph as it builds
+Detect's; ``assigner_bf16`` acts on the detection loss only, as in the JAX
+package (the task losses rank in float32). Classify graphs train with
+``engine/classify.py ClassificationTrainer``.
 
 Options not ported yet raise ``NotImplementedError`` naming their ROADMAP
 item: ``plots=True`` and ``profile=True`` and ``batch=-1`` (item 16),
@@ -132,9 +132,6 @@ class DetectionTrainer:
         task = self.spec.task
         if task == "classify":
             raise ValueError(f"{args.model} is a Classify graph: engine/classify.py ClassificationTrainer trains it")
-        if args.amp and task != "detect":
-            raise NotImplementedError(f"train(amp=True), the default, runs the bf16 graph, which on a {task} graph is "
-                                      "not ported yet (ROADMAP queue 1, item 12); pass amp=False")
         torch.manual_seed(args.seed)
         dtype = torch.bfloat16 if args.amp else torch.float32
         self.model = build_model(self.spec, self.device, args.seed, dtype=dtype)

@@ -40,7 +40,8 @@ def pose_loss(
     """(total, items [box, pose, kobj, cls, dfl], new state); the total is ``sum(items) * B``."""
     nkpt, nd = kpt_shape
     b = feats[0].shape[0]
-    t = detect_terms(feats, gt_cls, gt_bboxes, gt_mask, state, cfg)
+    # the JAX task losses rank in float32 whatever ``assigner_bf16`` says (it acts on the detection loss)
+    t = detect_terms(feats, gt_cls, gt_bboxes, gt_mask, state, cfg._replace(assigner_bf16=False))
     anchors, stride_t = t.anchor_points, t.stride_tensor
     a = anchors.shape[0]
     imgsz_h, imgsz_w = t.imgsz

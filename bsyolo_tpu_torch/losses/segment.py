@@ -44,7 +44,8 @@ def segmentation_loss(
     feats: Sequence[torch.Tensor] = outputs["feats"]
     proto = outputs["proto"].float()
     b = feats[0].shape[0]
-    t = detect_terms(feats, gt_cls, gt_bboxes, gt_mask, state, cfg)
+    # the JAX task losses rank in float32 whatever ``assigner_bf16`` says (it acts on the detection loss)
+    t = detect_terms(feats, gt_cls, gt_bboxes, gt_mask, state, cfg._replace(assigner_bf16=False))
     pred_coeffs = t.extra  # (B, A, nm)
     assign, fg_mask, w = t.assign, t.assign.fg_mask, t.weight
     imgsz_h, imgsz_w = t.imgsz

@@ -18,20 +18,23 @@
     m = YOLO("yolo11n-seg.yaml")               # the task follows the head: results carry masks,
     results = m.predict(frames, retina_masks=True)  # here assembled at each frame's own size
     m = YOLO("yolo11n-pose.yaml")              # results carry keypoints; val gives OKS mAP
-    m.train(data="coco8-pose.yaml", amp=False)  # the task graphs train in float32 (ROADMAP item 12)
+    m.train(data="coco8-pose.yaml")           # amp=True (default): the task's bf16 graph, as for Detect
     m = YOLO("yolo11n-obb.yaml")               # results carry rotated boxes (r.obb); val gives probIoU mAP
     m = YOLO("yolo11n-cls.yaml")               # results carry class probabilities (r.probs)
-    m.train(data="<root with train/ and val/ class folders>", imgsz=224, amp=False)  # top-1 / top-5
+    m.train(data="<root with train/ and val/ class folders>", imgsz=224)  # top-1 / top-5
 
 ``half=True`` runs a bfloat16 copy of the graph (``YOLO.half_graph``, built by
 ``nn.model.cast_inference_graph``: convolution weights cast once and kept until
 they or the int8 mode change, BatchNorm statistics float32). After ``train(amp=True)`` the facade holds the
 trainer's bf16 graph, so ``predict()`` runs bf16 without ``half``, as the JAX
-facade does.
+facade does. Both serve every task graph (Proto's transposed convolution and
+Classify's linear layer compute in bfloat16 too).
 
 Int8 inference is a mode of the graph, not a predict argument: calibrate
 static activation scales on a few float NCHW batches (letterboxed, /255),
-turn the mode on, and every predict path runs its convolutions in int8:
+turn the mode on, and every predict and val path runs its convolutions in int8,
+on every task graph (the quantized set is the JAX package's: each ``Conv`` with
+groups 1, Proto's and Classify's included):
 
     from bsyolo_tpu_torch.nn.modules import set_int8_inference
     from bsyolo_tpu_torch.nn.quant import calibrate_int8
@@ -189,8 +192,8 @@ class YOLO:
         A Segment graph's results carry masks at each frame's size (``retina_masks=True``: assembled
         from the prototypes at that size, on the host); a Pose graph's carry keypoints, an OBB graph's
         rotated boxes (``Results.obb``), a Classify graph's class probabilities (``Results.probs``).
-        ``half`` and int8 on those graphs are not ported (ROADMAP queue 1, item 12); ``augment`` on
-        them warns and predicts at one scale, as in the JAX package."""
+        ``half`` and int8 serve every graph; ``augment`` on a task graph warns and predicts at one
+        scale, as in the JAX package."""
         for k, v in kwargs.items():
             if k in _NOT_PORTED and v:
                 raise NotImplementedError(f"predict({k}=...) is not ported yet (ROADMAP {_NOT_PORTED[k]})")
@@ -199,9 +202,6 @@ class YOLO:
         if kwargs.get("retina_masks") and self.task != "segment":
             raise NotImplementedError(f"predict(retina_masks=True) assembles the masks of a Segment graph; this graph "
                                       f"has a {self.spec.head.module} head")
-        if self.task != "detect" and any(isinstance(m, Conv) and m.int8 for m in self.model.modules()):
-            raise NotImplementedError(f"int8 inference on a {self.task} graph is not ported yet (ROADMAP queue 1, "
-                                      "item 12)")
         conf = kwargs.get("conf")
         self.predictor = predictor = DetectionPredictor(
             self.half_graph() if kwargs.get("half") else self.model,

@@ -21,7 +21,7 @@ import torch
 import torch.nn as nn
 
 from bsyolo_tpu_torch.kernels.decode import decode_xywh
-from bsyolo_tpu_torch.nn.modules import Conv, Conv2d, DWConv, dfl_decode
+from bsyolo_tpu_torch.nn.modules import Conv, Conv2d, ConvTranspose2d, DWConv, Linear, dfl_decode
 from bsyolo_tpu_torch.ops.anchors import dist2rbox, make_anchors
 
 
@@ -65,7 +65,7 @@ class Proto(nn.Module):
     def __init__(self, c1: int, c_: int = 256, c2: int = 32):
         super().__init__()
         self.cv1 = Conv(c1, c_, 3)
-        self.upsample = nn.ConvTranspose2d(c_, c_, 2, 2, 0, bias=True)
+        self.upsample = ConvTranspose2d(c_, c_, 2, 2, 0, bias=True)
         self.cv2 = Conv(c_, c_, 3)
         self.cv3 = Conv(c_, c2)
 
@@ -130,7 +130,7 @@ class Classify(nn.Module):
     def __init__(self, c1: int, c2: int, dropout: float = 0.0):
         super().__init__()
         self.conv = Conv(c1, 1280, 1, 1)
-        self.linear = nn.Linear(1280, c2)
+        self.linear = Linear(1280, c2)
         self.dropout = float(dropout)
         self.generator: Optional[torch.Generator] = None
 

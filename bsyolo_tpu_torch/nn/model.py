@@ -107,15 +107,6 @@ class DetectionGraph(nn.Module):
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def refuse_task_head(model: nn.Module, what: str) -> None:
-    """Raise NotImplementedError for ``what`` (the bf16 graph, int8 inference, tiled predict) on a
-    graph with a Segment, Pose, OBB or Classify head: those modes are ported for the Detect graph only."""
-    for m in model.modules():
-        if isinstance(m, (Segment, Pose, OBB, Classify)):
-            raise NotImplementedError(f"{what} on a {type(m).__name__} graph is not ported yet (ROADMAP queue 1, "
-                                      "item 12)")
-
-
 def build_model(spec: ModelSpec, device, seed: int = 0, dtype: torch.dtype = torch.float32) -> DetectionGraph:
     """Build the graph with weights drawn from a seeded ``torch.Generator`` on the
     host, then move it to ``device`` in eval mode: the same seed gives the same
@@ -131,13 +122,12 @@ def build_model(spec: ModelSpec, device, seed: int = 0, dtype: torch.dtype = tor
 
 
 def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Run every convolution of ``model`` in ``dtype``, float32 or bfloat16: the JAX package's
-    ``DetectionGraph(dtype=...)``. Parameters, gradients and BatchNorm statistics stay float32;
-    the Detect head's levels come out in ``dtype``. Returns ``model``."""
+    """Run every convolution and linear layer of ``model`` in ``dtype``, float32 or bfloat16: the JAX
+    package's ``DetectionGraph(dtype=...)``, whatever the head. Parameters, gradients and BatchNorm
+    statistics stay float32; the head's levels, Segment's prototypes and Classify's logits come out in
+    ``dtype``. Returns ``model``."""
     if dtype not in COMPUTE_DTYPES:
         raise TypeError(f"compute dtype must be float32 or bfloat16, got {dtype}")
-    if dtype != torch.float32:
-        refuse_task_head(model, "the bf16 graph (half, amp)")
     for m in M.cast_convs(model):
         m.compute_dtype = None if dtype == torch.float32 else dtype  # float32: the weights' own dtype, no cast
     return model
@@ -150,14 +140,14 @@ def compute_dtype(model: nn.Module) -> torch.dtype:
 
 
 def cast_inference_graph(model: nn.Module, dtype: torch.dtype = torch.bfloat16) -> nn.Module:
-    """An inference copy of ``model`` computing in ``dtype`` with its convolution weights and
-    biases stored in ``dtype`` once (the counterpart of the JAX package's
-    ``cast_inference_params``: weights cast once, not per call). Every other tensor is
+    """An inference copy of ``model`` computing in ``dtype`` with the weights and biases of its
+    convolutions, Proto's transposed convolution and Classify's linear layer stored in ``dtype``
+    once (the counterpart of the JAX package's ``cast_inference_params``, which casts every float32
+    weight of rank 2 or more: weights cast once, not per call). Every other tensor is
     shared with ``model``: BatchNorm's statistics and affine parameters and ELA's fusion
     weights stay float32, so the copy sees later updates of them; a change of the
     convolution weights needs a new copy. The int8 mode and its scales are copied; hooks
     registered on ``model`` are not."""
-    refuse_task_head(model, "the bf16 graph (half, amp)")
     shared = {id(t): t for t in itertools.chain(model.parameters(), model.buffers())}
     graph = copy.deepcopy(model, shared)
     for m in M.cast_convs(graph):

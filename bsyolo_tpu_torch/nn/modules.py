@@ -8,10 +8,11 @@ kaiming-uniform, U(+-1/sqrt(fan_in)), and biases start at zero, as in the JAX
 package (``TORCH_INIT``).
 
 Compute dtype (the JAX package's ``dtype=jnp.bfloat16`` graph, ``amp`` and
-``half``): every convolution is a ``Conv2d``/``Conv1d`` whose
-``compute_dtype`` (None, no cast, unless ``nn.model.set_compute_dtype``
-says bfloat16) its input, weight and bias are cast to, as flax casts them
-in ``nn.Conv(dtype=...)``; parameters stay as they are. The rest follows the
+``half``): every convolution and linear layer is a ``Conv2d``/``Conv1d``/
+``ConvTranspose2d``/``Linear`` whose ``compute_dtype`` (None, no cast, unless
+``nn.model.set_compute_dtype`` says bfloat16) its input, weight and bias are
+cast to, as flax casts them in ``nn.Conv``/``nn.ConvTranspose``/
+``nn.Dense(dtype=...)``; parameters stay as they are. The rest follows the
 flax graph's dtypes by type promotion: BatchNorm and GroupNorm reduce in
 float32 and return their input's dtype, ``Attention`` forms q·k and its
 softmax in float32 and casts to v's dtype, and ELA's float32 fusion weights
@@ -67,9 +68,9 @@ def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
 
 
 class _CastConv:
-    """The convolution in ``compute_dtype``: input, weight and bias cast to it (``.to`` carries
-    the gradient back to a float32 weight). None, the default, casts nothing: the float32
-    graph, or a copy of it made float64 with ``.double()``."""
+    """The convolution (or linear layer) in ``compute_dtype``: input, weight and bias cast to it
+    (``.to`` carries the gradient back to a float32 weight). None, the default, casts nothing:
+    the float32 graph, or a copy of it made float64 with ``.double()``."""
 
     compute_dtype: Optional[torch.dtype] = None
 
@@ -88,8 +89,24 @@ class Conv1d(_CastConv, nn.Conv1d):
     """``nn.Conv1d`` that computes in ``compute_dtype``."""
 
 
+class ConvTranspose2d(_CastConv, nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` that computes in ``compute_dtype`` (flax ``nn.ConvTranspose(dtype=...)``,
+    Proto's 2x upsample); it takes no ``output_size``."""
+
+    def _conv_forward(self, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
+        return F.conv_transpose2d(x, w, b, self.stride, self.padding, self.output_padding, self.groups,
+                                  self.dilation)
+
+
+class Linear(_CastConv, nn.Linear):
+    """``nn.Linear`` that computes in ``compute_dtype`` (flax ``nn.Dense(dtype=...)``, Classify's last layer)."""
+
+    def _conv_forward(self, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
+        return F.linear(x, w, b)
+
+
 def cast_convs(model: nn.Module):
-    """Every convolution of ``model`` that takes a compute dtype."""
+    """Every convolution and linear layer of ``model`` that takes a compute dtype."""
     return [m for m in model.modules() if isinstance(m, _CastConv)]
 
 
@@ -220,10 +237,6 @@ def set_int8_inference(model: nn.Module, enabled: bool, scales: Optional[dict] =
     missing from it, or every conv when it is empty or None, scales dynamically.
     The mode is read at call time; each call drops the cached weight codes.
     """
-    if enabled:
-        from bsyolo_tpu_torch.nn.model import refuse_task_head  # here: nn.model imports this module
-
-        refuse_task_head(model, "int8 inference")
     for name, m in model.named_modules():
         if isinstance(m, Conv):
             amax = scales.get(scale_key(name)) if scales else None

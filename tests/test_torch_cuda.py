@@ -942,3 +942,103 @@ def test_obb_and_classify_predict_on_the_card_match_the_cpu(cuda_device, graph):
         assert a.obb.data.shape == b.obb.data.shape and len(a) > 0
         np.testing.assert_allclose(a.obb.data[:, :4], b.obb.data[:, :4], rtol=0, atol=2e-3)
         np.testing.assert_allclose(a.obb.data[:, 6], b.obb.data[:, 6], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("task", list(TASK_HEADS))
+def test_decode_kernel_reads_bf16_task_heads(cuda_device, task):
+    """The bf16 graph's Segment and Pose heads (predict and val with half=True, the amp trainer's validation):
+    bfloat16 levels of 64 + nc + extra channels, against the plain version on the same levels."""
+    from bsyolo_tpu_torch.kernels.decode import box_best_cuda, box_best_reference
+
+    b, nc, extra = TASK_HEADS[task]
+    sizes, strides = _square(640)
+    rng = np.random.default_rng(2 * nc + extra)
+    levels = []
+    for h, w in sizes:
+        f = rng.normal(0, 2, (b, 64 + nc + extra, h, w)).astype(np.float32)
+        f[:, 64 + nc :] = 1e4 * np.sign(f[:, 64 + nc :])
+        levels.append(torch.from_numpy(f).to(torch.bfloat16))
+    before = box_best_cuda.launches
+    boxes, best, cls = box_best_cuda([f.to(cuda_device) for f in levels], strides, nc)
+    torch.cuda.synchronize()
+    assert box_best_cuda.launches == before + 1
+    want_boxes, want_best, want_cls = box_best_reference(levels, strides, nc)
+    assert boxes.dtype == torch.float32 and float(best.abs().max()) < 100
+    np.testing.assert_allclose(boxes.cpu().numpy(), want_boxes.numpy(), rtol=1e-5, atol=2e-3)
+    np.testing.assert_array_equal(best.cpu().numpy(), want_best.numpy())
+    np.testing.assert_array_equal(cls.cpu().numpy(), want_cls.numpy())
+
+
+# int8 products of the task graphs at batch 4: Proto's cv2 (576 -> 64) and cv3 (64 -> 32) at 160 x 160, the
+# yolo11n-obb stem at 1024 px, Classify's 1x1 conv to 1280 channels on a 7 x 7 map
+TASK_INT8_SHAPES = [(102400, 576, 64), (102400, 64, 32), (1048576, 27, 16), (196, 256, 1280)]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("m,k,n", TASK_INT8_SHAPES)
+def test_int8_matmul_on_task_graph_shapes_equals_plain_version(cuda_device, m, k, n, out_dtype):
+    from bsyolo_tpu_torch.kernels.int8_matmul import (Int8Weight, empty_rows, int8_matmul_cuda, int8_matmul_prepared,
+                                                      int8_matmul_reference)
+
+    x, w, sw, sx = _int8_operands(cuda_device, m, k, n, m + k + n)
+    rows = empty_rows(m, k, cuda_device).copy_(x)  # as the conv path lays out its im2col rows
+    weight = Int8Weight(empty_rows(n, k, cuda_device).copy_(w.t()).t(), sw)
+    before = int8_matmul_cuda.launches
+    got = int8_matmul_prepared(rows, weight, sx, out_dtype)
+    torch.cuda.synchronize()
+    assert int8_matmul_cuda.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    assert torch.equal(got, int8_matmul_reference(x, w, sw, sx, out_dtype))
+
+
+@pytest.mark.parametrize("graph", ["tinyseg.yaml", "tinypose.yaml", "tinyobb.yaml", "tinycls.yaml"])
+def test_half_and_int8_task_predict_on_the_card_match_the_cpu(cuda_device, graph):
+    """predict(half=True) and int8 predict of the four task graphs on the card against the CPU from the same
+    weights and scales: the box kernel once per batch on Segment and Pose heads, the int8 kernel once per
+    quantized conv per batch; bf16 rows without suppression (iou 1.0: cuDNN's and the CPU's bf16 convolutions
+    round apart, and near-tied scores would suppress other rows) at least 0.9 within 1 px of a CPU row,
+    probabilities within 1e-2; int8 probabilities within 1e-3 and rows as counts only (a code that flips moves
+    later ones)."""
+    from pathlib import Path
+
+    from bsyolo_tpu_torch import YOLO, kernels
+    from bsyolo_tpu_torch.nn.modules import quantizable_convs, set_int8_inference
+    from bsyolo_tpu_torch.nn.quant import calibrate_int8
+
+    path = str(Path(__file__).parent / "fixtures" / graph)
+    host = YOLO(path, device="cpu")
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for p in host.model.parameters():
+            p.copy_(torch.empty_like(p).uniform_(-1, 1, generator=g) * (3.0 / max(p[0].numel(), 1)) ** 0.5)
+    card = YOLO(path, device="cuda")
+    card.model.load_state_dict(host.model.state_dict())
+    frames = [np.random.default_rng(i).integers(0, 256, (96, 128, 3), dtype=np.uint8) for i in range(4)]
+    detects = "seg" in graph or "pose" in graph
+    before = kernels.launch_counts()
+    got = card.predict(frames, imgsz=128, conf=0.05, batch=2, half=True, iou=1.0)
+    after = kernels.launch_counts()
+    assert after["decode_box_best"] - before["decode_box_best"] == (2 if detects else 0)
+    want = host.predict(frames, imgsz=128, conf=0.05, batch=2, half=True, iou=1.0)
+    for a, b in zip(got, want):
+        if "cls" in graph:
+            np.testing.assert_allclose(a.probs.data, b.probs.data, rtol=0, atol=1e-2)
+            continue
+        da, db = (a.obb.data, b.obb.data) if "obb" in graph else (a.boxes.data, b.boxes.data)
+        close = [np.abs(db[:, :4] - r[:4]).max(1).min() <= 1.0 if len(db) else False for r in da]
+        assert len(da) > 0 and np.mean(close) >= 0.9
+    x = torch.rand(2, 3, 128, 128, generator=torch.Generator().manual_seed(6))
+    scales = calibrate_int8(host.model, [x])
+    n_convs = len(quantizable_convs(card.model))
+    set_int8_inference(card.model, True, scales)
+    set_int8_inference(host.model, True, scales)
+    before = kernels.launch_counts()
+    got = card.predict(frames, imgsz=128, conf=0.05, batch=2)
+    after = kernels.launch_counts()
+    assert after["int8_matmul"] - before["int8_matmul"] == 2 * n_convs
+    want = host.predict(frames, imgsz=128, conf=0.05, batch=2)
+    for a, b in zip(got, want):
+        if "cls" in graph:
+            np.testing.assert_allclose(a.probs.data, b.probs.data, rtol=0, atol=1e-3)
+        else:
+            assert abs(len(a) - len(b)) <= max(2, len(b) // 10)

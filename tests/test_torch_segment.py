@@ -330,22 +330,29 @@ def test_rle_and_seg_json_match_jax():
 
 
 def test_unported_modes_on_task_graphs_raise_and_augment_reverts(seg, frames, tmp_path):
-    """bf16 (half, amp) and int8 on a Segment graph raise naming ROADMAP item 12, tiled predict as the
-    JAX package serves it for Detect graphs only;
+    """bf16 (half, amp) and int8 on a Segment graph run (ROADMAP item 12, refused until it was ported;
+    tests/test_torch_task_bf16.py and test_torch_task_int8.py hold them against JAX); tiled predict
+    raises, as the JAX package serves it for Detect graphs only;
     augment=True warns and predicts at one scale, as the JAX predictor does; the task follows the
     head, and the CLI takes the task's word."""
     from bsyolo_tpu_torch import YOLO
     from bsyolo_tpu_torch.cli import main
     from bsyolo_tpu_torch.engine.tiled import predict_tiled
-    from bsyolo_tpu_torch.nn.modules import set_int8_inference
+    from bsyolo_tpu_torch.engine.trainer import DetectionTrainer
+    from bsyolo_tpu_torch.nn.model import compute_dtype
+    from bsyolo_tpu_torch.nn.modules import int8_inference, set_int8_inference
 
     port = seg[3]
     data = str(write_task_dataset(tmp_path / "ds", "segment", n_train=2, n_val=2))
-    for call in (lambda: port.predict(frames[0], imgsz=IMG, half=True),
-                 lambda: set_int8_inference(port.model, True),
-                 lambda: YOLO(SEG, device="cpu").train(data=data, plots=False, project=str(tmp_path))):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            call()
+    assert len(port.predict(frames[0], imgsz=IMG, half=True)[0].masks.data) and port._half is not None
+    set_int8_inference(port.model, True)
+    try:
+        assert int8_inference(port.model) and port.predict(frames[0], imgsz=IMG)[0].masks is not None
+    finally:
+        set_int8_inference(port.model, False)
+    trainer = DetectionTrainer(overrides=dict(model=SEG, data=data, device="cpu", plots=False, project=str(tmp_path)))
+    trainer.setup()  # amp=True, the default: the bf16 graph
+    assert compute_dtype(trainer.model) == torch.bfloat16
     with pytest.raises(NotImplementedError, match="Detect graphs only"):
         predict_tiled(port.model, port.spec, frames[0], tile=64)
     plain = port.predict(frames[:2], imgsz=IMG, conf=0.05)

@@ -10,7 +10,23 @@ the bias alone and their order would be decided by float rounding.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+
+def share_cores() -> None:
+    """Under pytest-xdist, give each worker's torch its share of the host's cores. torch's CPU ops
+    start one thread per core in every process, so six workers ran six times the host's cores and
+    the port's tests ran many times slower than alone; one process (no xdist) keeps torch's default."""
+    import torch
+
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT") or 0)
+    if workers > 1:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+
+
+share_cores()
 
 
 def jax_spec(name: str, scale: str = ""):
@@ -301,3 +317,30 @@ def write_cls_dataset(root, nc: int = 2, n_train: int = 4, n_val: int = 2, seed:
                 img[h // 4 : 3 * h // 4, w // 4 : 3 * w // 4] = (30 + 50 * c % 220, 200 - 40 * c % 180, 90 + 70 * c % 160)
                 imwrite_png(d / f"{i:03d}.png", img)
     return root
+
+
+def trained_task_checkpoint(root, task: str, yaml: str, epochs: int, imgsz: int = 64):
+    """Train ``yaml`` (a tiny graph of ``task``) in float32 in the port for ``epochs`` on a seeded set of
+    8 images that is its own validation split (detect on the segment set's polygons as boxes; classify:
+    4 per class in each split), so its validation metrics carry signal. Returns (best.ckpt, the data
+    to validate on)."""
+    from pathlib import Path
+
+    from bsyolo_tpu_torch import YOLO
+
+    root = Path(root)
+    if task == "classify":
+        data = write_cls_dataset(root / "ds", nc=2, n_train=4, n_val=4, size=48)
+    else:
+        if task == "obb":
+            yml = write_obb_dataset(root / "ds", n_train=8, n_val=0)
+        else:  # detect reads the polygon labels as their boxes
+            yml = write_task_dataset(root / "ds", "pose" if task == "pose" else "segment", n_train=8, n_val=0,
+                                     nc=1 if task == "pose" else 2)
+        yml.write_text(yml.read_text().replace("val: images/val", "val: images/train"))
+        data = yml
+    m = YOLO(yaml, device="cpu")
+    m.train(data=str(data), epochs=epochs, imgsz=imgsz, batch=4, nbs=4, workers=0, amp=False, plots=False,
+            optimizer="SGD", lr0=0.02, warmup_epochs=0.0, close_mosaic=0, mosaic=0.0, fliplr=0.0, hsv_h=0.0,
+            hsv_s=0.0, hsv_v=0.0, translate=0.0, scale=0.0, project=str(root / "runs"), name=task)
+    return m.trainer.save_dir / "weights" / "best.ckpt", data
