@@ -2,9 +2,10 @@
 
 The machines the port serves on carry no PyYAML, so the port reads its graph
 files with its own reader for the subset of YAML they use: comments, plain and
-quoted scalars, ``key: value`` mappings nested by indentation, single-line flow
-lists, and block lists whose items are scalars or flow lists. Scalars resolve
-as PyYAML's ``safe_load`` resolves them (YAML 1.1: ``True``/``yes`` are bools,
+quoted scalars (a plain mapping value may fold onto more-indented lines),
+``key: value`` mappings nested by indentation, single-line flow lists, and
+block lists whose items are scalars or flow lists. Scalars resolve as PyYAML's
+``safe_load`` resolves them (YAML 1.1: ``True``/``yes`` are bools,
 ``None`` is a string, ``1e-3`` is a string, ``0.5`` a float). Anything outside
 the subset raises :class:`YamlSubsetError` rather than being read differently.
 """
@@ -227,6 +228,10 @@ def _block(lines: List[Tuple[int, str]], pos: int, indent: int) -> Tuple[Any, in
         key, rest = _split_key(lines[pos][1])
         pos += 1
         if rest:
+            if rest[:1] not in ("[", "'", '"'):  # a plain scalar folds its more-indented continuation lines
+                while pos < len(lines) and lines[pos][0] > indent:
+                    rest += " " + lines[pos][1]
+                    pos += 1
             out[key] = _value(rest)
             continue
         nxt = lines[pos] if pos < len(lines) else None

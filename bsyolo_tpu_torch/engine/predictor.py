@@ -14,8 +14,12 @@ With ``augment=True`` (test-time augmentation) the graph runs three passes
 per batch, identity, 0.83x with a left-right flip and 0.67x; each is decoded
 by ``decode_detections``, mapped back to the input's pixels and tail-clipped,
 and the merged passes go through one ``non_max_suppression``. Only the Detect
-graph takes it: Segment and Pose graphs warn and predict at one scale, as the
+graph takes it: task graphs and YOLOv10 warn and predict at one scale, as the
 JAX package does.
+
+YOLOv10 (a v10Detect head) predicts without NMS: its one-to-one levels go
+through ``decode_detections`` (one launch of the xywh decode kernel per
+batch) and ``postprocess_e2e``, and rows at or below ``conf`` become padding.
 
 Segment and Pose graphs decode and suppress as Detect does
 (``detect_postprocess(return_idx=True)``, one launch of the box decode kernel
@@ -54,7 +58,8 @@ from bsyolo_tpu_torch.data.imread import imread
 from bsyolo_tpu_torch.data.streams import LoadStreams
 from bsyolo_tpu_torch.engine.results import Results
 from bsyolo_tpu_torch.kernels.postprocess import detect_postprocess
-from bsyolo_tpu_torch.nn.heads import decode_detections, decode_extras, decode_keypoints, decode_obb, gather_anchors
+from bsyolo_tpu_torch.nn.heads import (decode_detections, decode_extras, decode_keypoints, decode_obb, gather_anchors,
+                                       postprocess_e2e)
 from bsyolo_tpu_torch.ops.boxes import scale_boxes
 from bsyolo_tpu_torch.ops.letterbox import letterbox, letterbox_params
 from bsyolo_tpu_torch.ops.masks import process_mask, resize_linear
@@ -176,7 +181,8 @@ class DetectionPredictor:
         self.names = names or {i: n for i, n in enumerate(spec.names)}
         self.batch = max(int(batch), 1)
         self.task = getattr(spec, "task", "detect")
-        if augment and self.task != "detect":
+        self.e2e = spec.head.module == "v10Detect"
+        if augment and (self.task != "detect" or self.e2e):
             LOGGER.warning("augment=True is only supported for Detect-head models; reverting to single-scale "
                            "prediction")
             augment = False
@@ -205,8 +211,12 @@ class DetectionPredictor:
         if self.task == "obb":
             return nms_rotated(decode_obb(out, self.spec.head_strides, self.spec.nc, self.spec.reg_max),
                                conf_thres=self.conf, iou_thres=self.iou, max_det=self.max_det, nc=self.spec.nc)
-        feats = out["feats"] if self.task == "segment" else out
         strides, nc = self.spec.head_strides, self.spec.nc
+        if self.e2e:  # NMS-free: the one-to-one head's top rows, those at or below conf as padding
+            dets = postprocess_e2e(decode_detections(out["one2one"], strides, nc, self.spec.reg_max), self.max_det, nc)
+            ok = dets[..., 4:5] > self.conf
+            return torch.cat([dets[..., :5] * ok, torch.where(ok, dets[..., 5:], -1.0)], -1)
+        feats = out["feats"] if self.task == "segment" else out
         kw = dict(conf_thres=self.conf, iou_thres=self.iou, max_det=self.max_det, agnostic=self.agnostic_nms,
                   reg_max=self.spec.reg_max)
         if self.task == "detect":

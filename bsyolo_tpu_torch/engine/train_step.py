@@ -116,11 +116,23 @@ def detect_criterion(outputs, batch, loss_state: LossState, cfg: DetectionLossCo
     return detection_loss(outputs, batch["cls"], batch["bboxes"], batch["mask"], loss_state, cfg)
 
 
+def e2e_criterion(outputs, batch, loss_state: LossState, cfg: DetectionLossConfig):
+    """YOLOv10's end-to-end loss: the detection loss of the one-to-many branch (top-10 assignment) plus
+    that of the one-to-one branch (top-1), items summed. Both read the incoming EMA-Slide state and the
+    one-to-many term's new state is carried on, as in the JAX trainer."""
+    t1, i1, new_ls = detect_criterion(outputs["one2many"], batch, loss_state, cfg)
+    t2, i2, _ = detect_criterion(outputs["one2one"], batch, loss_state, cfg._replace(tal_topk=1))
+    return t1 + t2, i1 + i2, new_ls
+
+
 def task_criterion(spec, overlap_mask: bool = True, pose_gain: float = 12.0, kobj_gain: float = 1.0):
     """(criterion, loss item names) of ``spec``'s task, as the JAX trainers pick them: the detection
-    loss; the segmentation loss on the batch's overlap-encoded ``masks`` (items box, seg, cls,
-    dfl); the pose loss on its ``keypoints`` (items box, pose, kobj, cls, dfl); the OBB loss on its
-    ``rboxes`` (items box, cls, dfl); the cross-entropy of a Classify graph's logits (item cls)."""
+    loss; for a v10Detect head the end-to-end loss (``e2e_criterion``); the segmentation loss on the
+    batch's overlap-encoded ``masks`` (items box, seg, cls, dfl); the pose loss on its ``keypoints``
+    (items box, pose, kobj, cls, dfl); the OBB loss on its ``rboxes`` (items box, cls, dfl); the
+    cross-entropy of a Classify graph's logits (item cls)."""
+    if spec.head.module == "v10Detect":
+        return e2e_criterion, DETECT_ITEMS
     if spec.task == "segment":
         nm = spec.head.args[1]
 

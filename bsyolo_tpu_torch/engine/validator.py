@@ -48,7 +48,8 @@ from bsyolo_tpu_torch import select_device
 from bsyolo_tpu_torch.data.imread import decoded_size
 from bsyolo_tpu_torch.kernels.postprocess import detect_postprocess
 from bsyolo_tpu_torch.losses.pose import OKS_SIGMA
-from bsyolo_tpu_torch.nn.heads import decode_extras, decode_keypoints, decode_obb, gather_anchors
+from bsyolo_tpu_torch.nn.heads import (decode_detections, decode_extras, decode_keypoints, decode_obb, gather_anchors,
+                                       postprocess_e2e)
 from bsyolo_tpu_torch.ops.boxes import xywh2xyxy
 from bsyolo_tpu_torch.ops.letterbox import letterbox_params
 from bsyolo_tpu_torch.ops.masks import process_mask
@@ -257,7 +258,12 @@ class DetectionValidator:
             max_det=self.max_det, pre_k=self.pre_k, agnostic=self.single_cls, reg_max=self.spec.reg_max, **kw)
 
     def _postprocess(self, out):
-        """The head's output -> (B, max_det, 6) rows on the device."""
+        """The head's output -> (B, max_det, 6) rows on the device; a v10Detect head's one-to-one levels
+        through ``decode_detections`` and ``postprocess_e2e``, no NMS and no conf threshold, as the JAX
+        validator."""
+        if isinstance(out, dict) and "one2one" in out:
+            return postprocess_e2e(decode_detections(out["one2one"], self.spec.head_strides, self.spec.nc,
+                                                     self.spec.reg_max), self.max_det, self.spec.nc)
         return self._nms(out)
 
     def _to_host(self, pending):

@@ -22,6 +22,11 @@
     m = YOLO("yolo11n-obb.yaml")               # results carry rotated boxes (r.obb); val gives probIoU mAP
     m = YOLO("yolo11n-cls.yaml")               # results carry class probabilities (r.probs)
     m.train(data="<root with train/ and val/ class folders>", imgsz=224)  # top-1 / top-5
+    m = YOLO("yolov8n.yaml")                   # the YOLO v3, v5, v6, v8, v9 and v10 graphs of every task:
+    m = YOLO("yolov9t.yaml")                   # yolov3-tiny.yaml, yolov5n-p6.yaml, yolov6n.yaml (ReLU),
+    m = YOLO("yolov8n-seg.yaml")               # yolov8n-p2.yaml, yolov8n-cls-resnet50.yaml, yolov9e-seg.yaml, ...
+    m = YOLO("yolov10n.yaml")                  # NMS-free: predict and val take the one-to-one head's top rows;
+    m.train(data="car.yaml")                   # train() runs the end-to-end loss (one-to-many + one-to-one)
 
 ``half=True`` runs a bfloat16 copy of the graph (``YOLO.half_graph``, built by
 ``nn.model.cast_inference_graph``: convolution weights cast once and kept until

@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 
 from bsyolo_tpu_torch.nn import modules as M
-from bsyolo_tpu_torch.nn.heads import OBB, Classify, Detect, Pose, Segment
+from bsyolo_tpu_torch.nn.heads import OBB, Classify, Detect, Pose, Segment, v10Detect
 from bsyolo_tpu_torch.nn.parser import LayerSpec, ModelSpec
 
 
@@ -49,18 +49,60 @@ def _build_layer(spec: LayerSpec, strides, dropout: float = 0.0) -> nn.Module:
         return M.MSCAAttention(a[0])
     if m == "ELA":
         return M.ELA(a[0])
+    if m == "C2":
+        return M.C2(c1, a[0], a[1], opt(2, True))
+    if m == "C2fCIB":
+        return M.C2fCIB(c1, a[0], a[1], opt(2, False), opt(3, False))
+    if m == "PSA":
+        return M.PSA(c1, a[0], opt(1, 0.5))
+    if m == "SPP":
+        return M.SPP(c1, a[0], tuple(opt(1, (5, 9, 13))))
+    if m == "GhostConv":
+        return M.GhostConv(c1, a[0], opt(1, 1), opt(2, 1))
+    if m == "GhostBottleneck":
+        return M.GhostBottleneck(c1, a[0], opt(1, 3), opt(2, 1))
+    if m == "C3Ghost":
+        return M.C3Ghost(c1, a[0], a[1])
+    if m == "RepNCSPELAN4":
+        return M.RepNCSPELAN4(c1, a[0], a[1], a[2], opt(3, 1))
+    if m == "ELAN1":
+        return M.ELAN1(c1, a[0], a[1], a[2])
+    if m == "AConv":
+        return M.AConv(c1, a[0])
+    if m == "ADown":
+        return M.ADown(c1, a[0])
+    if m == "SPPELAN":
+        return M.SPPELAN(c1, a[0], a[1], opt(2, 5))
+    if m == "ResNetLayer":  # (c1, c2, s, is_first, n): c1 is the graph's, not the YAML's
+        return M.ResNetLayer(c1, a[1], opt(2, 1), opt(3, False), opt(4, 1))
+    if m == "ConvTranspose2d":  # a bare transposed conv with a bias, no padding, as the JAX layer
+        return M.ConvTranspose2d(c1, a[0], opt(1, 2), opt(2, 2), 0, bias=True)
+    if m == "CBLinear":
+        return M.CBLinear(c1, a[0], opt(1, 1), opt(2, 1))
+    if m == "CBFuse":
+        return M.CBFuse(a[0])
+    if m == "Identity":
+        return nn.Identity()
+    if m == "SpaceToDepth":
+        return M.SpaceToDepth(opt(0, 2))
+    if m == "MaxPool2d":
+        return nn.MaxPool2d(a[0], opt(1, a[0]), opt(2, 0))
+    if m == "ZeroPad2d":
+        return nn.ZeroPad2d(tuple(a[0]))
     if m == "Upsample":
         return nn.Upsample(scale_factor=opt(1, 2), mode=opt(2, "nearest"))
     if m == "Concat":
         return M.Concat(opt(0, 1))
     if m == "Detect":
-        return Detect(a[0], a[1], strides)
+        return Detect(a[0], a[1], strides, legacy=a[2])
     if m == "Segment":
-        return Segment(a[0], a[1], a[2], a[3], strides)
+        return Segment(a[0], a[1], a[2], a[3], strides, legacy=a[4])
     if m == "Pose":
-        return Pose(a[0], a[1], a[2], strides)
+        return Pose(a[0], a[1], a[2], strides, legacy=a[3])
     if m == "OBB":
-        return OBB(a[0], a[1], a[2], strides)
+        return OBB(a[0], a[1], a[2], strides, legacy=a[3])
+    if m == "v10Detect":
+        return v10Detect(a[0], a[1], strides)
     if m == "Classify":
         return Classify(c1, a[0], dropout)
     raise NotImplementedError(f"module {m} has no layer constructor in DetectionGraph")
@@ -68,8 +110,10 @@ def _build_layer(spec: LayerSpec, strides, dropout: float = 0.0) -> nn.Module:
 
 class DetectionGraph(nn.Module):
     """Executes a ModelSpec; the output is the head's: a list of raw per-level maps (Detect,
-    Pose, OBB), ``{"feats": levels, "proto": prototypes}`` (Segment), or (B, nc) class logits
-    (Classify)."""
+    Pose, OBB), ``{"feats": levels, "proto": prototypes}`` (Segment), ``{"one2many": levels,
+    "one2one": levels}`` (v10Detect), or (B, nc) class logits (Classify). A layer of several
+    inputs (Concat, CBFuse) takes them as a list; CBLinear's output is a tuple of taps. Every
+    ``Conv`` takes the spec's activation (``act``)."""
 
     def __init__(self, spec: ModelSpec):
         super().__init__()
@@ -81,6 +125,7 @@ class DetectionGraph(nn.Module):
             else:
                 layers.append(_build_layer(layer, spec.head_strides, spec.dropout))
         self.model = nn.ModuleList(layers)
+        M.set_activation(self, spec.act)
 
     def forward(self, x: torch.Tensor, embed: Sequence[int] = ()):
         """The head's list of per-level maps; with ``embed`` (layer indices), the global-average-pooled
@@ -115,7 +160,7 @@ def build_model(spec: ModelSpec, device, seed: int = 0, dtype: torch.dtype = tor
     model = DetectionGraph(spec)
     g = torch.Generator().manual_seed(seed)
     M.reset_parameters(model, g)
-    if isinstance(model.model[-1], Detect):
+    if isinstance(model.model[-1], (Detect, v10Detect)):
         model.model[-1].bias_init()
     set_compute_dtype(model, dtype)
     return model.to(device).eval()

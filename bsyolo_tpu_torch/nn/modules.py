@@ -567,3 +567,353 @@ def dfl_decode(dist_logits: torch.Tensor, reg_max: int = 16) -> torch.Tensor:
     (..., 4) expected distances, a softmax per side."""
     probs = dist_logits.float().unflatten(-1, (4, reg_max)).softmax(-1)
     return probs @ torch.arange(reg_max, dtype=torch.float32, device=dist_logits.device)
+
+
+# --- graph-wide activation (a model YAML's ``activation:`` key) ---------------------------------------------
+
+ACTIVATIONS = {
+    "silu": nn.SiLU,
+    "relu": nn.ReLU,
+    "lrelu": lambda: nn.LeakyReLU(0.1),
+    "gelu": nn.GELU,
+    "hardswish": nn.Hardswish,
+    "mish": nn.Mish,
+}
+
+
+def set_activation(model: nn.Module, name: str) -> None:
+    """Give every ``Conv`` of ``model`` that has an activation the graph's ``name`` (``ACTIVATIONS``) in
+    place of SiLU: the JAX package's ``ConvBN`` applies the graph-wide activation wherever it has one.
+    Blocks that apply SiLU or ReLU themselves (RepConv, RepVGGDW, ResNetBlock's output) keep them."""
+    if name == "silu":
+        return
+    for m in model.modules():
+        if isinstance(m, Conv) and isinstance(m.act, nn.SiLU):
+            m.act = ACTIVATIONS[name]()
+
+
+# --- blocks of the YOLO v3, v5, v6, v8, v9 and v10 graphs ----------------------------------------------------
+
+
+class C2(nn.Module):
+    """CSP bottleneck with 2 convolutions: half the channels through n bottlenecks."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * self.c, 1, 1)
+        self.cv2 = Conv(2 * self.c, c2, 1)
+        self.m = nn.Sequential(*(Bottleneck(self.c, self.c, shortcut, g, k=(3, 3), e=1.0) for _ in range(n)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a, b = self.cv1(x).chunk(2, 1)
+        return self.cv2(torch.cat([self.m(a), b], 1))
+
+
+class SPP(nn.Module):
+    """Spatial pyramid pooling: parallel stride-1 max pools of kernels ``k``."""
+
+    def __init__(self, c1: int, c2: int, k: Tuple[int, ...] = (5, 9, 13)):
+        super().__init__()
+        c_ = c1 // 2
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c_ * (len(k) + 1), c2, 1, 1)
+        self.m = nn.ModuleList(nn.MaxPool2d(x, 1, x // 2) for x in k)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv1(x)
+        return self.cv2(torch.cat([y] + [m(y) for m in self.m], 1))
+
+
+class GhostConv(nn.Module):
+    """A k x k conv to half the channels and a cheap 5 x 5 depthwise "ghost" of it, concatenated."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, g: int = 1, act: bool = True):
+        super().__init__()
+        c_ = c2 // 2
+        self.cv1 = Conv(c1, c_, k, s, None, g, act=act)
+        self.cv2 = Conv(c_, c_, 5, 1, None, c_, act=act)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv1(x)
+        return torch.cat([y, self.cv2(y)], 1)
+
+
+class GhostBottleneck(nn.Module):
+    """GhostConv, a stride-2 depthwise conv when ``s`` is 2, a linear GhostConv; shortcut, through a
+    depthwise and a 1x1 conv when ``s`` is 2."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1):
+        super().__init__()
+        c_ = c2 // 2
+        self.conv = nn.Sequential(
+            GhostConv(c1, c_, 1, 1),
+            DWConv(c_, c_, k, s, act=False) if s == 2 else nn.Identity(),
+            GhostConv(c_, c2, 1, 1, act=False),
+        )
+        self.shortcut = (nn.Sequential(DWConv(c1, c1, k, s, act=False), Conv(c1, c2, 1, 1, act=False)) if s == 2
+                         else nn.Identity())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x) + self.shortcut(x)
+
+
+class C3Ghost(C3):
+    """C3 whose inner blocks are GhostBottlenecks."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5):
+        super().__init__(c1, c2, n, shortcut, g, e, inner=lambda c: GhostBottleneck(c, c))
+
+
+class RepVGGDW(nn.Module):
+    """A 7 x 7 and a 3 x 3 depthwise conv summed, then SiLU (YOLOv10's large-kernel branch)."""
+
+    def __init__(self, ed: int):
+        super().__init__()
+        self.conv = Conv(ed, ed, 7, 1, 3, g=ed, act=False)
+        self.conv1 = Conv(ed, ed, 3, 1, 1, g=ed, act=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.silu(self.conv(x) + self.conv1(x))
+
+
+class CIB(nn.Module):
+    """YOLOv10's conditional identity block: depthwise 3x3, 1x1, depthwise 3x3 (or RepVGGDW), 1x1,
+    depthwise 3x3; a shortcut where the widths agree."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, e: float = 0.5, lk: bool = False):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = nn.Sequential(
+            Conv(c1, c1, 3, g=c1),
+            Conv(c1, 2 * c_, 1),
+            RepVGGDW(2 * c_) if lk else Conv(2 * c_, 2 * c_, 3, g=2 * c_),
+            Conv(2 * c_, c2, 1),
+            Conv(c2, c2, 3, g=c2),
+        )
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv1(x)
+        return x + y if self.add else y
+
+
+class C2fCIB(C2f):
+    """C2f whose inner blocks are CIBs."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, lk: bool = False, g: int = 1,
+                 e: float = 0.5):
+        super().__init__(c1, c2, n, shortcut, g, e, inner=lambda c: CIB(c, c, shortcut, e=1.0, lk=lk))
+
+
+class PSA(nn.Module):
+    """One attention block on half the channels (YOLOv10): ``attn`` and a conv FFN, each with a shortcut."""
+
+    def __init__(self, c1: int, c2: int, e: float = 0.5):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * self.c, 1, 1)
+        self.cv2 = Conv(2 * self.c, c2, 1)
+        self.attn = Attention(self.c, max(1, self.c // 64), 0.5)
+        self.ffn = nn.Sequential(Conv(self.c, self.c * 2, 1), Conv(self.c * 2, self.c, 1, act=False))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a, b = self.cv1(x).chunk(2, 1)
+        b = b + self.attn(b)
+        b = b + self.ffn(b)
+        return self.cv2(torch.cat([a, b], 1))
+
+
+class RepConv(nn.Module):
+    """A 3 x 3 and a 1 x 1 conv (each with BatchNorm, no activation) summed, then SiLU; the deploy-time
+    fusion of the two is a weight transform the graph does not need."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.conv1 = Conv(c1, c2, 3, 1, 1, act=False)
+        self.conv2 = Conv(c1, c2, 1, 1, 0, act=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.silu(self.conv1(x) + self.conv2(x))
+
+
+class RepBottleneck(nn.Module):
+    """Bottleneck whose first conv is a RepConv."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, g: int = 1, k: Tuple[int, int] = (3, 3),
+                 e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = RepConv(c1, c_)
+        self.cv2 = Conv(c_, c2, k[1], 1, g=g)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class RepCSP(C3):
+    """C3 whose inner blocks are RepBottlenecks."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5):
+        super().__init__(c1, c2, n, shortcut, g, e,
+                         inner=lambda c: RepBottleneck(c, c, shortcut, g, k=(3, 3), e=1.0))
+
+
+class RepNCSPELAN4(nn.Module):
+    """GELAN block of YOLOv9: a 1x1 conv split in two, two RepCSP + 3x3 conv stages chained on the
+    second half, all four concatenated into a 1x1 conv."""
+
+    def __init__(self, c1: int, c2: int, c3: int, c4: int, n: int = 1):
+        super().__init__()
+        self.cv1 = Conv(c1, c3, 1, 1)
+        self.cv2 = nn.Sequential(RepCSP(c3 // 2, c4, n), Conv(c4, c4, 3, 1))
+        self.cv3 = nn.Sequential(RepCSP(c4, c4, n), Conv(c4, c4, 3, 1))
+        self.cv4 = Conv(c3 + 2 * c4, c2, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = list(self.cv1(x).chunk(2, 1))
+        y.append(self.cv2(y[-1]))
+        y.append(self.cv3(y[-1]))
+        return self.cv4(torch.cat(y, 1))
+
+
+class ELAN1(nn.Module):
+    """RepNCSPELAN4 with plain 3x3 convs for stages (YOLOv9t)."""
+
+    def __init__(self, c1: int, c2: int, c3: int, c4: int):
+        super().__init__()
+        self.cv1 = Conv(c1, c3, 1, 1)
+        self.cv2 = Conv(c3 // 2, c4, 3, 1)
+        self.cv3 = Conv(c4, c4, 3, 1)
+        self.cv4 = Conv(c3 + 2 * c4, c2, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = list(self.cv1(x).chunk(2, 1))
+        y.append(self.cv2(y[-1]))
+        y.append(self.cv3(y[-1]))
+        return self.cv4(torch.cat(y, 1))
+
+
+class AConv(nn.Module):
+    """A 2 x 2 stride-1 average pool, then a stride-2 3x3 conv."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.cv1 = Conv(c1, c2, 3, 2, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv1(F.avg_pool2d(x, 2, 1, 0))
+
+
+class ADown(nn.Module):
+    """A 2 x 2 stride-1 average pool; half the channels through a stride-2 3x3 conv, half through a
+    stride-2 3 x 3 max pool and a 1x1 conv; concatenated."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.c = c2 // 2
+        self.cv1 = Conv(c1 // 2, self.c, 3, 2, 1)
+        self.cv2 = Conv(c1 // 2, self.c, 1, 1, 0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x1, x2 = F.avg_pool2d(x, 2, 1, 0).chunk(2, 1)
+        return torch.cat([self.cv1(x1), self.cv2(F.max_pool2d(x2, 3, 2, 1))], 1)
+
+
+class SPPELAN(nn.Module):
+    """A 1x1 conv, three chained k x k stride-1 max pools, all four concatenated into a 1x1 conv."""
+
+    def __init__(self, c1: int, c2: int, c3: int, k: int = 5):
+        super().__init__()
+        self.cv1 = Conv(c1, c3, 1, 1)
+        self.cv2 = nn.MaxPool2d(k, 1, k // 2)
+        self.cv3 = nn.MaxPool2d(k, 1, k // 2)
+        self.cv4 = nn.MaxPool2d(k, 1, k // 2)
+        self.cv5 = Conv(4 * c3, c2, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = [self.cv1(x)]
+        for m in (self.cv2, self.cv3, self.cv4):
+            y.append(m(y[-1]))
+        return self.cv5(torch.cat(y, 1))
+
+
+class ResNetBlock(nn.Module):
+    """ResNet bottleneck: 1x1, 3x3 (stride ``s``), 1x1 to ``e * c2`` without activation, plus the input
+    (through a strided 1x1 conv where the shape changes), then ReLU."""
+
+    def __init__(self, c1: int, c2: int, s: int = 1, e: int = 4):
+        super().__init__()
+        c3 = e * c2
+        self.cv1 = Conv(c1, c2, 1, 1)
+        self.cv2 = Conv(c2, c2, 3, s, 1)
+        self.cv3 = Conv(c2, c3, 1, act=False)
+        self.shortcut = nn.Sequential(Conv(c1, c3, 1, s, act=False)) if s != 1 or c1 != c3 else nn.Identity()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.cv3(self.cv2(self.cv1(x))) + self.shortcut(x))
+
+
+class ResNetLayer(nn.Module):
+    """A ResNet stage of ``n`` blocks, or with ``is_first`` the stem: a stride-2 7x7 conv and a stride-2
+    3 x 3 max pool."""
+
+    def __init__(self, c1: int, c2: int, s: int = 1, is_first: bool = False, n: int = 1, e: int = 4):
+        super().__init__()
+        if is_first:
+            self.layer = nn.Sequential(Conv(c1, c2, 7, 2, 3), nn.MaxPool2d(3, 2, 1))
+        else:
+            blocks = [ResNetBlock(c1, c2, s, e)] + [ResNetBlock(e * c2, c2, 1, e) for _ in range(n - 1)]
+            self.layer = nn.Sequential(*blocks)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.layer(x)
+
+
+class CBLinear(nn.Module):
+    """One conv with a bias whose channels split into the taps ``c2s`` (YOLOv9e's second backbone reads
+    them through CBFuse); the output is the tuple of taps."""
+
+    def __init__(self, c1: int, c2s: Tuple[int, ...], k: int = 1, s: int = 1):
+        super().__init__()
+        self.c2s = tuple(c2s)
+        self.conv = Conv2d(c1, sum(self.c2s), k, s, autopad(k), bias=True)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        return tuple(self.conv(x).split(self.c2s, 1))
+
+
+class CBFuse(nn.Module):
+    """Sum, onto the last input, tap ``idx[i]`` of each CBLinear input ``i``, nearest-resized to it with
+    half-pixel centres (``jax.image.resize``'s "nearest", PyTorch's "nearest-exact")."""
+
+    def __init__(self, idx: Tuple[int, ...]):
+        super().__init__()
+        self.idx = tuple(idx)
+
+    def forward(self, xs) -> torch.Tensor:
+        total = xs[-1]
+        size = total.shape[2:]
+        for i, x in enumerate(xs[:-1]):
+            t = x[self.idx[i]]
+            if t.shape[2:] != size:
+                t = F.interpolate(t.float(), size=tuple(size), mode="nearest-exact").to(t.dtype)
+            total = total + t
+        return total
+
+
+class SpaceToDepth(nn.Module):
+    """Lossless (B, C, H, W) -> (B, b * b * C, H / b, W / b): output channel ``(dy * b + dx) * C + c``, the
+    JAX package's channels-last order (its ``-tpu`` stem), not ``pixel_unshuffle``'s."""
+
+    def __init__(self, block: int = 2):
+        super().__init__()
+        self.b = block
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C, H, W = x.shape
+        b = self.b
+        x = x.reshape(B, C, H // b, b, W // b, b).permute(0, 3, 5, 1, 2, 4)
+        return x.reshape(B, b * b * C, H // b, W // b)

@@ -1,13 +1,15 @@
 """Graph-config parser (counterpart of ``bsyolo_tpu/nn/parser.py``).
 
 Turns a model YAML (backbone/head rows of ``[from, repeats, module, args]``
-with ``scales:`` compound scaling) into a static ``ModelSpec``: channel
-arithmetic, depth/width scaling and stride propagation all happen here. Only
-the modules of the BS-YOLO detection graphs (``cfg/models/11/yolo11.yaml`` and
-``yolo11old.yaml``) and the Segment, Pose, OBB and Classify heads
-(``yolo11-seg.yaml``, ``yolo11-pose.yaml``, ``yolo11-obb.yaml``,
-``yolo11-cls.yaml``) are accepted; any other module raises
-``NotImplementedError`` naming it.
+with ``scales:`` compound scaling, or ``depth_multiple``/``width_multiple``)
+into a static ``ModelSpec``: channel arithmetic, depth/width scaling, stride
+propagation and the graph-wide ``activation:`` happen here. The modules of the
+BS-YOLO graphs (``cfg/models/11``) and of the YOLO v3, v5, v6, v8, v9 and v10
+graphs (``cfg/models/v3`` to ``v10``) are accepted, with the Detect, Segment,
+Pose, OBB, Classify and v10Detect heads; a head on a graph without C3k2 is
+``legacy`` (its class branch two 3x3 convs). Any other module raises
+``NotImplementedError`` naming it: the RT-DETR, YOLO-World, NAS and SAM
+families are ROADMAP item 13.
 """
 
 from __future__ import annotations
@@ -22,13 +24,30 @@ from typing import Any, Tuple
 from bsyolo_tpu_torch.cfg import read_yaml
 
 # modules that follow the conv-like channel rule c2 = make_divisible(min(c2, max_ch) * width, 8)
-_CONVLIKE = {"Conv", "DWConv", "Bottleneck", "SPPF", "C2PSA", "C2f", "C3", "C3k2", "C3k2_gai", "SCDown"}
+_CONVLIKE = {"Conv", "DWConv", "Bottleneck", "SPP", "SPPF", "C2PSA", "PSA", "C2", "C2f", "C2fCIB", "C3", "C3k2",
+             "C3k2_gai", "SCDown", "GhostConv", "GhostBottleneck", "C3Ghost", "RepNCSPELAN4", "ELAN1", "AConv",
+             "ADown", "SPPELAN", "ConvTranspose2d"}
 # modules that take the (depth-scaled) repeat count as args[1]
-_REPEAT = {"C2f", "C3", "C3k2", "C3k2_gai", "C2PSA"}
+_REPEAT = {"C2", "C2f", "C2fCIB", "C3", "C3k2", "C3k2_gai", "C2PSA", "C3Ghost"}
 # the heads the port builds -> the task they serve
-HEAD_TASKS = {"Detect": "detect", "Segment": "segment", "Pose": "pose", "OBB": "obb", "Classify": "classify"}
+HEAD_TASKS = {"Detect": "detect", "Segment": "segment", "Pose": "pose", "OBB": "obb", "Classify": "classify",
+              "v10Detect": "detect"}
 # the heads on a detection trunk of several levels (every head but Classify)
-_LEVEL_HEADS = {"Detect", "Segment", "Pose", "OBB"}
+_LEVEL_HEADS = {"Detect", "Segment", "Pose", "OBB", "v10Detect"}
+# modules of the JAX package's other graph families, which the port does not build yet
+_LATER = {"HGStem", "HGBlock", "RepC3", "AIFI", "RTDETRDecoder", "C2fAttn", "ImagePoolingAttn", "WorldDetect",
+          "YoloNASStem", "YoloNASStage", "NASUpMerge", "NASDown", "NASDetect", "Index"}
+
+
+def activation_name(text) -> str:
+    """The activation a YAML's ``activation:`` value names (``nn.ReLU()`` -> ``relu``), as the JAX
+    parser reads it: SiLU unless another known name appears in the text."""
+    text = str(text or "").lower()
+    for key, name in (("leakyrelu", "lrelu"), ("relu", "relu"), ("silu", "silu"), ("gelu", "gelu"),
+                      ("hardswish", "hardswish"), ("mish", "mish")):
+        if key in text:
+            return name
+    return "silu"
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -58,6 +77,7 @@ class ModelSpec:
     task: str = "detect"  # from the head: detect, segment, pose, obb or classify
     kpt_shape: Tuple[int, int] = (17, 3)  # (keypoints, dims) of a Pose head
     dropout: float = 0.0  # the Classify head's dropout rate in train mode (the cfg's ``dropout``)
+    act: str = "silu"  # every Conv's activation (the YAML's ``activation:``; ``nn.modules.ACTIVATIONS``)
 
     @property
     def head(self) -> LayerSpec:
@@ -105,8 +125,7 @@ def _freeze(a: Any) -> Any:
 def parse_model_yaml(d: dict, ch: int = 3, scale: str = "") -> ModelSpec:
     """Parse a model dict into a ModelSpec (the reference ``parse_model`` rules)."""
     nc = int(d.get("nc", 80))
-    if d.get("activation"):
-        raise NotImplementedError(f"activation {d['activation']!r}: the port's graphs use SiLU only")
+    act = activation_name(d.get("activation"))
     scales = d.get("scales")
     depth, width, max_channels = d.get("depth_multiple", 1.0), d.get("width_multiple", 1.0), float("inf")
     scale = scale or d.get("scale", "")
@@ -142,11 +161,33 @@ def parse_model_yaml(d: dict, ch: int = 3, scale: str = "") -> ModelSpec:
                 legacy = False
                 if scale in "mlx" and len(args) >= 3:
                     args[2] = True  # c3k=True at m/l/x
-            if m in ("Conv", "DWConv", "SCDown") and len(args) >= 3:
+            if m in ("Conv", "DWConv", "SCDown", "GhostConv") and len(args) >= 3:
                 out_stride = in_stride * args[2]
+            elif m in ("AConv", "ADown"):
+                out_stride = in_stride * 2
+            elif m == "ConvTranspose2d":  # (c2, k, s, p): a stride-s upsample
+                out_stride = in_stride // (args[2] if len(args) > 2 else 2)
         elif m in ("MSCAAttention", "ELA"):
             c2 = c1
             args = [c1]
+        elif m in ("Identity", "ZeroPad2d"):
+            c2 = c1
+        elif m == "CBLinear":  # ([c2s], k, s): the taps' widths, unscaled
+            c2 = sum(args[0])
+        elif m == "CBFuse":  # the last input's width and stride
+            c2 = channels[fl[-1]]
+            out_stride = strides[fl[-1]]
+        elif m == "ResNetLayer":  # (c1, c2, s, is_first, n): the stem downsamples 4x, a stage s
+            is_first = args[3] if len(args) > 3 else False
+            c2 = args[1] if is_first else 4 * args[1]
+            out_stride = in_stride * (4 if is_first else (args[2] if len(args) > 2 else 1))
+        elif m == "SpaceToDepth":
+            b = args[0] if args else 2
+            c2 = c1 * b * b
+            out_stride = in_stride * b
+        elif m == "MaxPool2d":  # (k, s, p)
+            c2 = c1
+            out_stride = in_stride * (args[1] if len(args) > 1 else args[0])
         elif m == "Upsample":
             c2 = c1
             out_stride = in_stride // int(args[1] if len(args) > 1 else 2)
@@ -157,8 +198,6 @@ def parse_model_yaml(d: dict, ch: int = 3, scale: str = "") -> ModelSpec:
             args = [c2]
             task = "classify"
         elif m in _LEVEL_HEADS:
-            if legacy:
-                raise NotImplementedError(f"legacy {m} (graphs without C3k2) is not ported")
             if m == "Segment":  # [nc, nm, npr]: the prototype width is width-scaled
                 args = [args[0], args[1], make_divisible(min(args[2], max_channels) * width, 8)]
             elif m == "Pose":
@@ -166,10 +205,13 @@ def parse_model_yaml(d: dict, ch: int = 3, scale: str = "") -> ModelSpec:
                 args = [args[0], kpt_shape]
             elif m == "OBB":  # [nc, ne]: ne angle channels per anchor
                 args = [args[0], int(args[1]) if len(args) > 1 else 1]
-            args = [*args, tuple(channels[x] for x in fl)]
+            args = [*args, tuple(channels[x] for x in fl), legacy]  # v10Detect ignores legacy, as in JAX
             task = HEAD_TASKS[m]
             c2 = 0
             out_stride = 0
+        elif m in _LATER:
+            raise NotImplementedError(f"module '{m}' (layer {i}) belongs to a graph family the port does not build "
+                                      "yet (RT-DETR, YOLO-World, NAS: ROADMAP queue 1, item 13)")
         else:
             raise NotImplementedError(f"module '{m}' (layer {i}) is not supported by the port's graph parser")
 
@@ -181,8 +223,8 @@ def parse_model_yaml(d: dict, ch: int = 3, scale: str = "") -> ModelSpec:
         strides.append(out_stride)
 
     if layers[-1].module not in HEAD_TASKS:
-        raise NotImplementedError(f"graph head {layers[-1].module!r}: the port serves Detect, Segment, Pose, OBB and "
-                                  "Classify graphs only")
+        raise NotImplementedError(f"graph head {layers[-1].module!r}: the port serves Detect, Segment, Pose, OBB, "
+                                  "Classify and v10Detect graphs only")
     names_map = d.get("names") or {}
     class_names = tuple(names_map[k] for k in sorted(names_map)) if names_map else tuple(str(j) for j in range(nc))
     return ModelSpec(
@@ -193,4 +235,5 @@ def parse_model_yaml(d: dict, ch: int = 3, scale: str = "") -> ModelSpec:
         names=class_names,
         task=task,
         kpt_shape=kpt_shape,
+        act=act,
     )

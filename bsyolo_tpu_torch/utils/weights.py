@@ -3,11 +3,14 @@
 The port's modules carry the reference torch parameter names, so JAX
 variables map onto them one to one through ``flax_path_to_torch_key``:
 ``m{i}`` -> ``model.{i}``, ``m_{j}`` -> ``m.{j}``, ``cv2_{i}_{j}`` ->
-``cv2.{i}.{j}``, with the exceptions the BS-YOLO graph needs: DWConv's ``dw``
-wrapper level and the Segment, Pose and OBB heads' nested ``detect`` level (the
-port's heads inherit Detect, as the reference's do) are dropped, MSCA's SE convs are ``SEn.conv.0``, ELA's channel
-conv is ``ch_att.2``, ``conv0_1``-style strip-conv names stay whole, and ELA's
-fusion weights are bare parameters.
+``cv2.{i}.{j}``, with the exceptions the graphs need: DWConv's ``dw``
+wrapper level, the Segment, Pose and OBB heads' nested ``detect`` level (the
+port's heads inherit Detect, as the reference's do) and the ``ct`` level of
+YOLOv6's bare transposed conv (``m11/ct/kernel`` -> ``model.11.weight``) are
+dropped, MSCA's SE convs are ``SEn.conv.0``, ELA's channel conv is
+``ch_att.2``, ``conv0_1``-style strip-conv names stay whole (RepConv's
+``conv1``, ``conv2`` too), v10Detect's ``one2one_cv2_{i}_{j}`` is
+``one2one_cv2.{i}.{j}``, and ELA's fusion weights are bare parameters.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from bsyolo_tpu_torch.utils import LOGGER
 
 def _translate_component(comp: str) -> Tuple[str, ...]:
     """One flax path component -> zero or more torch components."""
-    if comp in ("dw", "detect"):
+    if comp in ("dw", "detect", "ct"):
         return ()
     m = re.match(r"^m(\d+)$", comp)
     if m:
@@ -226,8 +229,9 @@ def jax_paths(model: torch.nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...]]]:
     JAX state is needed. Consecutive list indices join their list's name (``cv2.1.0`` ->
     ``cv2_1_0``), ``model.{i}`` is ``m{i}``, DWConv gets its ``dw`` level back, an _SE's
     ``conv.0`` is the SE level itself, ELA's ``ch_att.2`` is ``ch_conv``, a Segment, Pose or OBB
-    head's box and class branches (``cv2``, ``cv3``) sit under its ``detect`` level; a norm's
-    weight is ``scale``, a conv's or linear's ``kernel``."""
+    head's box and class branches (``cv2``, ``cv3``) sit under its ``detect`` level, a transposed
+    conv that is a layer of its own (``model.{i}``) under a ``ct`` level; a norm's weight is
+    ``scale``, a conv's or linear's ``kernel``."""
     mods = dict(model.named_modules())
     out = {}
     names = [n for n, _ in model.named_parameters()] + [n for n, _ in model.named_buffers()
@@ -250,8 +254,8 @@ def jax_paths(model: torch.nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...]]]:
                 path.append("ch_conv")
                 i += 2
                 continue
-            if i == 0 and c == "model":
-                path.append("m" + parents[1])
+            if i == 0 and c == "model":  # a layer repeated n times is m{i}/0 ... m{i}/{n-1}
+                path += ["m" + parents[1], *parents[2:j]]
             elif c in ("cv2", "cv3") and type(owner).__name__ in ("Segment", "Pose", "OBB"):
                 path += ["detect", "_".join(parents[i:j])]
             else:
@@ -260,6 +264,8 @@ def jax_paths(model: torch.nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...]]]:
                 path.append("dw")
             i = j
         module = mods[".".join(parents)]
+        if len(parents) == 2 and isinstance(module, torch.nn.ConvTranspose2d):
+            path.append("ct")
         collection = "batch_stats" if leaf in ("running_mean", "running_var") else "params"
         if isinstance(module, _NORMS) and leaf == "weight":
             name = "scale"

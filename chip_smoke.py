@@ -10,7 +10,8 @@ this checkout; exits non-zero without them. Phases, each of which fails the run 
    nvcc from ``bsyolo_tpu_torch/kernels/csrc``, and the JPEG codec with the
    host C++ compiler, one compiler per source, all at once;
 2. each kernel against its plain PyTorch version on the card, at the shapes
-   its paths give it and at ragged ones, with its time, the plain version's
+   its paths give it and at ragged ones, with its time (the decode kernels'
+   at the predict shape, B 4 at 640 px), the plain version's
    time, the least time the card could take (bytes or operations over the
    card's published peak) and, for the decode kernels, the host time per call
    in turns with the plain version; both decode kernels also on bfloat16 and
@@ -117,7 +118,7 @@ this checkout; exits non-zero without them. Phases, each of which fails the run 
    clip on the card: the box decode kernel once per frame and its plain
    version never, well-formed events, tracked rows on most frames; ms per
    frame split into track, segment and rule, the device busy share over the
-   clip and peak memory; (c) its first 8 frames against the port on the
+   clip and peak memory; (c) its first 4 frames against the port on the
    CPU: the detections before tracking paired as in phase 3, then the ids:
    tracked rows paired with the same ids, or a replay of the card's
    detections through a fresh CPU tracker; (d) ``YOLO.track`` with
@@ -131,7 +132,7 @@ this checkout; exits non-zero without them. Phases, each of which fails the run 
    95 against digests of ``cv2.imencode``'s bytes; the host ms per photo, the
    compiler's version and whether OpenCV is importable; (c) ``YOLO.train`` of
    full-width yolo11n (imgsz 320, 2 epochs, batch 8, 2 workers) on a train
-   list of the photos 16 times over (16 steps per epoch, ms per step and the
+   list of the photos 8 times over (8 steps per epoch, ms per step and the
    loader-wait share per epoch), validated on the 8 photos, the box decode
    kernel once per validation batch, then ``val(save_json=True,
    save_txt=True)``: one label file per photo and a ``predictions.json`` over
@@ -139,8 +140,8 @@ this checkout; exits non-zero without them. Phases, each of which fails the run 
    of the photos' directory at 640 px, batch 4, through the predictor's
    reader thread, one launch per batch, against the same call on the CPU
    (rows paired as in phase 3), the label and crop files against the
-   detections; then the rate over a directory of the photos 64 times over
-   (128 batches, one launch each): from files through the reader thread,
+   detections; then the rate over a directory of the photos 32 times over
+   (64 batches, one launch each): from files through the reader thread,
    against the same frames decoded beforehand (no decode) and against
    decoding each batch and then running it in one thread (no reader thread),
    in turns, with img/s and the share of the wall time spent waiting on the
@@ -196,12 +197,31 @@ this checkout; exits non-zero without them. Phases, each of which fails the run 
    at batch 4, float32 and bf16 out, beside its bound, the plain version and
    ``torch._int_mm``; (f, in phase 9's directory) int8 ``val`` of phase 9's
    Detect checkpoint card vs CPU. Phase 2 also times the box decode kernel on
-   the bf16 Segment and Pose heads. ``python3 chip_smoke.py --phase 15``
-   builds the kernels and runs (a) to (e) alone, on datasets it writes.
+   the bf16 Segment and Pose heads.
+
+16. The YOLO v3, v5, v6, v8, v9 and v10 graphs: (a) each of the 36 graph
+   files the port bundles for them (``yolov3.yaml`` to ``yolov10x.yaml``,
+   ``yolo11-stock.yaml``, ``yolo11-tpu.yaml``) built at full width of its
+   first scale with drawn weights, one forward of a seeded batch of 2 at
+   320 px on the card and on the CPU, every head map (both branches of
+   YOLOv10's head) within 1e-4 of its largest magnitude; (b) yolov8n and
+   (c) yolov10n at 640 on 15f's own split of phase 9's frames:
+   ``YOLO.train`` with its default amp fitted as 15b fits (mAP50 above
+   0.3 on both devices after it), predict at batch 4 against the CPU's
+   predictor on the card's head maps (YOLOv10's NMS-free top-k through
+   the xywh decode kernel), ``val`` as 15c holds it, int8 predict on the
+   float32 graph and on ``half_graph()`` with each int8 conv against its
+   CPU twin, and the int8 kernel over the products of one forward beside
+   its bound; yolov6n (ReLU) the same int8 predicts on drawn weights;
+   (d) the box decode kernel on the 4-level heads of yolov8n-p2 (strides
+   4 to 32, 34,000 anchors at 640) and yolov8n-p6 (strides 8 to 64), and
+   the xywh decode kernel on yolov10n's one-to-one head at nc 80, each
+   against its plain version, timed beside its bytes bound.
 
 Phases 10a to 10c run right after phase 6, on the float graph phases 3 to 6
-used; 10d, 10e and 15f after phase 9, 11, 12, 13, 14 and 15 last. Each phase prints its seconds. Every launch counter is set to 0 just before a path is driven and read just
-after, so each path shows the kernels it went through.
+used; 10d, 10e, 15f and 16 after phase 9, 11, 12, 13, 14 and 15 last. Each
+phase prints its seconds. Every launch counter is set to 0 just before a path
+is driven and read just after, so each path shows the kernels it went through.
 
 TF32 is off for convolutions and matrix products throughout, so the card and
 the CPU compute the same float32 function (cuDNN would otherwise run float32
@@ -211,10 +231,12 @@ launches on phase 10's bf16 paths (``bf16_launches``), on phase 11's
 product path (``product_launches``) and on phase 12's photos
 (``photo_launches``) among all its launches, and
 ``int8_matmul`` its bf16 epilogue's figures (``bf16_out``); each also carries
-its launches on phase 13's and 14's task paths (``task_launches``) and on
-phase 15's (``mode_launches``), ``decode_box_best`` phase 2's task-head
-figures (``task_heads``, float32 and bf16), ``int8_matmul`` phase 15's
-figures per task graph (``task_graphs``).
+its launches on phase 13's and 14's task paths (``task_launches``), on
+phase 15's (``mode_launches``) and on phase 16's (``zoo_launches``),
+``decode_box_best`` phase 2's task-head figures (``task_heads``, float32 and
+bf16), both decode kernels phase 16d's (``zoo_heads``), ``int8_matmul``
+phase 15's figures per task graph (``task_graphs``) and phase 16's per
+graph (``zoo_graphs``).
 """
 
 from __future__ import annotations
@@ -419,6 +441,11 @@ DECODE_SHAPES = (
 )
 
 
+# the shape at which phase 2 times both decode kernels (the others it checks only): plain predict's largest batch
+# and the TTA path's unscaled pass, the kernels line's figures
+TIMED_SHAPE = "B4 640"
+
+
 def seeded_levels(g, dev, b, sizes, nc):
     """(B, 64 + nc, h, w) head levels, image 0's side 1 far below the others (NaN for a single row max)."""
     import torch
@@ -454,7 +481,8 @@ def host_us_in_turns(kernel, plain, inputs):
 
 
 def check_decode_kernel(dev):
-    """box_best_cuda against box_best_reference on the card at DECODE_SHAPES; returns the kernels-line fields."""
+    """box_best_cuda against box_best_reference on the card at DECODE_SHAPES, timed at TIMED_SHAPE; returns the
+    kernels-line fields."""
     import torch
 
     from bsyolo_tpu_torch.kernels.decode import REG_MAX, box_best_cuda, box_best_reference
@@ -478,6 +506,8 @@ def check_decode_kernel(dev):
         if not ok:
             raise SystemExit(f"decode_box_best disagrees with its plain version at {label}")
         worst = max(worst, err)
+        if label != TIMED_SHAPE:
+            continue
         head_bytes = b * a * (4 * REG_MAX + nc) * 4
         bytes_moved = head_bytes + b * a * (4 + 1 + nc) * 4  # head once; boxes, best and class logits once
         ops = b * a * (4 * (6 * REG_MAX + 1) + nc + 8)  # per side: max, sub, exp, add, fma (2); one divide
@@ -487,12 +517,11 @@ def check_decode_kernel(dev):
         rows[label] = time_against_plain(label, box_best_cuda, box_best_reference, (levels, strides, nc),
                                          bytes_moved, ops)
         rows[label]["host_us_per_call"] = host_us_in_turns(box_best_cuda, box_best_reference, [(levels, strides, nc)])
-    # the kernels line reports the largest batch the predict phase runs
-    return dict(max_abs_err=worst, **rows["B4 640"])
+    return dict(max_abs_err=worst, **rows[TIMED_SHAPE])
 
 
 def check_decode_xywh_kernel(dev):
-    """decode_xywh_cuda against decode_xywh_reference on the card at DECODE_SHAPES;
+    """decode_xywh_cuda against decode_xywh_reference on the card at DECODE_SHAPES, timed at TIMED_SHAPE;
     returns the kernels-line fields."""
     import torch
 
@@ -515,6 +544,8 @@ def check_decode_xywh_kernel(dev):
         if not ok:
             raise SystemExit(f"decode_xywh disagrees with its plain version at {label}")
         worst = max(worst, err)
+        if label != TIMED_SHAPE:
+            continue
         head_bytes = b * a * (4 * REG_MAX + nc) * 4
         bytes_moved = head_bytes + b * a * (4 + nc) * 4  # head once, output rows once
         ops = b * a * (4 * (6 * REG_MAX + 1) + 10 + 4 * nc)  # the sides as above; box 10; sigmoid 4 per class
@@ -524,8 +555,7 @@ def check_decode_xywh_kernel(dev):
                                          bytes_moved, ops)
         rows[label]["host_us_per_call"] = host_us_in_turns(decode_xywh_cuda, decode_xywh_reference,
                                                            [(levels, strides, nc)])
-    # the kernels line reports the TTA path's unscaled pass, B=4 at 640 px
-    return dict(max_abs_err=worst, **rows["B4 640"])
+    return dict(max_abs_err=worst, **rows[TIMED_SHAPE])
 
 
 # (label, B, level sizes, strides) of the 2-byte checks: the predict shape, and a P6 pyramid whose 5 x 5 level has
@@ -746,7 +776,7 @@ def draw_weights(model, seed: int) -> None:
         if hasattr(head, "linear"):  # a Classify head: spread its logits as the Detect family's
             head.linear.weight.mul_(HEAD_GAIN)
             return
-        for branch in (*head.cv2, *head.cv3):
+        for branch in (*head.cv2, *head.cv3, *getattr(head, "one2one_cv2", ()), *getattr(head, "one2one_cv3", ())):
             branch[-1].weight.mul_(HEAD_GAIN)
 
 
@@ -2204,10 +2234,10 @@ P11_CONF, P11_DWELL_S = 0.25, 0.5  # the pipeline's default conf; a dwell the 1.
 # occlusion threshold (the application's is 0.7) makes the rule and the dwell timer fire within the clip
 P11_OCCLUSION = 0.02
 P11_SEG = dict(num_classes=2, base_c=32, resize=565)  # the application's segmenter (sys/videobytetrack.py:220)
-P11_CPU_FRAMES = 8  # frames of the decision step run again on the CPU
+P11_CPU_FRAMES = 4  # frames of the decision step run again on the CPU
 # frames of the decision step under torch.profiler: the segmenter's cuDNN convolutions launch about 33,000
 # kernels per frame, and the profiler takes about 10 s per frame to process them
-P11_PROFILE_FRAMES = 4
+P11_PROFILE_FRAMES = 1
 P11_LOGIT_NORM = 1e-3  # GRFB-UNet logits, card vs CPU on one input: cuDNN's float32 sums in another order
 # the segmenter's input, card vs CPU: the resize is integer arithmetic (equal); the normalization is 3 float32
 # operations, correctly rounded on both (1 ulp at the largest input, about 23, is 1.9e-6)
@@ -2582,9 +2612,9 @@ PHOTO_DIGESTS = {
               "d5ba801f685efc3e7db4aec5df8d4f8feb8fdc8cafd6b1b9985a2873774fb854"),
 }
 P12_TRAIN = dict(imgsz=320, epochs=2, batch=8, workers=2, plots=False, seed=3)
-P12_TRAIN_REPEAT = 16  # the train list holds each photo this many times: 16 steps per epoch at batch 8
+P12_TRAIN_REPEAT = 8  # the train list holds each photo this many times: 8 steps per epoch at batch 8
 P12_PREDICT_BATCH = 4
-P12_STREAM_REPEAT = 64  # the rate's directory holds each photo this many times: 128 batches of 4
+P12_STREAM_REPEAT = 32  # the rate's directory holds each photo this many times: 64 batches of 4
 EMBED_RTOL = 1e-4  # pooled features, card vs CPU (norm of the difference over the CPU's norm), TF32 off
 
 
@@ -2659,7 +2689,7 @@ def repeated_photos(d: Path, repeat: int, labels: bool = False):
 
 
 def photo_train_val(dev, root):
-    """Phase 12 (c): YOLO.train on the bsyolo8 photos 16 times over (validated on the 8), then
+    """Phase 12 (c): YOLO.train on the bsyolo8 photos 8 times over (validated on the 8), then
     val(save_json, save_txt) on the 8; returns the launches."""
     import json as _json
 
@@ -2670,7 +2700,7 @@ def photo_train_val(dev, root):
     data = str(PHOTOS / "bsyolo8.yaml")
     stems = sorted(p.stem for p in (PHOTOS / "images" / "train").glob("*.jpg"))
     n_train = len(repeated_photos(root / "train_data", P12_TRAIN_REPEAT, labels=True))
-    train_yaml = root / "train_data" / "bsyolo8x16.yaml"
+    train_yaml = root / "train_data" / f"bsyolo8x{P12_TRAIN_REPEAT}.yaml"
     train_yaml.write_text(f"path: {root / 'train_data'}\ntrain: images/train\nval: {PHOTOS / 'images' / 'train'}\n"
                           "nc: 3\nnames:\n  0: car\n  1: person\n  2: motorcycle\n")
     with plain_decode_calls() as plain_calls:
@@ -2730,7 +2760,7 @@ def serial_predict(p, paths):
 
 
 def photo_rate(card, root, args):
-    """Phase 12 (d), the rate: predict over the photos 64 times over, from files through the reader thread,
+    """Phase 12 (d), the rate: predict over the photos 32 times over, from files through the reader thread,
     from the same frames decoded beforehand, and decoding then running each batch in one thread, in turns;
     returns the launches of the reader-thread runs."""
     from bsyolo_tpu_torch import kernels
@@ -2771,7 +2801,7 @@ def photo_rate(card, root, args):
 
 def photo_predict(dev, root):
     """Phase 12 (d): predict(save_txt, save_crop) and embed over the photos' directory on the card, against
-    the CPU, and the rate over the photos 64 times over; returns the launches."""
+    the CPU, and the rate over the photos 32 times over; returns the launches."""
     import torch
 
     from bsyolo_tpu_torch import YOLO, kernels
@@ -3582,13 +3612,13 @@ def task_datasets(root):
     return out
 
 
-def fit_own_split(task, yaml, data, imgsz, root, name, main):
+def fit_own_split(task, yaml, data, imgsz, root, name, main, stop: float = P15_STOP):
     """``YOLO(yaml).train`` with its default amp on ``data`` (an own split), fitted as P15_FIT and P15_FITS say,
-    stopping after the first epoch whose ``main`` metric passes P15_STOP; returns (the facade, the seconds)."""
+    stopping after the first epoch whose ``main`` metric passes ``stop``; returns (the facade, the seconds)."""
     from bsyolo_tpu_torch import YOLO
 
     def stop_on_signal(trainer):
-        if float(trainer.metrics.results_dict[main]) > P15_STOP:
+        if float(trainer.metrics.results_dict[main]) > stop:
             trainer.stopper.patience = 0  # the trainer stops after this epoch's checkpoints
 
     _, batch, epochs = P15_FITS[task]
@@ -3620,7 +3650,10 @@ def task_batch_for(task, data, imgsz, batch):
 
 
 def head_maps(out):
-    """A graph's output -> [(name, tensor)]: the levels, a Segment head's prototypes, a Classify head's logits."""
+    """A graph's output -> [(name, tensor)]: the levels, a Segment head's prototypes, a v10Detect head's two
+    branches, a Classify head's logits."""
+    if isinstance(out, dict) and "one2one" in out:
+        return [(f"{k} level {i}", f) for k in ("one2many", "one2one") for i, f in enumerate(out[k])]
     if isinstance(out, dict):
         return [(f"level {i}", f) for i, f in enumerate(out["feats"])] + [("proto", out["proto"])]
     return [(f"level {i}", f) for i, f in enumerate(out)] if isinstance(out, list) else [("logits", out)]
@@ -3628,7 +3661,7 @@ def head_maps(out):
 
 def replayed_rows(task, card, best, graph, frames, imgsz, label, **kw):
     """``card.predict(frames, **kw)`` at batch 4 with ``graph``'s outputs recorded, and the CPU's predictor run on
-    those outputs (a Replay): the rows (masks, keypoints, rotated rows, probabilities) held against the CPU's;
+    those outputs (a Replay): the rows (boxes, masks, keypoints, rotated rows, probabilities) held against the CPU's;
     returns (ms per batch of 4, the card's results)."""
     import torch
 
@@ -3666,8 +3699,11 @@ def replayed_rows(task, card, best, graph, frames, imgsz, label, **kw):
         return ms, got
     if not sum(len(r) for r in got):
         raise SystemExit(f"{label}: no rows at conf {P15_CONF}")
-    compare_with_cpu(f"{label}, the CPU's path on the card's head maps", [r.boxes.data for r in got],
-                     [r.boxes.data for r in want])
+    frac = compare_with_cpu(f"{label}, the CPU's path on the card's head maps", [r.boxes.data for r in got],
+                            [r.boxes.data for r in want])
+    if task == "detect":
+        print(f"  {label}: {ms:.1f} ms per batch of 4, {sum(len(r) for r in got)} rows, {frac:.4f} paired")
+        return ms, got
     first, second = _paired_payloads(task, got, want)
     print(f"  {label}: {ms:.1f} ms per batch of 4, {sum(len(r) for r in got)} rows; paired "
           + (f"masks' mean IoU {first:.5f} (tol {P13_MASK_IOU})" if task == "segment" else
@@ -3901,7 +3937,7 @@ def task_modes_path(dev, root):
 def detect_int8_val(dev, data, root):
     """Phase 15f: yolo11n fitted to an own split of phase 9's val images (as 15b), then int8 val on it, the
     CPU's calibration on both: metrics as val_against_cpu holds them, mAP50 above P15_SIGNAL; int8_matmul 74
-    times per validation batch."""
+    times per validation batch. Returns (the launches, (the own split's YAML, its frames)) for phase 16."""
     import torch
 
     from bsyolo_tpu_torch import YOLO, kernels
@@ -3931,20 +3967,303 @@ def detect_int8_val(dev, data, root):
     finally:
         set_int8_inference(host.model, False)
         set_int8_inference(card.model, False)
-    return launches
+    return launches, (own, frames)
+
+
+# phase 16: the YOLO v3, v5, v6, v8, v9 and v10 graphs, every graph file of those families the port bundles
+P16_GRAPHS = ("yolov3.yaml", "yolov3-tiny.yaml", "yolov3-spp.yaml", "yolov5.yaml", "yolov5-p6.yaml", "yolov6.yaml",
+              "yolov8.yaml", "yolov8-seg.yaml", "yolov8-seg-p6.yaml", "yolov8-pose.yaml", "yolov8-pose-p6.yaml",
+              "yolov8-obb.yaml", "yolov8-cls.yaml", "yolov8-cls-resnet50.yaml", "yolov8-cls-resnet101.yaml",
+              "yolov8-p2.yaml", "yolov8-p6.yaml", "yolov8-ghost.yaml", "yolov8-ghost-p2.yaml", "yolov8-ghost-p6.yaml",
+              "yolov9t.yaml", "yolov9s.yaml", "yolov9m.yaml", "yolov9c.yaml", "yolov9e.yaml", "yolov9c-seg.yaml",
+              "yolov9e-seg.yaml", "yolov10.yaml", "yolov10n.yaml", "yolov10s.yaml", "yolov10m.yaml", "yolov10b.yaml",
+              "yolov10l.yaml", "yolov10x.yaml", "yolo11-stock.yaml", "yolo11-tpu.yaml")
+P16_SIDE, P16_BATCH = 320, 2  # 16a: each graph at its first scale (none for v3 and v9), its YAML's classes
+# 16b, 16c: the detectors of the slice's main path at full width of scale n, on phase 9's data (nc 12), fitted to
+# 15f's own split as 15b fits (the default amp), then predict, val and int8 predict (float32 and bf16 epilogues)
+P16_DETECTORS = ("yolov8n.yaml", "yolov10n.yaml")
+P16_RELU = "yolov6n.yaml"  # int8 predict on drawn weights: the ReLU graph's products
+# 16b, 16c stop their fits after the first epoch past this box mAP50 (15b's P15_STOP is 0.9: its bf16 val moved
+# 0.036 on a fit stopped on the climb); 16b's and 16c's val is float32, whose metrics equalled the CPU's to 0 at
+# mAP50 0.9617 and 0.9950 (NVIDIA H100 80GB HBM3, 700 W); the floor they are held to is P15_SIGNAL
+P16_STOP = 0.5
+
+
+def zoo_heads(dev):
+    """Phase 16a: each of P16_GRAPHS built at full width on the CPU with drawn weights and copied to the card,
+    one forward of a seeded batch of P16_BATCH at P16_SIDE px on each: every head map (both branches of a
+    v10Detect head, a Segment head's prototypes, a Classify head's logits) on the card within P13_HEAD_RTOL of
+    its largest magnitude of the CPU's. No kernel of the port runs on a bare forward."""
+    import torch
+
+    from bsyolo_tpu_torch import kernels
+    from bsyolo_tpu_torch.cfg import model_yaml_path
+    from bsyolo_tpu_torch.nn.model import DetectionGraph
+    from bsyolo_tpu_torch.nn.parser import load_model_yaml, parse_model_yaml
+
+    x = torch.from_numpy(np.random.default_rng(SEED + 16).integers(0, 256, (P16_BATCH, 3, P16_SIDE, P16_SIDE),
+                                                                   dtype=np.uint8)).float() / 255.0
+    kernels.reset_launch_counts()
+    worst = 0.0
+    for i, yaml in enumerate(P16_GRAPHS):
+        t0 = time.perf_counter()
+        with torch.device("meta"):  # no init draws: draw_weights writes every tensor the forward reads
+            host = DetectionGraph(parse_model_yaml(load_model_yaml(model_yaml_path(yaml))))
+        host = host.to_empty(device="cpu").eval()
+        draw_weights(host, SEED + 160 + i)
+        card = copy.deepcopy(host).to(dev)
+        with torch.inference_mode():
+            want = head_maps(host(x))
+            t1 = time.perf_counter()
+            got = card(x.to(dev))
+            torch.cuda.synchronize()
+            card_ms = (time.perf_counter() - t1) * 1e3
+            got = head_maps(_to(got, "cpu") if isinstance(got, (dict, list)) else got.cpu())
+        errs = []
+        for (name, w), (_, g) in zip(want, got):
+            err, scale = (g - w).abs().max().item(), w.abs().max().item()
+            if not (g.shape == w.shape and math.isfinite(scale) and err <= P13_HEAD_RTOL * scale):
+                raise SystemExit(f"{yaml} {name} {tuple(w.shape)}: the card's head differs from the CPU's by {err:.3g} "
+                                 f"at max|value| {scale:.3g}")
+            errs.append(err / scale)
+        worst = max(worst, max(errs))
+        spec = host.spec
+        print(f"  {yaml}: {spec.head.module} head, task {spec.task}, nc {spec.nc}, act {spec.act}, "
+              f"{sum(p.numel() for p in host.parameters())} params, {len(want)} maps "
+              f"{[tuple(w.shape[1:]) for _, w in want]}; max|err| / max|value| {max(errs):.3g} (tol "
+              f"{P13_HEAD_RTOL}); card forward {card_ms:.1f} ms (first call), {time.perf_counter() - t0:.1f} s in all")
+        del host, card
+        torch.cuda.empty_cache()
+    expect_launches("zoo forwards", {"decode_box_best": 0, "decode_xywh": 0, "int8_matmul": 0})
+    print(f"phase 16a: {len(P16_GRAPHS)} graphs at {P16_SIDE} px, batch {P16_BATCH}: head maps on the card within "
+          f"{worst:.3g} of their scale of the CPU's")
+
+
+def zoo_detector(dev, yaml, own, frames, root, count):
+    """Phase 16b (yolov8n) and 16c (yolov10n) at full width on 15f's own split of phase 9's frames: YOLO.train with
+    its default amp fitted as 15b fits until mAP50 passes P16_STOP (the signal floor P15_SIGNAL on val), then on the
+    fitted weights: predict at
+    batch 4 held to the CPU's predictor on the card's head maps (NMS, or YOLOv10's NMS-free top-k), val as
+    val_against_cpu holds it, and int8 predict (the CPU's calibration on both; each int8 conv against its CPU twin)
+    on the float32 graph and on half_graph() (the kernel's bf16 epilogue). The decode kernel once per predict and
+    validation batch: decode_box for NMS, decode_xywh for YOLOv10's one-to-one head. Returns int8_matmul's figures
+    over the products of one forward at batch 4 (``time_path_products``)."""
+    import torch
+
+    from bsyolo_tpu_torch import YOLO, kernels
+    from bsyolo_tpu_torch.engine.train_step import e2e_criterion, task_criterion
+    from bsyolo_tpu_torch.nn.model import compute_dtype
+    from bsyolo_tpu_torch.nn.modules import quantizable_convs, set_int8_inference
+    from bsyolo_tpu_torch.nn.quant import calibrate_int8
+    from bsyolo_tpu_torch.ops.letterbox import letterbox
+
+    main, name = "metrics/mAP50(B)", f"p16{Path(yaml).stem}"
+    e2e = "v10" in yaml
+    decode = "decode_xywh" if e2e else "decode_box_best"
+
+    def launches(n_decode, n_int8=0):
+        return {"decode_box_best": 0, "decode_xywh": 0, "int8_matmul": n_int8, decode: n_decode}
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, train_s = fit_own_split("detect", yaml, own, IMGSZ, root, name, main, P16_STOP)
+    tr = model.trainer
+    if not (tr.args.amp is True and compute_dtype(model.model) == torch.bfloat16
+            and model.spec.head.module == ("v10Detect" if e2e else "Detect")
+            and (task_criterion(model.spec)[0] is e2e_criterion) == e2e
+            and all(np.isfinite(float(v)) for v in tr.epoch_metrics.values())):
+        raise SystemExit(f"{yaml}: YOLO.train did not train the graph with its default amp and its criterion")
+    epochs = len(tr.loader_wait)
+    count(f"{yaml} YOLO.train", launches(epochs * math.ceil(len(frames) / P15_FITS["detect"][1])))
+    wait, wall, n = (sum(e[k] for e in tr.loader_wait) for k in range(3))
+    fitted = tr.metrics.results_dict
+    print(f"phase 16 {yaml}: YOLO.train (amp, the default; {', '.join(tr.item_names)}) {epochs} epochs, {n} steps at "
+          f"batch {P15_FITS['detect'][1]} in {train_s:.1f} s, {wall * 1e3 / n:.1f} ms per step, loader-wait share "
+          f"{wait / wall:.3f}, peak memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; "
+          f"{', '.join(f'{k} {float(v):.4f}' for k, v in fitted.items())}")
+    if not float(fitted[main]) > P15_SIGNAL:
+        raise SystemExit(f"{yaml}: {epochs} epochs on {len(frames)} images left {main} at {float(fitted[main]):.4f}, "
+                         f"not above {P15_SIGNAL}")
+    best = Path(root) / "runs" / name / "weights" / "best.ckpt"
+    host, card = YOLO(best, device="cpu"), YOLO(best)
+    n_pred = math.ceil(len(frames) / 4)
+    card.predict(frames, imgsz=IMGSZ, batch=4, conf=P15_CONF)  # warm-up
+    kernels.reset_launch_counts()
+    float_ms, got = replayed_rows("detect", card, best, card.model, frames, IMGSZ, f"{yaml} predict")
+    count(f"{yaml} predict", launches(n_pred))
+    val_against_cpu(f"{yaml} val", card, host, best, own, IMGSZ, P15_OWN, main)
+    count(f"{yaml} val", launches(math.ceil(len(frames) / P15_OWN)))
+    x = torch.stack([letterbox(f, (IMGSZ, IMGSZ), "cpu") for f in frames]).float() / 255.0
+    scales = calibrate_int8(host.model, [x])
+    n_convs = len(quantizable_convs(card.model))
+    set_int8_inference(host.model, True, scales)
+    set_int8_inference(card.model, True, scales)
+    try:
+        check_int8_convs_against_cpu(dev, host, card, frames)
+        card.predict(frames, imgsz=IMGSZ, batch=4, conf=P15_CONF)  # warm-up: the weight codes
+        kernels.reset_launch_counts()
+        int8_ms = replayed_rows("detect", card, best, card.model, frames, IMGSZ, f"{yaml} int8 predict")[0]
+        count(f"{yaml} int8 predict", launches(n_pred, n_convs * n_pred))
+        card.predict(frames, imgsz=IMGSZ, batch=4, conf=P15_CONF, half=True)  # a bf16 copy with int8
+        kernels.reset_launch_counts()
+        half8_ms = replayed_rows("detect", card, best, card.half_graph(), frames, IMGSZ,
+                                 f"{yaml} int8 predict(half=True)", half=True)[0]
+        count(f"{yaml} int8 predict(half=True)", launches(n_pred, n_convs * n_pred))
+    finally:
+        set_int8_inference(host.model, False)
+        set_int8_inference(card.model, False)
+    print(f"phase 16 {yaml}: ms per predict batch of 4 (host clock): float32 {float_ms:.1f}, int8 {int8_ms:.1f}, "
+          f"int8 half {half8_ms:.1f}; {n_convs} quantized convs")
+    return time_path_products(dev, path_products(card, dev), f"{yaml}, batch 4, {IMGSZ} px", detail=False)
+
+
+def zoo_relu_int8(dev, frames, root, count):
+    """Phase 16c': yolov6n (the ReLU graph, nc 80) on drawn weights: int8 predict at batch 4 and IMGSZ on the
+    float32 graph and on half_graph(), the CPU's calibration on both, each int8 conv against its CPU twin, the
+    rows against the CPU's predictor on the card's head maps; int8_matmul once per quantized conv per batch. Returns
+    int8_matmul's figures over the products of one forward at batch 4."""
+    import torch
+
+    from bsyolo_tpu_torch import YOLO, kernels
+    from bsyolo_tpu_torch.nn.modules import quantizable_convs, set_int8_inference
+    from bsyolo_tpu_torch.nn.quant import calibrate_int8
+    from bsyolo_tpu_torch.ops.letterbox import letterbox
+
+    host, card = YOLO(P16_RELU, device="cpu"), YOLO(P16_RELU)
+    draw_weights(host.model, SEED + 161)
+    card.model.load_state_dict(host.model.state_dict())
+    acts = {type(m.act).__name__ for _, m in quantizable_convs(card.model)}
+    if card.spec.act != "relu" or "SiLU" in acts:
+        raise SystemExit(f"{P16_RELU}: the graph's convs are {acts}, not the YAML's ReLU")
+    best = Path(root) / "relu.ckpt"
+    host.save(best)  # replayed_rows rebuilds the CPU's predictor from a checkpoint
+    frames = frames[:4]
+    x = torch.stack([letterbox(f, (IMGSZ, IMGSZ), "cpu") for f in frames]).float() / 255.0
+    scales = calibrate_int8(host.model, [x])
+    n_convs = len(quantizable_convs(card.model))
+    set_int8_inference(host.model, True, scales)
+    set_int8_inference(card.model, True, scales)
+    try:
+        check_int8_convs_against_cpu(dev, host, card, frames)
+        card.predict(frames, imgsz=IMGSZ, batch=4, conf=P15_CONF)
+        kernels.reset_launch_counts()
+        int8_ms = replayed_rows("detect", card, best, card.model, frames, IMGSZ, f"{P16_RELU} int8 predict")[0]
+        count(f"{P16_RELU} int8 predict", {"decode_box_best": 1, "decode_xywh": 0, "int8_matmul": n_convs})
+        card.predict(frames, imgsz=IMGSZ, batch=4, conf=P15_CONF, half=True)
+        kernels.reset_launch_counts()
+        half8_ms = replayed_rows("detect", card, best, card.half_graph(), frames, IMGSZ,
+                                 f"{P16_RELU} int8 predict(half=True)", half=True)[0]
+        count(f"{P16_RELU} int8 predict(half=True)", {"decode_box_best": 1, "decode_xywh": 0, "int8_matmul": n_convs})
+    finally:
+        set_int8_inference(host.model, False)
+        set_int8_inference(card.model, False)
+    print(f"phase 16 {P16_RELU}: {n_convs} quantized convs with ReLU, int8 predict {int8_ms:.1f} ms, int8 half "
+          f"{half8_ms:.1f} ms per batch of 4 (host clock)")
+    return time_path_products(dev, path_products(card, dev), f"{P16_RELU}, batch 4, {IMGSZ} px", detail=False)
+
+
+def zoo_decode_heads(dev):
+    """Phase 16d: decode_box on the 4-level heads of yolov8n-p2 (strides 4 to 32, A 34,000 at 640) and yolov8n-p6
+    (strides 8 to 64), and decode_xywh on yolov10n's one-to-one head (nc 80, 144 channels), each of a real
+    forward at 640 px, batch 4, on drawn weights, against its plain version (as phase 2), timed beside its bytes
+    bound; returns ({head: figures} for decode_box, {head: figures} for decode_xywh)."""
+    import torch
+
+    from bsyolo_tpu_torch.kernels.decode import (REG_MAX, box_best_cuda, box_best_reference, decode_xywh_cuda,
+                                                 decode_xywh_reference)
+
+    x = torch.from_numpy(np.random.default_rng(SEED + 162).integers(0, 256, (4, 3, IMGSZ, IMGSZ), dtype=np.uint8))
+    x = x.to(dev).float() / 255.0
+    box_rows, xywh_rows = {}, {}
+    for i, yaml in enumerate(("yolov8n-p2.yaml", "yolov8n-p6.yaml", "yolov10n.yaml")):
+        graph = task_graph(yaml, 80, dev, SEED + 162 + i)
+        with torch.inference_mode():
+            out = graph(x)
+        feats = out["one2one"] if isinstance(out, dict) else out
+        strides, nc = graph.spec.head_strides, graph.spec.nc
+        b, a, no = feats[0].shape[0], sum(f.shape[2] * f.shape[3] for f in feats), feats[0].shape[1]
+        label = f"{yaml} {'one2one ' if isinstance(out, dict) else ''}head B4 {IMGSZ}, strides {strides}"
+        if isinstance(out, dict):
+            got, want = decode_xywh_cuda(feats, strides, nc), decode_xywh_reference(feats, strides, nc)
+            torch.cuda.synchronize()
+            err = (got[..., :4] - want[..., :4]).abs().max().item()
+            score_rel = ((got[..., 4:] - want[..., 4:]).abs() / want[..., 4:].abs()).max().item()
+            ok = bool(torch.isfinite(got).all()) and err <= BOX_ATOL_PX and score_rel <= SCORE_RTOL
+            print(f"decode_xywh on the {label}: A={a}, {no} channels: max|box err| {err:.3g} px (tol {BOX_ATOL_PX}), "
+                  f"max score rel err {score_rel:.3g} (tol {SCORE_RTOL}); {'OK' if ok else 'FAIL'}")
+            bytes_moved = b * a * (4 * REG_MAX + nc) * 4 + b * a * (4 + nc) * 4
+            ops = b * a * (4 * (6 * REG_MAX + 1) + 10 + 4 * nc)
+            fields = time_against_plain(label, decode_xywh_cuda, decode_xywh_reference, (feats, strides, nc),
+                                        bytes_moved, ops)
+            xywh_rows[yaml] = dict(channels=no, anchors=a, max_abs_err=err, **fields)
+        else:
+            boxes, best, cls = box_best_cuda(feats, strides, nc)
+            want_boxes, want_best, want_cls = box_best_reference(feats, strides, nc)
+            torch.cuda.synchronize()
+            err = (boxes - want_boxes).abs().max().item()
+            best_err = (best - want_best).abs().max().item()
+            ok = (bool(torch.isfinite(boxes).all()) and err <= BOX_ATOL_PX and best_err == 0.0
+                  and torch.equal(cls, want_cls))
+            print(f"decode_box_best on the {label}: A={a}, {no} channels: max|box err| {err:.3g} px (tol "
+                  f"{BOX_ATOL_PX}), max|best err| {best_err:.3g} (tol 0); {'OK' if ok else 'FAIL'}")
+            bytes_moved = b * a * (4 * REG_MAX + nc) * 4 + b * a * (4 + 1 + nc) * 4
+            ops = b * a * (4 * (6 * REG_MAX + 1) + nc + 8)
+            fields = time_against_plain(label, box_best_cuda, box_best_reference, (feats, strides, nc),
+                                        bytes_moved, ops)
+            box_rows[yaml] = dict(channels=no, anchors=a, max_abs_err=err, **fields)
+        if not ok:
+            raise SystemExit(f"the decode kernel disagrees with its plain version on the {label}")
+        del graph, out, feats
+        torch.cuda.empty_cache()
+    return box_rows, xywh_rows
+
+
+def zoo_path(dev, own, frames, host_frames, root):
+    """Phase 16: the YOLO v3, v5, v6, v8, v9 and v10 graphs (16a to 16d); returns (the launches of 16b and 16c,
+    decode_box's and decode_xywh's figures on 16d's heads, int8_matmul's per forward of yolov8n, yolov10n and
+    yolov6n)."""
+    import torch
+
+    from bsyolo_tpu_torch import kernels
+
+    total = {"decode_box_best": 0, "decode_xywh": 0, "int8_matmul": 0}
+
+    def count(path, expected):
+        for k, v in expect_launches(path, expected).items():
+            total[k] += v
+        kernels.reset_launch_counts()
+
+    t0 = time.perf_counter()
+    zoo_heads(dev)
+    print(f"phase 16a done in {time.perf_counter() - t0:.1f} s")
+    int8_figures = {}
+    for yaml in P16_DETECTORS:
+        t0 = time.perf_counter()
+        int8_figures[yaml] = zoo_detector(dev, yaml, own, frames, root, count)
+        torch.cuda.empty_cache()
+        print(f"phase 16 {yaml} done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    int8_figures[P16_RELU] = zoo_relu_int8(dev, host_frames, root, count)
+    box_rows, xywh_rows = zoo_decode_heads(dev)
+    print(f"phase 16 ReLU int8 and 16d done in {time.perf_counter() - t0:.1f} s; launches {total}")
+    return total, box_rows, xywh_rows, int8_figures
 
 
 def kernel_entry(name, source, replaces, launches, row, bf16_launches, bf16_head=None, product_launches=0,
-                 photo_launches=0, task_launches=0, mode_launches=0):
+                 photo_launches=0, task_launches=0, mode_launches=0, zoo_launches=0):
     """One entry of the kernels line; ``launches`` counts every path's run, ``bf16_launches`` those of
     phase 10's bf16 paths among them, ``product_launches`` those of phase 11's product path,
     ``photo_launches`` those of phase 12's real photos, ``task_launches`` those of phase 13's and 14's task
     paths, ``mode_launches`` those of phase 15's bf16 and int8 paths (the four task graphs and Detect's int8
-    val), ``bf16_head`` the kernel on a real forward's bf16 head."""
+    val), ``zoo_launches`` those of phase 16's YOLO v8, v10 and v6 paths, ``bf16_head`` the kernel on a real
+    forward's bf16 head."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "bf16_launches": bf16_launches, "product_launches": product_launches, "photo_launches": photo_launches,
-            "task_launches": task_launches, "mode_launches": mode_launches,
+            "task_launches": task_launches, "mode_launches": mode_launches, "zoo_launches": zoo_launches,
             **({"task_heads": row["task_heads"]} if "task_heads" in row else {}),
+            **({"zoo_heads": row["zoo_heads"]} if "zoo_heads" in row else {}),
+            **({"zoo_graphs": row["zoo_graphs"]} if "zoo_graphs" in row else {}),
             **({"task_graphs": row["task_graphs"]} if "task_graphs" in row else {}),
             **({"bf16_head": bf16_head} if bf16_head else {}),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -4008,7 +4327,10 @@ def main() -> int:
         trainer_launches, data = phase("9", trainer_path, dev, frames, Path(root))
         phase("10d", amp_step_path, dev, model, seeded, f32_step, referee)
         amp_launches = phase("10e", amp_trainer_path, dev, data, root)
-        detect_int8_launches = phase("15f", detect_int8_val, dev, data, root)
+        detect_int8_launches, (own, own_frames) = phase("15f", detect_int8_val, dev, data, root)
+        zoo_launches, zoo_box, zoo_xywh, int8_row["zoo_graphs"] = phase("16", zoo_path, dev, own, own_frames, frames,
+                                                                         root)
+    box_row["zoo_heads"], xywh_row["zoo_heads"] = zoo_box, zoo_xywh
     product_launches = phase("11", product_path, dev)
     photo_launches = phase("12", photo_path, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:  # phase 15 takes 13's and 14's datasets
@@ -4024,19 +4346,22 @@ def main() -> int:
                      predict_launches["decode_box_best"] + val_launches["decode_box_best"]
                      + trainer_launches["decode_box_best"] + bf16["decode_box_best"]
                      + product_launches["decode_box_best"] + photo_launches["decode_box_best"]
-                     + task_launches["decode_box_best"] + mode_launches["decode_box_best"], box_row,
+                     + task_launches["decode_box_best"] + mode_launches["decode_box_best"]
+                     + zoo_launches["decode_box_best"], box_row,
                      bf16["decode_box_best"], box_half, product_launches["decode_box_best"],
                      photo_launches["decode_box_best"], task_launches["decode_box_best"],
-                     mode_launches["decode_box_best"]),
+                     mode_launches["decode_box_best"], zoo_launches["decode_box_best"]),
         kernel_entry("decode_xywh", "bsyolo_tpu_torch/kernels/csrc/decode.cu",
                      "bsyolo_tpu/kernels/decode.py:34",
-                     tta_launches["decode_xywh"] + tiled_launches["decode_xywh"] + bf16["decode_xywh"], xywh_row,
-                     bf16["decode_xywh"], xywh_half),
+                     tta_launches["decode_xywh"] + tiled_launches["decode_xywh"] + bf16["decode_xywh"]
+                     + zoo_launches["decode_xywh"], xywh_row,
+                     bf16["decode_xywh"], xywh_half, zoo_launches=zoo_launches["decode_xywh"]),
         kernel_entry("int8_matmul", "bsyolo_tpu_torch/kernels/csrc/int8_matmul.cu",
                      "bsyolo_tpu/kernels/int8_matmul.py:38",
-                     int8_launches["int8_matmul"] + bf16["int8_matmul"] + mode_launches["int8_matmul"],
+                     int8_launches["int8_matmul"] + bf16["int8_matmul"] + mode_launches["int8_matmul"]
+                     + zoo_launches["int8_matmul"],
                      dict(max_abs_err=int8_err, **int8_row), bf16["int8_matmul"],
-                     mode_launches=mode_launches["int8_matmul"]),
+                     mode_launches=mode_launches["int8_matmul"], zoo_launches=zoo_launches["int8_matmul"]),
     ]}
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(card)

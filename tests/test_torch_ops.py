@@ -178,9 +178,9 @@ def test_parser_matches_jax_and_names_unknown_modules():
 
     for name in ("yolo11n.yaml", "yolo11old.yaml"):
         j, p = jax_spec(name), port_spec(name)
-        # the JAX head args end with its legacy flag, which the port's parser refuses instead
+        # the head args end with the legacy flag in both parsers
         assert [(l.i, l.f, l.n, l.args, l.c1, l.c2, l.stride) for l in p.layers] == [
-            (l.i, l.f, l.n, l.args[:-1] if l.module == "Detect" else l.args, l.c1, l.c2, l.stride) for l in j.layers
+            (l.i, l.f, l.n, l.args, l.c1, l.c2, l.stride) for l in j.layers
         ]
         assert (p.save, p.nc, p.head_strides, p.names) == (j.save, j.nc, j.head_strides, j.names)
     d = {"nc": 2, "backbone": [[-1, 1, "Conv", [16, 3, 2]], [-1, 1, "RepC3", [16]]], "head": []}
