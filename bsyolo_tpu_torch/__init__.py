@@ -25,6 +25,6 @@ def select_device(device: Optional[Union[str, torch.device]] = None) -> torch.de
     return dev
 
 
-from bsyolo_tpu_torch.model import YOLO  # noqa: E402  (needs select_device above)
+from bsyolo_tpu_torch.model import RTDETR, YOLO  # noqa: E402  (needs select_device above)
 
-__all__ = ["YOLO", "select_device"]
+__all__ = ["RTDETR", "YOLO", "select_device"]

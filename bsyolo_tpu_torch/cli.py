@@ -12,6 +12,7 @@
     python -m bsyolo_tpu_torch obb val model=runs/obb/train/weights/best.ckpt data=dota8.yaml half=True
     python -m bsyolo_tpu_torch classify train data=<root of class folders> model=yolo11n-cls.yaml imgsz=224
     python -m bsyolo_tpu_torch train data=car.yaml model=yolov10n.yaml epochs=100 plots=False
+    python -m bsyolo_tpu_torch train data=car.yaml model=rtdetr-l.yaml epochs=100 plots=False
 
 Arguments are ``key=value`` pairs of ``cfg/default.yaml`` plus ``model``, ``data`` and
 ``source``; ``device=cpu`` runs on the host (the card is the default). Every other

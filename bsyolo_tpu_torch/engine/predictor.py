@@ -20,6 +20,9 @@ JAX package does.
 YOLOv10 (a v10Detect head) predicts without NMS: its one-to-one levels go
 through ``decode_detections`` (one launch of the xywh decode kernel per
 batch) and ``postprocess_e2e``, and rows at or below ``conf`` become padding.
+RT-DETR (an RTDETRDecoder head) predicts without NMS too: ``decode_rtdetr``
+takes the ``max_det`` queries of highest score, and those at or below
+``conf`` become padding; it takes no TTA either.
 
 Segment and Pose graphs decode and suppress as Detect does
 (``detect_postprocess(return_idx=True)``, one launch of the box decode kernel
@@ -60,6 +63,7 @@ from bsyolo_tpu_torch.engine.results import Results
 from bsyolo_tpu_torch.kernels.postprocess import detect_postprocess
 from bsyolo_tpu_torch.nn.heads import (decode_detections, decode_extras, decode_keypoints, decode_obb, gather_anchors,
                                        postprocess_e2e)
+from bsyolo_tpu_torch.nn.transformer import decode_rtdetr
 from bsyolo_tpu_torch.ops.boxes import scale_boxes
 from bsyolo_tpu_torch.ops.letterbox import letterbox, letterbox_params
 from bsyolo_tpu_torch.ops.masks import process_mask, resize_linear
@@ -182,7 +186,8 @@ class DetectionPredictor:
         self.batch = max(int(batch), 1)
         self.task = getattr(spec, "task", "detect")
         self.e2e = spec.head.module == "v10Detect"
-        if augment and (self.task != "detect" or self.e2e):
+        self.rtdetr = spec.head.module == "RTDETRDecoder"
+        if augment and (self.task != "detect" or self.e2e or self.rtdetr):
             LOGGER.warning("augment=True is only supported for Detect-head models; reverting to single-scale "
                            "prediction")
             augment = False
@@ -211,6 +216,8 @@ class DetectionPredictor:
         if self.task == "obb":
             return nms_rotated(decode_obb(out, self.spec.head_strides, self.spec.nc, self.spec.reg_max),
                                conf_thres=self.conf, iou_thres=self.iou, max_det=self.max_det, nc=self.spec.nc)
+        if self.rtdetr:  # NMS-free: the decoder's top queries, those at or below conf as padding
+            return decode_rtdetr(out, tuple(x.shape[2:]), self.conf, self.max_det)
         strides, nc = self.spec.head_strides, self.spec.nc
         if self.e2e:  # NMS-free: the one-to-one head's top rows, those at or below conf as padding
             dets = postprocess_e2e(decode_detections(out["one2one"], strides, nc, self.spec.reg_max), self.max_det, nc)

@@ -85,7 +85,7 @@ def predict_tiled(
     bottom and right."""
     if mesh is not None:
         raise NotImplementedError("sharding the tiles over a device mesh is not ported yet (ROADMAP queue 1, item 14)")
-    if getattr(spec, "task", "detect") != "detect" or spec.head.module == "v10Detect":
+    if spec.head.module != "Detect":
         raise NotImplementedError(f"predict_tiled serves Detect graphs only, as the JAX package does; this is a "
                                   f"{spec.task} graph with a {spec.head.module} head")
     if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:

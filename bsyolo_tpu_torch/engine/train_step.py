@@ -19,6 +19,10 @@ The amp step is this step over a graph whose compute dtype is bfloat16
 (``nn.model.set_compute_dtype``): the convolutions cast their float32
 weights, so the gradients, slots, EMA and BatchNorm statistics stay float32,
 and the loss casts the head's maps to float32; no loss scaling.
+
+With ``pass_targets`` (RT-DETR) the batch's padded labels go into the graph, whose decoder builds its
+denoising queries from them with noise drawn from a generator the step owns, reseeded from the iteration
+(as the JAX step folds the iteration into ``PRNGKey(3)``: one draw per step number, not JAX's bits).
 """
 
 from __future__ import annotations
@@ -33,10 +37,12 @@ import torch.nn as nn
 from bsyolo_tpu_torch.engine import optim as O
 from bsyolo_tpu_torch.losses.classify import classification_loss
 from bsyolo_tpu_torch.losses.detect import DetectionLossConfig, LossState, detection_loss, init_loss_state
+from bsyolo_tpu_torch.losses.detr import rtdetr_loss
 from bsyolo_tpu_torch.losses.obb import obb_loss
 from bsyolo_tpu_torch.losses.pose import pose_loss
 from bsyolo_tpu_torch.losses.segment import segmentation_loss
 from bsyolo_tpu_torch.nn.heads import Classify
+from bsyolo_tpu_torch.nn.transformer import RTDETRDecoder
 from bsyolo_tpu_torch.ops.normalize import normalize_image_batch
 
 Tensors = Dict[str, torch.Tensor]
@@ -125,14 +131,23 @@ def e2e_criterion(outputs, batch, loss_state: LossState, cfg: DetectionLossConfi
     return t1 + t2, i1 + i2, new_ls
 
 
+def rtdetr_criterion(outputs, batch, loss_state: LossState, cfg: DetectionLossConfig):
+    """RT-DETR's Hungarian-matched loss (``losses/detr.py``); the loss state passes through."""
+    total, items = rtdetr_loss(outputs, batch["cls"], batch["bboxes"], batch["mask"])
+    return total, items, loss_state
+
+
 def task_criterion(spec, overlap_mask: bool = True, pose_gain: float = 12.0, kobj_gain: float = 1.0):
     """(criterion, loss item names) of ``spec``'s task, as the JAX trainers pick them: the detection
-    loss; for a v10Detect head the end-to-end loss (``e2e_criterion``); the segmentation loss on the
+    loss; for a v10Detect head the end-to-end loss (``e2e_criterion``); for an RTDETRDecoder head the
+    DETR loss (items cls, bbox, giou; the step needs ``pass_targets``); the segmentation loss on the
     batch's overlap-encoded ``masks`` (items box, seg, cls, dfl); the pose loss on its ``keypoints``
     (items box, pose, kobj, cls, dfl); the OBB loss on its ``rboxes`` (items box, cls, dfl); the
     cross-entropy of a Classify graph's logits (item cls)."""
     if spec.head.module == "v10Detect":
         return e2e_criterion, DETECT_ITEMS
+    if spec.head.module == "RTDETRDecoder":
+        return rtdetr_criterion, ("cls_loss", "bbox_loss", "giou_loss")
     if spec.task == "segment":
         nm = spec.head.args[1]
 
@@ -177,9 +192,12 @@ def make_train_step(model: nn.Module, cfg: StepConfig, criterion: Optional[Calla
     criterion = criterion or detect_criterion
     if cfg.remat:
         raise NotImplementedError("remat is not ported yet (ROADMAP queue 1, item 19)")
-    if cfg.pass_targets:
-        raise NotImplementedError("targets fed into the model (RT-DETR's denoising queries) are not ported yet "
-                                  "(ROADMAP queue 1, item 13)")
+    dn_gen = None
+    if cfg.pass_targets:  # the denoising draws' generator, reseeded from the iteration
+        dn_gen = torch.Generator(device=next(model.parameters()).device)
+        for m in model.modules():
+            if isinstance(m, RTDETRDecoder):
+                m.generator = dn_gen
     dropout_gen = None
     if cfg.needs_dropout_rng:  # the step's own generator, reseeded from the iteration: one mask per step number
         dropout_gen = torch.Generator(device=next(model.parameters()).device)
@@ -198,7 +216,11 @@ def make_train_step(model: nn.Module, cfg: StepConfig, criterion: Optional[Calla
             p.grad = None
         if dropout_gen is not None:
             dropout_gen.manual_seed((7 << 32) + state.step)
-        outputs = model(normalize_image_batch(batch["img"]))
+        targets = None
+        if dn_gen is not None:
+            dn_gen.manual_seed((3 << 32) + state.step)
+            targets = {k: batch[k] for k in ("cls", "bboxes", "mask")}
+        outputs = model(normalize_image_batch(batch["img"]), targets=targets)
         total, items, new_ls = criterion(outputs, batch, state.loss_state, cfg.loss)
         total.backward()
         grads = {n: p.grad for n, p in params.items()}

@@ -26,7 +26,9 @@ with ``losses/segment.py`` on the loader's overlap-encoded masks (at
 ``SegmentationValidator``, a Pose graph with ``losses/pose.py`` (gains
 ``pose`` and ``kobj``; the data's ``flip_idx`` for horizontal flips) and
 ``PoseValidator``, an OBB graph with ``losses/obb.py`` on the loader's
-``rboxes`` and ``OBBValidator``. ``amp`` builds their bf16 graph as it builds
+``rboxes`` and ``OBBValidator``, an RT-DETR graph (an RTDETRDecoder head) with
+``losses/detr.py`` (items cls, bbox, giou), its labels fed into the graph for the
+denoising queries, and ``DetectionValidator``. ``amp`` builds their bf16 graph as it builds
 Detect's; ``assigner_bf16`` acts on the detection loss only, as in the JAX
 package (the task losses rank in float32). Classify graphs train with
 ``engine/classify.py ClassificationTrainer``.
@@ -164,7 +166,8 @@ class DetectionTrainer:
         nw = max(round(opt.warmup_epochs * nb), 100) if opt.warmup_epochs > 0 else 0
         self.step_cfg = StepConfig(loss=loss_cfg, optim=opt, batch_size=args.batch, nb=nb, nw=nw,
                                    use_adamw=opt.name in ("AdamW", "Adam", "NAdam", "RAdam"), weight_decay=wd,
-                                   frozen=self._frozen_keys(), remat=getattr(args, "remat", False) or False)
+                                   frozen=self._frozen_keys(), remat=getattr(args, "remat", False) or False,
+                                   pass_targets=self.spec.head.module == "RTDETRDecoder")
         criterion, self.item_names = task_criterion(self.spec, bool(args.overlap_mask), args.pose, args.kobj)
         self.train_step = make_train_step(self.model, self.step_cfg, criterion, self.item_names)
         self.state = init_train_state(self.model, self.step_cfg)

@@ -4,7 +4,8 @@ Each batch runs the graph and ``detect_postprocess`` on the card (one launch
 of the box decode kernel per batch, then the NMS), and the host matches the
 kept rows against the ground truths at 10 IoU thresholds into
 ``ap_per_class``. NMS runs at the reference's val settings, conf 0.001 and
-IoU 0.7.
+IoU 0.7. An RT-DETR graph's decoder output goes through ``decode_rtdetr``
+(its top queries above conf, no NMS), as in the JAX validator.
 
 ``SegmentationValidator`` adds mask mAP: the kept rows' masks are assembled on
 the card at prototype size (``process_mask(upsample=False)``, thresholded at
@@ -50,6 +51,7 @@ from bsyolo_tpu_torch.kernels.postprocess import detect_postprocess
 from bsyolo_tpu_torch.losses.pose import OKS_SIGMA
 from bsyolo_tpu_torch.nn.heads import (decode_detections, decode_extras, decode_keypoints, decode_obb, gather_anchors,
                                        postprocess_e2e)
+from bsyolo_tpu_torch.nn.transformer import decode_rtdetr
 from bsyolo_tpu_torch.ops.boxes import xywh2xyxy
 from bsyolo_tpu_torch.ops.letterbox import letterbox_params
 from bsyolo_tpu_torch.ops.masks import process_mask
@@ -250,6 +252,8 @@ class DetectionValidator:
                 out = self.model(x)
         finally:
             self.model.train(was_training)
+        if isinstance(out, dict) and "dec_bboxes" in out:  # RT-DETR: the decoder's top queries, no NMS
+            return decode_rtdetr(out, tuple(x.shape[2:]), conf_thres=self.conf, max_det=self.max_det)
         return self._postprocess(out)
 
     def _nms(self, feats, **kw):

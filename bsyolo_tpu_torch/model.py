@@ -27,6 +27,8 @@
     m = YOLO("yolov8n-seg.yaml")               # yolov8n-p2.yaml, yolov8n-cls-resnet50.yaml, yolov9e-seg.yaml, ...
     m = YOLO("yolov10n.yaml")                  # NMS-free: predict and val take the one-to-one head's top rows;
     m.train(data="car.yaml")                   # train() runs the end-to-end loss (one-to-many + one-to-one)
+    m = RTDETR("rtdetr-l.yaml")                # RT-DETR (also YOLO("rtdetr-x.yaml"), "rtdetr-resnet50.yaml",
+    m.train(data="car.yaml")                   # "yolov8-rtdetr.yaml"): NMS-free, the Hungarian-matched DETR loss
 
 ``half=True`` runs a bfloat16 copy of the graph (``YOLO.half_graph``, built by
 ``nn.model.cast_inference_graph``: convolution weights cast once and kept until
@@ -404,3 +406,18 @@ class YOLO:
 
     def export(self, **kwargs):
         raise NotImplementedError("export is not ported yet (ROADMAP queue 1, item 15)")
+
+
+class RTDETR(YOLO):
+    """The RT-DETR facade: a detection transformer (HGNetv2 or ResNet backbone, AIFI encoder, a deformable
+    decoder of 300 queries), NMS-free end to end. ``train`` runs the Hungarian-matched DETR loss with
+    denoising queries (``losses/detr.py``); ``predict`` and ``val`` take the decoder's top queries.
+
+        m = RTDETR("rtdetr-l.yaml")
+        m.train(data="coco8.yaml", epochs=10)
+        m.predict(frames)
+    """
+
+    def __init__(self, model: Union[str, Path] = "rtdetr-l.yaml", task: Optional[str] = None,
+                 device: Optional[Union[str, torch.device]] = None, seed: int = 0):
+        super().__init__(model, task or "detect", device=device, seed=seed)

@@ -10,12 +10,13 @@ from __future__ import annotations
 
 import copy
 import itertools
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn as nn
 
 from bsyolo_tpu_torch.nn import modules as M
+from bsyolo_tpu_torch.nn import transformer as T
 from bsyolo_tpu_torch.nn.heads import OBB, Classify, Detect, Pose, Segment, v10Detect
 from bsyolo_tpu_torch.nn.parser import LayerSpec, ModelSpec
 
@@ -75,6 +76,16 @@ def _build_layer(spec: LayerSpec, strides, dropout: float = 0.0) -> nn.Module:
         return M.SPPELAN(c1, a[0], a[1], opt(2, 5))
     if m == "ResNetLayer":  # (c1, c2, s, is_first, n): c1 is the graph's, not the YAML's
         return M.ResNetLayer(c1, a[1], opt(2, 1), opt(3, False), opt(4, 1))
+    if m == "HGStem":
+        return M.HGStem(c1, a[0], a[1])
+    if m == "HGBlock":  # (cm, c2, k, n, light, shortcut)
+        return M.HGBlock(c1, a[0], a[1], a[2], a[3], opt(4, False), opt(5, False))
+    if m == "RepC3":
+        return M.RepC3(c1, a[0], a[1])
+    if m == "AIFI":
+        return T.AIFI(c1, opt(0, 2048), opt(1, 8))
+    if m == "RTDETRDecoder":
+        return T.RTDETRDecoder(a[0], tuple(a[1]))
     if m == "ConvTranspose2d":  # a bare transposed conv with a bias, no padding, as the JAX layer
         return M.ConvTranspose2d(c1, a[0], opt(1, 2), opt(2, 2), 0, bias=True)
     if m == "CBLinear":
@@ -111,7 +122,8 @@ def _build_layer(spec: LayerSpec, strides, dropout: float = 0.0) -> nn.Module:
 class DetectionGraph(nn.Module):
     """Executes a ModelSpec; the output is the head's: a list of raw per-level maps (Detect,
     Pose, OBB), ``{"feats": levels, "proto": prototypes}`` (Segment), ``{"one2many": levels,
-    "one2one": levels}`` (v10Detect), or (B, nc) class logits (Classify). A layer of several
+    "one2one": levels}`` (v10Detect), the decoder's dict (RTDETRDecoder, ``nn/transformer.py``)
+    or (B, nc) class logits (Classify). A layer of several
     inputs (Concat, CBFuse) takes them as a list; CBLinear's output is a tuple of taps. Every
     ``Conv`` takes the spec's activation (``act``)."""
 
@@ -127,16 +139,20 @@ class DetectionGraph(nn.Module):
         self.model = nn.ModuleList(layers)
         M.set_activation(self, spec.act)
 
-    def forward(self, x: torch.Tensor, embed: Sequence[int] = ()):
+    def forward(self, x: torch.Tensor, embed: Sequence[int] = (), targets: Optional[Dict[str, torch.Tensor]] = None):
         """The head's list of per-level maps; with ``embed`` (layer indices), the global-average-pooled
         outputs of those layers concatenated over channels, (B, C1 + C2 + ...), the walk stopping at the
-        last of them (``bsyolo_tpu/nn/model.py`` embed)."""
+        last of them (``bsyolo_tpu/nn/model.py`` embed). ``targets`` (the padded labels ``cls``,
+        ``bboxes``, ``mask``) go to an RTDETRDecoder head, whose train mode builds denoising queries
+        from them."""
         saved: Dict[int, torch.Tensor] = {}
         save = set(self.spec.save)
         pooled: List[torch.Tensor] = []
         last = max(embed) if embed else -1
         for layer, m in zip(self.spec.layers, self.model):
-            if len(layer.f) > 1:
+            if layer.module == "RTDETRDecoder":
+                x = m([x if j == -1 else saved[j] for j in layer.f], targets=targets)
+            elif len(layer.f) > 1:
                 x = m([x if j == -1 else saved[j] for j in layer.f])
             else:
                 x = m(x if layer.f[0] == -1 else saved[layer.f[0]])

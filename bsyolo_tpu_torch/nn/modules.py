@@ -50,7 +50,8 @@ def at_least_f32(t: torch.Tensor) -> torch.Tensor:
 
 def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Draw every conv and linear weight from U(+-1/sqrt(fan_in)) with ``generator``; zero
-    their biases; norms start at identity; ELA's fusion weights at zero."""
+    their biases; norms start at identity; ELA's fusion weights at zero. Then a module with an
+    ``init_parameters(generator)`` of its own (RT-DETR's attention and decoder) draws its own."""
     for m in module.modules():
         if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             fan_in = m.weight[0].numel()
@@ -59,12 +60,15 @@ def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
                 m.weight.uniform_(-bound, bound, generator=generator)
                 if m.bias is not None:
                     m.bias.zero_()
-        elif isinstance(m, (nn.BatchNorm2d, nn.GroupNorm)):
+        elif isinstance(m, (nn.BatchNorm2d, nn.GroupNorm, nn.LayerNorm)):
             m.reset_parameters()
         elif isinstance(m, ELA):
             with torch.no_grad():
                 for p in (m.ch_weight, m.sp_weight, m.res_weight):
                     p.zero_()
+    for m in module.modules():
+        if hasattr(m, "init_parameters"):
+            m.init_parameters(generator)
 
 
 class _CastConv:
@@ -917,3 +921,78 @@ class SpaceToDepth(nn.Module):
         b = self.b
         x = x.reshape(B, C, H // b, b, W // b, b).permute(0, 3, 5, 1, 2, 4)
         return x.reshape(B, b * b * C, H // b, W // b)
+
+
+# --- blocks of the RT-DETR graphs (HGNetv2 backbone, RepC3 neck) --------------------------------------------
+
+
+class LightConv(nn.Module):
+    """A 1x1 conv and a k x k depthwise conv, each with BatchNorm; ReLU after the depthwise one only."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1):
+        super().__init__()
+        self.conv1 = Conv(c1, c2, 1, act=False)
+        self.conv2 = Conv(c2, c2, k, g=c2, act=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.conv2(self.conv1(x)))
+
+
+class HGStem(nn.Module):
+    """PPHGNetV2's stem, 4x down: a stride-2 3x3 conv, then a branch of two 2x2 convs beside a stride-1 2 x 2
+    max pool, each on the map padded by one row and column at the bottom and right (so the pool's ceil and
+    floor shapes agree), concatenated into a stride-2 3x3 conv and a 1x1 conv; ReLU after every conv."""
+
+    def __init__(self, c1: int, cm: int, c2: int):
+        super().__init__()
+        self.stem1 = Conv(c1, cm, 3, 2, act=False)
+        self.stem2a = Conv(cm, cm // 2, 2, 1, 0, act=False)
+        self.stem2b = Conv(cm // 2, cm, 2, 1, 0, act=False)
+        self.stem3 = Conv(cm * 2, cm, 3, 2, act=False)
+        self.stem4 = Conv(cm, c2, 1, 1, act=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.pad(F.relu(self.stem1(x)), (0, 1, 0, 1))
+        x2 = F.pad(F.relu(self.stem2a(x)), (0, 1, 0, 1))
+        x2 = F.relu(self.stem2b(x2))
+        x = torch.cat([F.max_pool2d(x, 2, 1), x2], 1)
+        return F.relu(self.stem4(F.relu(self.stem3(x))))
+
+
+class HGBlock(nn.Module):
+    """PPHGNetV2's block: ``n`` chained k x k convs (LightConvs with ``lightconv``), each followed by ReLU, all
+    their outputs and the input concatenated into a squeeze and an excite 1x1 conv (ReLU); plus the input with
+    ``shortcut`` where the widths agree."""
+
+    def __init__(self, c1: int, cm: int, c2: int, k: int = 3, n: int = 6, lightconv: bool = False,
+                 shortcut: bool = False):
+        super().__init__()
+        self.light = lightconv
+        self.m = nn.ModuleList(LightConv(c1 if i == 0 else cm, cm, k) if lightconv else
+                               Conv(c1 if i == 0 else cm, cm, k, act=False) for i in range(n))
+        self.sc = Conv(c1 + n * cm, c2 // 2, 1, act=False)
+        self.ec = Conv(c2 // 2, c2, 1, act=False)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ys = [x]
+        for m in self.m:
+            ys.append(m(ys[-1]) if self.light else F.relu(m(ys[-1])))
+        y = F.relu(self.ec(F.relu(self.sc(torch.cat(ys, 1)))))
+        return y + x if self.add else y
+
+
+class RepC3(nn.Module):
+    """CSP block of the RT-DETR neck: two 1x1 convs, ``n`` RepConvs on the first, the two summed (a 1x1 conv to
+    ``c2`` where ``e`` narrows them)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 3, e: float = 1.0):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c1, c_, 1, 1)
+        self.m = nn.Sequential(*(RepConv(c_, c_) for _ in range(n)))
+        self.cv3 = Conv(c_, c2, 1, 1) if c_ != c2 else nn.Identity()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv3(self.m(self.cv1(x)) + self.cv2(x))

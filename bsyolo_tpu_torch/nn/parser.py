@@ -4,12 +4,13 @@ Turns a model YAML (backbone/head rows of ``[from, repeats, module, args]``
 with ``scales:`` compound scaling, or ``depth_multiple``/``width_multiple``)
 into a static ``ModelSpec``: channel arithmetic, depth/width scaling, stride
 propagation and the graph-wide ``activation:`` happen here. The modules of the
-BS-YOLO graphs (``cfg/models/11``) and of the YOLO v3, v5, v6, v8, v9 and v10
-graphs (``cfg/models/v3`` to ``v10``) are accepted, with the Detect, Segment,
-Pose, OBB, Classify and v10Detect heads; a head on a graph without C3k2 is
-``legacy`` (its class branch two 3x3 convs). Any other module raises
-``NotImplementedError`` naming it: the RT-DETR, YOLO-World, NAS and SAM
-families are ROADMAP item 13.
+BS-YOLO graphs (``cfg/models/11``), of the YOLO v3, v5, v6, v8, v9 and v10
+graphs (``cfg/models/v3`` to ``v10``) and of the RT-DETR graphs
+(``cfg/models/rt-detr``, ``v8/yolov8-rtdetr.yaml``) are accepted, with the
+Detect, Segment, Pose, OBB, Classify, v10Detect and RTDETRDecoder heads; a head
+on a graph without C3k2 is ``legacy`` (its class branch two 3x3 convs). Any
+other module raises ``NotImplementedError`` naming it: the YOLO-World, NAS and
+SAM families are ROADMAP item 13.
 """
 
 from __future__ import annotations
@@ -26,17 +27,17 @@ from bsyolo_tpu_torch.cfg import read_yaml
 # modules that follow the conv-like channel rule c2 = make_divisible(min(c2, max_ch) * width, 8)
 _CONVLIKE = {"Conv", "DWConv", "Bottleneck", "SPP", "SPPF", "C2PSA", "PSA", "C2", "C2f", "C2fCIB", "C3", "C3k2",
              "C3k2_gai", "SCDown", "GhostConv", "GhostBottleneck", "C3Ghost", "RepNCSPELAN4", "ELAN1", "AConv",
-             "ADown", "SPPELAN", "ConvTranspose2d"}
+             "ADown", "SPPELAN", "ConvTranspose2d", "RepC3"}
 # modules that take the (depth-scaled) repeat count as args[1]
-_REPEAT = {"C2", "C2f", "C2fCIB", "C3", "C3k2", "C3k2_gai", "C2PSA", "C3Ghost"}
+_REPEAT = {"C2", "C2f", "C2fCIB", "C3", "C3k2", "C3k2_gai", "C2PSA", "C3Ghost", "RepC3"}
 # the heads the port builds -> the task they serve
 HEAD_TASKS = {"Detect": "detect", "Segment": "segment", "Pose": "pose", "OBB": "obb", "Classify": "classify",
-              "v10Detect": "detect"}
+              "v10Detect": "detect", "RTDETRDecoder": "detect"}
 # the heads on a detection trunk of several levels (every head but Classify)
 _LEVEL_HEADS = {"Detect", "Segment", "Pose", "OBB", "v10Detect"}
 # modules of the JAX package's other graph families, which the port does not build yet
-_LATER = {"HGStem", "HGBlock", "RepC3", "AIFI", "RTDETRDecoder", "C2fAttn", "ImagePoolingAttn", "WorldDetect",
-          "YoloNASStem", "YoloNASStage", "NASUpMerge", "NASDown", "NASDetect", "Index"}
+_LATER = {"C2fAttn", "ImagePoolingAttn", "WorldDetect", "YoloNASStem", "YoloNASStage", "NASUpMerge", "NASDown",
+          "NASDetect", "Index"}
 
 
 def activation_name(text) -> str:
@@ -181,6 +182,20 @@ def parse_model_yaml(d: dict, ch: int = 3, scale: str = "") -> ModelSpec:
             is_first = args[3] if len(args) > 3 else False
             c2 = args[1] if is_first else 4 * args[1]
             out_stride = in_stride * (4 if is_first else (args[2] if len(args) > 2 else 1))
+        elif m == "HGStem":  # (cm, c2), unscaled; the stem downsamples 4x
+            c2 = args[1]
+            out_stride = in_stride * 4
+        elif m == "HGBlock":  # (cm, c2, k, light, shortcut) -> (cm, c2, k, n, light, shortcut)
+            c2 = args[1]
+            args = [args[0], args[1], args[2] if len(args) > 2 else 3, n_rep, *args[3:]]
+            n_rep = 1
+        elif m == "AIFI":  # (cm, num_heads)
+            c2 = c1
+        elif m == "RTDETRDecoder":  # (nc, in_ch, ...)
+            args = [args[0], tuple(channels[x] for x in fl), *args[1:]]
+            task = "detect"
+            c2 = 0
+            out_stride = 0
         elif m == "SpaceToDepth":
             b = args[0] if args else 2
             c2 = c1 * b * b
@@ -211,7 +226,7 @@ def parse_model_yaml(d: dict, ch: int = 3, scale: str = "") -> ModelSpec:
             out_stride = 0
         elif m in _LATER:
             raise NotImplementedError(f"module '{m}' (layer {i}) belongs to a graph family the port does not build "
-                                      "yet (RT-DETR, YOLO-World, NAS: ROADMAP queue 1, item 13)")
+                                      "yet (YOLO-World, NAS: ROADMAP queue 1, item 13)")
         else:
             raise NotImplementedError(f"module '{m}' (layer {i}) is not supported by the port's graph parser")
 
@@ -224,7 +239,7 @@ def parse_model_yaml(d: dict, ch: int = 3, scale: str = "") -> ModelSpec:
 
     if layers[-1].module not in HEAD_TASKS:
         raise NotImplementedError(f"graph head {layers[-1].module!r}: the port serves Detect, Segment, Pose, OBB, "
-                                  "Classify and v10Detect graphs only")
+                                  "Classify, v10Detect and RTDETRDecoder graphs only")
     names_map = d.get("names") or {}
     class_names = tuple(names_map[k] for k in sorted(names_map)) if names_map else tuple(str(j) for j in range(nc))
     return ModelSpec(

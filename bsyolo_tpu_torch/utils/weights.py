@@ -11,6 +11,10 @@ dropped, MSCA's SE convs are ``SEn.conv.0``, ELA's channel conv is
 ``ch_att.2``, ``conv0_1``-style strip-conv names stay whole (RepConv's
 ``conv1``, ``conv2`` too), v10Detect's ``one2one_cv2_{i}_{j}`` is
 ``one2one_cv2.{i}.{j}``, and ELA's fusion weights are bare parameters.
+RT-DETR's decoder nests its layers as ``decoder.layers.{i}`` (``decoder_layers_{i}`` in
+JAX), its denoising class table is an embedding's ``weight`` (a bare
+``denoising_class_embed`` parameter in JAX), a LayerNorm's ``scale`` is its
+``weight``, and attention's ``in_proj_weight`` keeps the torch layout on both sides.
 """
 
 from __future__ import annotations
@@ -32,6 +36,9 @@ def _translate_component(comp: str) -> Tuple[str, ...]:
     m = re.match(r"^m(\d+)$", comp)
     if m:
         return ("model", m.group(1))
+    m = re.match(r"^decoder_layers_(\d+)$", comp)
+    if m:
+        return ("decoder", "layers", m.group(1))
     m = re.match(r"^SE(\d)$", comp)
     if m:
         return (f"SE{m.group(1)}", "conv", "0")
@@ -57,6 +64,8 @@ def flax_path_to_torch_key(collection: str, path: Tuple[str, ...]) -> str:
     comps = [t for c in parents for t in _translate_component(c)]
     if leaf in ("ch_weight", "sp_weight", "res_weight"):
         return ".".join(comps + [leaf])
+    if leaf == "denoising_class_embed":
+        return ".".join(comps + [leaf, "weight"])
     return ".".join(comps + [_LEAF_MAP.get((collection, leaf), leaf)])
 
 
@@ -219,7 +228,7 @@ def load_reference_state_dict(path) -> Dict[str, torch.Tensor]:
     }
 
 
-_NORMS = (torch.nn.BatchNorm2d, torch.nn.GroupNorm)
+_NORMS = (torch.nn.BatchNorm2d, torch.nn.GroupNorm, torch.nn.LayerNorm)
 _LEAF_FROM_TORCH = {"weight": "kernel", "running_mean": "mean", "running_var": "var"}
 
 
@@ -230,8 +239,9 @@ def jax_paths(model: torch.nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...]]]:
     ``cv2_1_0``), ``model.{i}`` is ``m{i}``, DWConv gets its ``dw`` level back, an _SE's
     ``conv.0`` is the SE level itself, ELA's ``ch_att.2`` is ``ch_conv``, a Segment, Pose or OBB
     head's box and class branches (``cv2``, ``cv3``) sit under its ``detect`` level, a transposed
-    conv that is a layer of its own (``model.{i}``) under a ``ct`` level; a norm's weight is
-    ``scale``, a conv's or linear's ``kernel``."""
+    conv that is a layer of its own (``model.{i}``) under a ``ct`` level, RT-DETR's
+    ``decoder.layers.{i}`` is ``decoder_layers_{i}`` and an embedding's weight the parameter of its
+    own name; a norm's weight is ``scale``, a conv's or linear's ``kernel``."""
     mods = dict(model.named_modules())
     out = {}
     names = [n for n, _ in model.named_parameters()] + [n for n, _ in model.named_buffers()
@@ -254,6 +264,10 @@ def jax_paths(model: torch.nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...]]]:
                 path.append("ch_conv")
                 i += 2
                 continue
+            if c == "decoder" and parents[i + 1 : i + 2] == ["layers"] and type(owner).__name__ == "RTDETRDecoder":
+                path.append("decoder_layers_" + parents[i + 2])
+                i += 3
+                continue
             if i == 0 and c == "model":  # a layer repeated n times is m{i}/0 ... m{i}/{n-1}
                 path += ["m" + parents[1], *parents[2:j]]
             elif c in ("cv2", "cv3") and type(owner).__name__ in ("Segment", "Pose", "OBB"):
@@ -267,6 +281,9 @@ def jax_paths(model: torch.nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...]]]:
         if len(parents) == 2 and isinstance(module, torch.nn.ConvTranspose2d):
             path.append("ct")
         collection = "batch_stats" if leaf in ("running_mean", "running_var") else "params"
+        if isinstance(module, torch.nn.Embedding):
+            out[key] = (collection, tuple(path))
+            continue
         if isinstance(module, _NORMS) and leaf == "weight":
             name = "scale"
         elif isinstance(module, (torch.nn.Conv1d, torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Linear)) \

@@ -203,7 +203,7 @@ this checkout; exits non-zero without them. Phases, each of which fails the run 
    files the port bundles for them (``yolov3.yaml`` to ``yolov10x.yaml``,
    ``yolo11-stock.yaml``, ``yolo11-tpu.yaml``) built at full width of its
    first scale with drawn weights, one forward of a seeded batch of 2 at
-   320 px on the card and on the CPU, every head map (both branches of
+   256 px on the card and on the CPU, every head map (both branches of
    YOLOv10's head) within 1e-4 of its largest magnitude; (b) yolov8n and
    (c) yolov10n at 640 on 15f's own split of phase 9's frames:
    ``YOLO.train`` with its default amp fitted as 15b fits (mAP50 above
@@ -217,9 +217,24 @@ this checkout; exits non-zero without them. Phases, each of which fails the run 
    4 to 32, 34,000 anchors at 640) and yolov8n-p6 (strides 8 to 64), and
    the xywh decode kernel on yolov10n's one-to-one head at nc 80, each
    against its plain version, timed beside its bytes bound.
+17. The RT-DETR graphs: (a) rtdetr-l, -x, -resnet50, -resnet101 and
+   yolov8-rtdetr built on the meta device with drawn weights, one forward
+   of a seeded batch of 2 on the card and on the CPU (rtdetr-l at full
+   width, nc 80, 640 px; the others at 320): the same anchors selected by
+   the encoder (out of place only between near ties), each selected
+   query's boxes and logits within 1e-3 of their scale; (b) one AdamW
+   train step of rtdetr-l card vs CPU with the same denoising draws (loss
+   items within 2e-2, the share of equal Hungarian assignments printed),
+   ``YOLO("rtdetr-l.yaml").train`` with its default amp for 3 epochs on
+   15f's own split (the loss falling), ``val`` against the CPU's validator
+   on the card's decoder outputs and predict rows paired 1.0 with the
+   CPU's ``decode_rtdetr`` on them; (c) int8 and int8-half predict of the
+   fitted graph (the int8 kernel once per quantized conv of HGNetv2 and
+   the neck per batch) and the int8 kernel over the products of one
+   forward beside its bound and ``torch._int_mm``.
 
 Phases 10a to 10c run right after phase 6, on the float graph phases 3 to 6
-used; 10d, 10e, 15f and 16 after phase 9, 11, 12, 13, 14 and 15 last. Each
+used; 10d, 10e, 15f, 16 and 17 after phase 9, 11, 12, 13, 14 and 15 last. Each
 phase prints its seconds. Every launch counter is set to 0 just before a path
 is driven and read just after, so each path shows the kernels it went through.
 
@@ -232,11 +247,12 @@ product path (``product_launches``) and on phase 12's photos
 (``photo_launches``) among all its launches, and
 ``int8_matmul`` its bf16 epilogue's figures (``bf16_out``); each also carries
 its launches on phase 13's and 14's task paths (``task_launches``), on
-phase 15's (``mode_launches``) and on phase 16's (``zoo_launches``),
+phase 15's (``mode_launches``), on phase 16's (``zoo_launches``) and on
+phase 17's (``detr_launches``),
 ``decode_box_best`` phase 2's task-head figures (``task_heads``, float32 and
 bf16), both decode kernels phase 16d's (``zoo_heads``), ``int8_matmul``
-phase 15's figures per task graph (``task_graphs``) and phase 16's per
-graph (``zoo_graphs``).
+phase 15's figures per task graph (``task_graphs``), phase 16's per
+graph (``zoo_graphs``) and phase 17's on rtdetr-l (``detr_graph``).
 """
 
 from __future__ import annotations
@@ -757,7 +773,8 @@ def draw_weights(model, seed: int) -> None:
     convs at U(+-sqrt(3 / fan_in)), BatchNorm statistics away from the
     identity, the head's last convs (a Classify head's linear layer) scaled by
     HEAD_GAIN (the default init leaves every logit at its bias, so every score
-    ties)."""
+    ties); an RT-DETR graph's linear layers and attention weights as the convs,
+    every BatchNorm's and LayerNorm's scale in U(0.5, 1.5)."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
@@ -773,6 +790,11 @@ def draw_weights(model, seed: int) -> None:
             else:
                 p.copy_(torch.empty(p.shape).uniform_(-0.1, 0.1, generator=g))
         head = model.model[-1]
+        if type(head).__name__ == "RTDETRDecoder":
+            for m in model.modules():
+                if isinstance(m, (torch.nn.BatchNorm2d, torch.nn.LayerNorm)):
+                    m.weight.uniform_(0.5, 1.5, generator=g)
+            return
         if hasattr(head, "linear"):  # a Classify head: spread its logits as the Detect family's
             head.linear.weight.mul_(HEAD_GAIN)
             return
@@ -3559,6 +3581,7 @@ P15_STOP = 0.9
 # classify validates on all P14_CLS_NC x (P14_CLS_TRAIN + P14_CLS_VAL) images: on 40 one image is 0.025 of top-1,
 # past P15_VAL_ATOL, and one flipped where the bf16 logits round apart in my chip run (0.8000 against 0.7750)
 P15_CLS_VAL_BATCH = 32
+P15_CLS_FIT_VAL = 4  # training images per class that the classify fit validates on each epoch
 # (task, graph, classes, imgsz, the main val metric); the datasets are phase 13's and 14's
 P15_TASKS = (("segment", "yolo11n-seg.yaml", 80, IMGSZ, "metrics/mAP50(B)"),
              ("pose", "yolo11n-pose.yaml", 1, IMGSZ, "metrics/mAP50(B)"),
@@ -3592,7 +3615,9 @@ def own_split(d, ext: str, copies: int):
 
 def task_datasets(root):
     """task -> (the data to fit and validate on, the frames validated on): own splits of phase 13's and 14's
-    datasets under ``root``; classify's trains on its train split and validates on its train and val splits."""
+    datasets under ``root``; classify's trains on its train split and validates on its train and val splits.
+    Classify's fit validates each epoch on P15_CLS_FIT_VAL of its training images per class (``cls_fit``),
+    not on all 200: those validations took half of the fit's 98.8 s (PERF.md §7)."""
     from bsyolo_tpu_torch.data.imread import imread
 
     root, out = Path(root), {}
@@ -3609,6 +3634,12 @@ def task_datasets(root):
                 dst.parent.mkdir(parents=True, exist_ok=True)
                 os.link(src, dst)
         out[task] = (own, [imread(p) for p in sorted((own / "val").rglob("*.jpg"))])
+        fit = root / "cls_fit"
+        for src in sorted((own / "train").glob("*/*.jpg")):
+            c = src.parent.name
+            for split in ("train", "val") if int(src.stem) < P15_CLS_FIT_VAL else ("train",):
+                (fit / split / c).mkdir(parents=True, exist_ok=True)
+                os.link(src, fit / split / c / src.name)
     return out
 
 
@@ -3831,7 +3862,8 @@ def task_modes_path(dev, root):
         kernels.reset_launch_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        model, train_s = fit_own_split(task, yaml, own, imgsz, root, f"p15{task}", main)
+        fit_data = Path(root) / "cls_fit" if task == "classify" else own
+        model, train_s = fit_own_split(task, yaml, fit_data, imgsz, root, f"p15{task}", main)
         tr = model.trainer
         if not (tr.args.amp is True and compute_dtype(tr.model) == torch.bfloat16 and compute_dtype(model.model)
                 == torch.bfloat16 and not model.model.training and all(p.dtype == torch.float32
@@ -3843,7 +3875,8 @@ def task_modes_path(dev, root):
         wait, wall, n = (sum(e[k] for e in tr.loader_wait) for k in range(3))
         fitted = tr.metrics.results_dict
         print(f"phase 15b {task}: YOLO.train (amp, the default) {epochs} epochs at batch {fit_batch} on "
-              f"{len(tr.train_loader.dataset)} images, validated on {len(frames)}, in {train_s:.1f} s; {n} steps, "
+              f"{len(tr.train_loader.dataset)} images, validated on {len(tr.val_loader.dataset)}, in {train_s:.1f} s; "
+              f"{n} steps, "
               f"{wall * 1e3 / n:.1f} ms per step (the loader in the trainer's thread), loader-wait share "
               f"{wait / wall:.3f}; peak memory allocated "
               f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; "
@@ -3978,7 +4011,7 @@ P16_GRAPHS = ("yolov3.yaml", "yolov3-tiny.yaml", "yolov3-spp.yaml", "yolov5.yaml
               "yolov9t.yaml", "yolov9s.yaml", "yolov9m.yaml", "yolov9c.yaml", "yolov9e.yaml", "yolov9c-seg.yaml",
               "yolov9e-seg.yaml", "yolov10.yaml", "yolov10n.yaml", "yolov10s.yaml", "yolov10m.yaml", "yolov10b.yaml",
               "yolov10l.yaml", "yolov10x.yaml", "yolo11-stock.yaml", "yolo11-tpu.yaml")
-P16_SIDE, P16_BATCH = 320, 2  # 16a: each graph at its first scale (none for v3 and v9), its YAML's classes
+P16_SIDE, P16_BATCH = 256, 2  # 16a: each graph at its first scale (none for v3 and v9), its YAML's classes
 # 16b, 16c: the detectors of the slice's main path at full width of scale n, on phase 9's data (nc 12), fitted to
 # 15f's own split as 15b fits (the default amp), then predict, val and int8 predict (float32 and bf16 epilogues)
 P16_DETECTORS = ("yolov8n.yaml", "yolov10n.yaml")
@@ -4250,21 +4283,317 @@ def zoo_path(dev, own, frames, host_frames, root):
     return total, box_rows, xywh_rows, int8_figures
 
 
+# phase 17: the RT-DETR family (rtdetr-l, -x, -resnet50, -resnet101 and yolov8-rtdetr)
+P17_GRAPHS = ("rtdetr-l.yaml", "rtdetr-x.yaml", "rtdetr-resnet50.yaml", "rtdetr-resnet101.yaml", "yolov8-rtdetr.yaml")
+P17_SIDE, P17_SMALL_SIDE, P17_BATCH = 640, 320, 2  # 17a: rtdetr-l at full width (nc 80) at 640, the others at 320
+# 17a: the decoder's outputs of each selected query, card vs CPU, of their largest magnitude; six decoder layers
+# of attention and bilinear sampling after the backbone
+P17_RTOL = 1e-3
+# 17a: where two anchors' best class logits are this close (of their scale), float rounding may order them apart:
+# the selected set must be the same, and any query out of place must be such a near tie
+P17_TIE = 1e-4
+P17_STEP_SIDE = 320  # 17b: one train step card vs CPU, rtdetr-l at batch P17_BATCH
+# its loss items, card vs CPU (the same weights, batch and denoising draws): train-mode BatchNorm rounds the two
+# forwards apart, and where a label's two best queries cost nearly the same the matchers pick apart; in my first
+# chip run 0.9554 of the assignments were equal and the bbox term moved 4.5e-3 (NVIDIA H100 80GB HBM3, 700 W)
+P17_LOSS_RTOL = 2e-2
+P17_EPOCHS = 3  # 17b: YOLO.train of rtdetr-l with its default amp on 15f's own split (64 images, batch 8)
+P17_FIT = dict(P15_FIT, optimizer="AdamW", lr0=1e-4)  # RT-DETR's optimizer: SGD at 0.02 diverges a DETR from scratch
+
+
+def selected_queries(run):
+    """Run ``run()`` with the encoder's query selection recorded: (its output, [(values, indices)] on the CPU)."""
+    import bsyolo_tpu_torch.nn.transformer as T
+
+    seen, orig = [], T.top_k_stable
+
+    def spy(x, k):
+        v, i = orig(x, k)
+        seen.append((v.float().cpu(), i.cpu()))
+        return v, i
+
+    T.top_k_stable = spy
+    try:
+        return run(), seen
+    finally:
+        T.top_k_stable = orig
+
+
+def detr_outputs_against_cpu(label, got, want, sel_got, sel_want):
+    """The decoder's outputs of the card and the CPU on one batch, per selected query: the same anchors selected
+    (out of place only between near ties), each query's boxes and logits (every decoder layer's, the encoder's)
+    within P17_RTOL of the largest magnitude; returns (queries in place, queries)."""
+    (gv, gi), (wv, wi) = sel_got[0], sel_want[0]
+    scale = wv.abs().max().item()
+    in_place = int((gi == wi).sum())
+    for b in range(len(wi)):
+        if set(gi[b].tolist()) != set(wi[b].tolist()):
+            raise SystemExit(f"{label}: image {b}'s selected queries differ between the card and the CPU")
+        out = (gi[b] != wi[b]).nonzero().flatten()
+        if len(out) and (gv[b][out] - wv[b][out]).abs().max().item() > P17_TIE * scale:
+            raise SystemExit(f"{label}: image {b}'s queries are out of place where no scores tie")
+    # the card's query j of image b is the CPU's query order[b][j]
+    order = [{a: j for j, a in enumerate(wi[b].tolist())} for b in range(len(wi))]
+    worst = 0.0
+    for k in ("dec_bboxes", "dec_scores", "enc_bboxes", "enc_scores"):
+        g, w = got[k].float().cpu(), want[k].float().cpu()
+        perm = [[order[b][a] for a in gi[b].tolist()] for b in range(len(wi))]
+        for b in range(len(wi)):
+            wb = w[..., b, perm[b], :] if k.startswith("dec") else w[b, perm[b]]
+            gb = g[..., b, :, :] if k.startswith("dec") else g[b]
+            err = (gb - wb).abs().max().item() / w.abs().max().item()
+            worst = max(worst, err)
+    if not worst <= P17_RTOL:
+        raise SystemExit(f"{label}: the card's decoder outputs differ from the CPU's by {worst:.3g} of their scale")
+    return in_place, gi.numel(), worst
+
+
+def detr_graphs(dev):
+    """Phase 17a: each of P17_GRAPHS built on the meta device with one weight draw (draw_weights), copied to the
+    card, one eval forward of a seeded batch on both: rtdetr-l at full width (nc 80) at P17_SIDE px, the others at
+    P17_SMALL_SIDE, the outputs held per selected query (detr_outputs_against_cpu). No kernel of the port runs.
+    Returns rtdetr-l's CPU graph (drawn weights), for 17b's step."""
+    import torch
+
+    from bsyolo_tpu_torch import kernels
+    from bsyolo_tpu_torch.cfg import model_yaml_path
+    from bsyolo_tpu_torch.nn.model import DetectionGraph
+    from bsyolo_tpu_torch.nn.parser import load_model_yaml, parse_model_yaml
+
+    kernels.reset_launch_counts()
+    kept = None
+    for i, yaml in enumerate(P17_GRAPHS):
+        t0 = time.perf_counter()
+        side = P17_SIDE if i == 0 else P17_SMALL_SIDE
+        x = torch.from_numpy(np.random.default_rng(SEED + 17 + i).integers(0, 256, (P17_BATCH, 3, side, side),
+                                                                           dtype=np.uint8)).float() / 255.0
+        with torch.device("meta"):
+            host = DetectionGraph(parse_model_yaml(load_model_yaml(model_yaml_path(yaml))))
+        host = host.to_empty(device="cpu").eval()
+        draw_weights(host, SEED + 170 + i)
+        card = copy.deepcopy(host).to(dev)
+        with torch.inference_mode():
+            want, sel_want = selected_queries(lambda: host(x))
+            t1 = time.perf_counter()
+            got, sel_got = selected_queries(lambda: card(x.to(dev)))
+            torch.cuda.synchronize()
+            card_ms = (time.perf_counter() - t1) * 1e3
+        in_place, n, worst = detr_outputs_against_cpu(yaml, got, want, sel_got, sel_want)
+        spec = host.spec
+        print(f"  {yaml}: nc {spec.nc}, {sum(p.numel() for p in host.parameters())} params, {side} px, batch "
+              f"{P17_BATCH}: {n} selected queries, the same anchors, {in_place} in place (the rest near ties); "
+              f"decoder outputs per query within {worst:.3g} of their scale (tol {P17_RTOL}); card forward "
+              f"{card_ms:.1f} ms (first call), {time.perf_counter() - t0:.1f} s in all")
+        if i == 0:
+            kept = host
+        del card
+        torch.cuda.empty_cache()
+    expect_launches("RT-DETR forwards", NO_LAUNCHES)
+    return kept
+
+
+def detr_step(graph, batch, on, draws):
+    """One AdamW train step of ``graph`` (a copy on ``on``) on ``batch`` with the labels fed into the graph and
+    the denoising ``draws``; returns (the loss items, the Hungarian assignments of the step, the seconds)."""
+    import torch
+
+    import bsyolo_tpu_torch.losses.detr as D
+    import bsyolo_tpu_torch.nn.transformer as T
+    from bsyolo_tpu_torch.engine.optim import OptimConfig
+    from bsyolo_tpu_torch.engine.train_step import StepConfig, init_train_state, make_train_step, task_criterion
+    from bsyolo_tpu_torch.losses import DetectionLossConfig
+
+    g = copy.deepcopy(graph).to(on)
+    cfg = StepConfig(loss=DetectionLossConfig(nc=g.spec.nc, strides=g.spec.head_strides),
+                     optim=OptimConfig(name="AdamW", lr0=1e-4, nbs=len(batch["cls"])), batch_size=len(batch["cls"]),
+                     nb=8, nw=0, use_adamw=True, weight_decay=0.0, pass_targets=True)
+    assigned, orig_assign, orig_cdn = [], D.host_assign, T.static_cdn_group
+    D.host_assign = lambda cost, valid: assigned.append(orig_assign(cost, valid)) or assigned[-1]
+    T.static_cdn_group = lambda *a, **k: orig_cdn(*a, **{**k, "draws": draws})
+    try:
+        t0 = time.perf_counter()
+        step = make_train_step(g, cfg, *task_criterion(g.spec))
+        _, metrics = step(init_train_state(g, cfg), on_device(batch, on))
+        items = np.array([float(metrics[k]) for k in ("cls_loss", "bbox_loss", "giou_loss")])
+        if torch.device(on).type == "cuda":
+            torch.cuda.synchronize()
+        return items, assigned, time.perf_counter() - t0
+    finally:
+        D.host_assign, T.static_cdn_group = orig_assign, orig_cdn
+
+
+def detr_train_val_predict(dev, graph, own, frames, root):
+    """Phase 17b: one train step card vs CPU (rtdetr-l with 17a's drawn weights at P17_STEP_SIDE px, the same
+    denoising draws): loss items within P17_LOSS_RTOL, the share of equal Hungarian assignments printed;
+    ``YOLO("rtdetr-l.yaml").train`` with its default amp for P17_EPOCHS epochs on 15f's own split of phase 9's
+    frames, the loss falling; ``val`` equal to the CPU's validator on the card's decoder outputs (a Replay) and
+    predict rows paired 1.0 with the CPU's ``decode_rtdetr`` on them. Returns the fitted facade and checkpoint."""
+    import torch
+
+    from bsyolo_tpu_torch import YOLO, kernels
+    from bsyolo_tpu_torch.engine.train_step import rtdetr_criterion, task_criterion
+    from bsyolo_tpu_torch.nn.model import compute_dtype
+    from bsyolo_tpu_torch.nn.transformer import cdn_draws
+
+    batch = synthetic_batch(np.random.default_rng(SEED + 171), P17_BATCH, (P17_STEP_SIDE, P17_STEP_SIDE), 80)
+    total = 2 * max(graph.model[-1].num_denoising // M_GT, 1) * M_GT
+    draws = cdn_draws(torch.Generator().manual_seed(SEED + 172), P17_BATCH, total, 80)
+    (gi, ga, gs), (wi, wa, ws) = (detr_step(graph, batch, on, draws) for on in (dev, "cpu"))
+    rel = np.abs(gi - wi) / np.maximum(np.abs(wi), 1e-30)
+    same = np.mean([np.mean(a == b) for a, b in zip(ga, wa)])
+    print(f"phase 17b step, rtdetr-l at {P17_STEP_SIDE} px, batch {P17_BATCH}, card vs CPU: loss items (cls, bbox, "
+          f"giou) {gi.tolist()} vs {wi.tolist()}, rel diff {rel.tolist()} (tol {P17_LOSS_RTOL}); {len(ga)} Hungarian "
+          f"matchings, {same:.4f} of the assignments equal; card {gs:.2f} s, CPU {ws:.2f} s")
+    if not (np.isfinite(gi).all() and (rel <= P17_LOSS_RTOL).all() and len(ga) == len(wa) == 7):
+        raise SystemExit("the RT-DETR train step's loss items on the card differ from the CPU's")
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = YOLO("rtdetr-l.yaml")
+    t0 = time.perf_counter()
+    model.train(data=str(own), epochs=P17_EPOCHS, imgsz=IMGSZ, batch=8, nbs=8, name="p17rtdetr", exist_ok=True,
+                project=str(Path(root) / "runs"), cache="ram", **P17_FIT)
+    train_s = time.perf_counter() - t0
+    tr = model.trainer
+    if not (tr.args.amp is True and compute_dtype(model.model) == torch.bfloat16
+            and task_criterion(model.spec)[0] is rtdetr_criterion and tr.step_cfg.pass_targets):
+        raise SystemExit("rtdetr-l: YOLO.train did not train the bf16 graph with the DETR loss and its targets")
+    expect_launches("rtdetr-l YOLO.train", NO_LAUNCHES)
+    with open(tr.csv_path) as f:
+        losses = [float(r["loss"]) for r in __import__("csv").DictReader(f)]
+    wait, wall, n = (sum(e[k] for e in tr.loader_wait) for k in range(3))
+    print(f"phase 17b rtdetr-l: YOLO.train (amp, the default; {', '.join(tr.item_names)}) {len(losses)} epochs, "
+          f"{n} steps at batch 8 in {train_s:.1f} s, {wall * 1e3 / n:.1f} ms per step, loader-wait share "
+          f"{wait / wall:.3f}, peak memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; loss per epoch "
+          f"{[round(v, 3) for v in losses]}; {', '.join(f'{k} {float(v):.4f}' for k, v in tr.metrics.results_dict.items())}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise SystemExit(f"rtdetr-l: YOLO.train's loss did not fall: {losses}")
+    best = Path(root) / "runs" / "p17rtdetr" / "weights" / "best.ckpt"
+    card = YOLO(best)
+    recorded = []
+    hook = card.model.register_forward_hook(lambda m, a, out: recorded.append(_to(out, "cpu")))
+    try:
+        got = card.val(data=str(own), batch=P15_OWN, imgsz=IMGSZ).results_dict
+    finally:
+        hook.remove()
+    replay = YOLO(best, device="cpu")
+    replay.model = Replay(recorded)
+    same = replay.val(data=str(own), batch=P15_OWN, imgsz=IMGSZ).results_dict
+    err = max(abs(float(got[k]) - float(same[k])) for k in same)
+    print(f"  rtdetr-l val, card / CPU on the card's decoder outputs: "
+          f"{', '.join(f'{k} {float(got[k]):.4f}/{float(same[k]):.4f}' for k in same)}; max |diff| {err:.3g} "
+          f"(tol {P15_VAL_ATOL})")
+    if not (got.keys() == same.keys() and err <= P15_VAL_ATOL):
+        raise SystemExit("rtdetr-l val on the card differs from the CPU's validator on the same outputs")
+    expect_launches("rtdetr-l val", NO_LAUNCHES)
+    ms, frac = detr_predict_against_cpu(card, best, card.model, frames, "rtdetr-l predict")
+    expect_launches("rtdetr-l predict", NO_LAUNCHES)
+    return card, best, ms
+
+
+def detr_predict_against_cpu(card, best, graph, frames, label, **kw):
+    """``card.predict`` at batch 4 and conf P15_CONF with ``graph``'s decoder outputs recorded, and the CPU's
+    predictor on them (a Replay, ``decode_rtdetr`` on the CPU): every row paired; returns (ms per batch, 1.0)."""
+    import torch
+
+    from bsyolo_tpu_torch import YOLO
+
+    recorded = []
+    hook = graph.register_forward_hook(lambda m, a, out: recorded.append(_to(out, "cpu")))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        got = card.predict(frames, imgsz=IMGSZ, batch=4, conf=P15_CONF, **kw)
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    ms = (time.perf_counter() - t0) * 1e3 / math.ceil(len(frames) / 4)
+    replay = YOLO(best, device="cpu")
+    replay.model = Replay(recorded)
+    want = replay.predict(frames, imgsz=IMGSZ, batch=4, conf=P15_CONF)
+    frac = compare_with_cpu(f"{label}, the CPU's decode_rtdetr on the card's decoder outputs",
+                            [r.boxes.data for r in got], [r.boxes.data for r in want], min_fraction=1.0)
+    print(f"  {label}: {ms:.1f} ms per batch of 4, {sum(len(r) for r in got)} rows, {frac:.4f} paired")
+    return ms, frac
+
+
+def detr_int8(dev, card, best, frames, float_ms):
+    """Phase 17c: int8 and int8-half predict of the fitted rtdetr-l (calibrated on the card on the frames),
+    rows paired 1.0 with the CPU's decode_rtdetr on the card's outputs, int8_matmul once per quantized conv per
+    batch; then int8_matmul over the products of one forward at batch 4 (time_path_products). Returns (the
+    launches, those figures)."""
+    import torch
+
+    from bsyolo_tpu_torch import kernels
+    from bsyolo_tpu_torch.nn.modules import quantizable_convs, set_int8_inference
+    from bsyolo_tpu_torch.nn.quant import calibrate_int8
+    from bsyolo_tpu_torch.ops.letterbox import letterbox
+
+    total = {"decode_box_best": 0, "decode_xywh": 0, "int8_matmul": 0}
+    x = torch.stack([letterbox(f, (IMGSZ, IMGSZ), dev) for f in frames]).float() / 255.0
+    scales = calibrate_int8(card.model, [x])
+    n_convs = len(quantizable_convs(card.model))
+    n_pred = math.ceil(len(frames) / 4)
+    set_int8_inference(card.model, True, scales)
+    try:
+        card.predict(frames, imgsz=IMGSZ, batch=4, conf=P15_CONF)  # warm-up: the weight codes
+        kernels.reset_launch_counts()
+        int8_ms, _ = detr_predict_against_cpu(card, best, card.model, frames, "rtdetr-l int8 predict")
+        for k, v in expect_launches("rtdetr-l int8 predict", {**NO_LAUNCHES, "int8_matmul": n_convs * n_pred}).items():
+            total[k] += v
+        card.predict(frames, imgsz=IMGSZ, batch=4, conf=P15_CONF, half=True)  # a bf16 copy with int8
+        kernels.reset_launch_counts()
+        half8_ms, _ = detr_predict_against_cpu(card, best, card.half_graph(), frames,
+                                               "rtdetr-l int8 predict(half=True)", half=True)
+        for k, v in expect_launches("rtdetr-l int8 predict(half=True)",
+                                    {**NO_LAUNCHES, "int8_matmul": n_convs * n_pred}).items():
+            total[k] += v
+    finally:
+        set_int8_inference(card.model, False)
+    print(f"phase 17c rtdetr-l: {n_convs} quantized convs (HGNetv2 and the neck; not the depthwise convs, the "
+          f"decoder's input projections or its linear layers); ms per predict batch of 4 (host clock): float32 "
+          f"{float_ms:.1f}, int8 {int8_ms:.1f}, int8 half {half8_ms:.1f}")
+    figures = time_path_products(dev, path_products(card, dev), f"rtdetr-l, batch 4, {IMGSZ} px", detail=False)
+    return total, figures
+
+
+def detr_path(dev, own, frames, root):
+    """Phase 17: the RT-DETR graphs (17a to 17c); returns (int8_matmul's launches on 17c, its figures there)."""
+    import torch
+
+    t0 = time.perf_counter()
+    graph = detr_graphs(dev)
+    print(f"phase 17a done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    card, best, float_ms = detr_train_val_predict(dev, graph, own, frames, root)
+    del graph
+    print(f"phase 17b done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches, figures = detr_int8(dev, card, best, frames, float_ms)
+    del card
+    torch.cuda.empty_cache()
+    print(f"phase 17c done in {time.perf_counter() - t0:.1f} s; launches {launches}")
+    return launches, figures
+
+
 def kernel_entry(name, source, replaces, launches, row, bf16_launches, bf16_head=None, product_launches=0,
-                 photo_launches=0, task_launches=0, mode_launches=0, zoo_launches=0):
+                 photo_launches=0, task_launches=0, mode_launches=0, zoo_launches=0, detr_launches=0):
     """One entry of the kernels line; ``launches`` counts every path's run, ``bf16_launches`` those of
     phase 10's bf16 paths among them, ``product_launches`` those of phase 11's product path,
     ``photo_launches`` those of phase 12's real photos, ``task_launches`` those of phase 13's and 14's task
     paths, ``mode_launches`` those of phase 15's bf16 and int8 paths (the four task graphs and Detect's int8
-    val), ``zoo_launches`` those of phase 16's YOLO v8, v10 and v6 paths, ``bf16_head`` the kernel on a real
-    forward's bf16 head."""
+    val), ``zoo_launches`` those of phase 16's YOLO v8, v10 and v6 paths, ``detr_launches`` those of phase 17's
+    RT-DETR int8 paths, ``bf16_head`` the kernel on a real forward's bf16 head."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "bf16_launches": bf16_launches, "product_launches": product_launches, "photo_launches": photo_launches,
             "task_launches": task_launches, "mode_launches": mode_launches, "zoo_launches": zoo_launches,
+            "detr_launches": detr_launches,
             **({"task_heads": row["task_heads"]} if "task_heads" in row else {}),
             **({"zoo_heads": row["zoo_heads"]} if "zoo_heads" in row else {}),
             **({"zoo_graphs": row["zoo_graphs"]} if "zoo_graphs" in row else {}),
             **({"task_graphs": row["task_graphs"]} if "task_graphs" in row else {}),
+            **({"detr_graph": row["detr_graph"]} if "detr_graph" in row else {}),
             **({"bf16_head": bf16_head} if bf16_head else {}),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
@@ -4330,6 +4659,7 @@ def main() -> int:
         detect_int8_launches, (own, own_frames) = phase("15f", detect_int8_val, dev, data, root)
         zoo_launches, zoo_box, zoo_xywh, int8_row["zoo_graphs"] = phase("16", zoo_path, dev, own, own_frames, frames,
                                                                          root)
+        detr_launches, int8_row["detr_graph"] = phase("17", detr_path, dev, own, own_frames, root)
     box_row["zoo_heads"], xywh_row["zoo_heads"] = zoo_box, zoo_xywh
     product_launches = phase("11", product_path, dev)
     photo_launches = phase("12", photo_path, dev)
@@ -4359,9 +4689,10 @@ def main() -> int:
         kernel_entry("int8_matmul", "bsyolo_tpu_torch/kernels/csrc/int8_matmul.cu",
                      "bsyolo_tpu/kernels/int8_matmul.py:38",
                      int8_launches["int8_matmul"] + bf16["int8_matmul"] + mode_launches["int8_matmul"]
-                     + zoo_launches["int8_matmul"],
+                     + zoo_launches["int8_matmul"] + detr_launches["int8_matmul"],
                      dict(max_abs_err=int8_err, **int8_row), bf16["int8_matmul"],
-                     mode_launches=mode_launches["int8_matmul"], zoo_launches=zoo_launches["int8_matmul"]),
+                     mode_launches=mode_launches["int8_matmul"], zoo_launches=zoo_launches["int8_matmul"],
+                     detr_launches=detr_launches["int8_matmul"]),
     ]}
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(card)

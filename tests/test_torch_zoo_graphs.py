@@ -35,8 +35,7 @@ def test_graph_files_are_the_jax_packages():
         assert mine.read_bytes() == (JAX_MODELS / mine.parent.name / name).read_bytes(), name
 
 
-@pytest.mark.parametrize("family", ["rt-detr/rtdetr-l.yaml", "v8/yolov8-rtdetr.yaml", "v8/yolov8-world.yaml",
-                                    "v8/yolov8-worldv2.yaml", "nas/yolo_nas_s.yaml"])
+@pytest.mark.parametrize("family", ["v8/yolov8-world.yaml", "v8/yolov8-worldv2.yaml", "nas/yolo_nas_s.yaml"])
 def test_later_families_raise_naming_item_13(family):
     from bsyolo_tpu_torch.nn.parser import load_model_yaml, parse_model_yaml
 
