@@ -10,6 +10,8 @@ from typing import Optional, Union
 
 import torch
 
+__version__ = "0.1.0"
+
 
 def select_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     """``cuda:0`` by default, else the device asked for; raises when CUDA is
@@ -27,4 +29,4 @@ def select_device(device: Optional[Union[str, torch.device]] = None) -> torch.de
 
 from bsyolo_tpu_torch.model import RTDETR, YOLO  # noqa: E402  (needs select_device above)
 
-__all__ = ["RTDETR", "YOLO", "select_device"]
+__all__ = ["RTDETR", "YOLO", "__version__", "select_device"]

@@ -266,6 +266,40 @@ def read_yaml(path) -> Any:
     return load_yaml(Path(path).read_text())
 
 
+def _dump_scalar(v: Any) -> str:
+    """One scalar as PyYAML's ``safe_dump`` writes it: ``null``, ``true``/``false``, ints, floats by their
+    ``repr`` (``.0`` put before an exponent that has no point, ``.inf``, ``.nan``), strings plain where
+    they read back as the same string, else single-quoted."""
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if v != v:
+            return ".nan"
+        if math.isinf(v):
+            return ".inf" if v > 0 else "-.inf"
+        r = repr(v).lower()
+        return r.replace("e", ".0e", 1) if "." not in r and "e" in r else r
+    if not isinstance(v, str):
+        raise YamlSubsetError(f"dump_yaml writes scalars only, got {type(v).__name__}")
+    try:
+        plain = (v == v.strip() and _resolve_plain(v) == v and v[0] not in ",[]{}#&*!|>'\"%@`"
+                 and not (v[0] in "-?:" and v[1:2] in ("", " ")) and ": " not in v and " #" not in v
+                 and not v.endswith(":") and "\n" not in v)
+    except YamlSubsetError:
+        plain = False
+    return v if plain else "'" + v.replace("'", "''") + "'"
+
+
+def dump_yaml(d: dict) -> str:
+    """A flat mapping of scalars as YAML text, in its order: the text ``yaml.safe_dump(d, sort_keys=False)``
+    gives for the settings of ``cfg/default.yaml``."""
+    return "".join(f"{_dump_scalar(k)}: {_dump_scalar(v)}\n" for k, v in d.items())
+
+
 # --- the training configuration (counterpart of bsyolo_tpu/cfg/__init__.py get_cfg) ---------------
 
 DEFAULT_CFG_PATH = CFG_ROOT / "default.yaml"

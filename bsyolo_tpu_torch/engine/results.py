@@ -2,16 +2,16 @@
 
 Host numpy containers: by the time results exist, the device work is done.
 ``save_txt``, ``save_crop`` (JPEG crops through the port's own encoder),
-``summary`` and ``to_json`` need no OpenCV; drawing (``plot``, ``save``)
-does, and imports it only when called (without it they raise ImportError
-naming the ROADMAP item; rotated boxes and class probabilities are not drawn yet, ROADMAP
-queue 1, item 25). Mask contours (``Masks.xy``, ``xyn``) and a
-segment result's ``save_txt`` lines, which the JAX package traces with
-``cv2.findContours``, are not ported (ROADMAP queue 1, item 31).
+``summary``, ``to_json`` and the mask contours (``Masks.xy``, ``xyn``: the
+port's own border follower, ``ops/contours.py``, where the JAX package calls
+``cv2.findContours``) need no OpenCV; drawing (``plot``, ``save``) does, and
+imports it only when called (without it they raise ImportError naming the
+ROADMAP item).
 """
 
 from __future__ import annotations
 
+import functools
 import json
 from pathlib import Path
 from typing import Dict, Optional
@@ -19,6 +19,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from bsyolo_tpu_torch.data.imread import imwrite
+from bsyolo_tpu_torch.ops.contours import largest_contour
 from bsyolo_tpu_torch.utils import CV2_DRAWING, import_cv2
 
 
@@ -71,9 +72,6 @@ class Boxes:
         return self.xywh / np.asarray([w, h, w, h], np.float32)
 
 
-_CONTOURS = "mask contours need a border tracer byte-equal to cv2.findContours, not ported yet (ROADMAP queue 1, item 31)"
-
-
 class Masks:
     """Instance masks; ``data`` is (n, H, W) float32 0/1 at the original image's size."""
 
@@ -84,13 +82,19 @@ class Masks:
     def __len__(self):
         return len(self.data)
 
-    @property
+    @functools.cached_property
     def xy(self):
-        raise NotImplementedError(f"Masks.xy: {_CONTOURS}")
+        """Per mask, the (n, 2) float32 pixel points of its largest outer border (``ops/contours.py``, as
+        the JAX package's ``cv2.findContours`` and ``contourArea``); (0, 2) for an empty mask. Traced once
+        per ``Masks``: ``xyn`` and ``save_txt`` reuse it."""
+        return [largest_contour(m > 0.5) for m in self.data]
 
     @property
     def xyn(self):
-        raise NotImplementedError(f"Masks.xyn: {_CONTOURS}")
+        """``xy`` normalized by the original image's width and height."""
+        h, w = self.orig_shape
+        scale = np.asarray([w, h], np.float32)
+        return [c / scale for c in self.xy]
 
 
 class Keypoints:
@@ -230,12 +234,10 @@ class Results:
     def save_txt(self, txt_file, save_conf: bool = False):
         """YOLO-format labels, one ``cls cx cy w h [kx ky [v] ...] [conf]`` line per box
         (normalized xywh, then each keypoint's normalized x, y and visibility for a pose result,
-        6 decimals); ``cls x1 y1 ... x4 y4 [conf]`` per rotated box (its corners, normalized); the top
-        5 classes as ``conf name`` (2 decimals) for class probabilities; as the JAX package's
-        ``Results.save_txt`` writes them. A segment result's polygon lines are not ported (ROADMAP
-        queue 1, item 31)."""
-        if self.masks is not None:
-            raise NotImplementedError(f"save_txt of a segment result writes mask polygons: {_CONTOURS}")
+        6 decimals); for a segment result ``cls x1 y1 x2 y2 ...`` with the normalized polygon of the
+        box's mask in place of the box (the box where the mask is empty); ``cls x1 y1 ... x4 y4 [conf]``
+        per rotated box (its corners, normalized); the top 5 classes as ``conf name`` (2 decimals) for
+        class probabilities; as the JAX package's ``Results.save_txt`` writes them."""
         lines = []
         h, w = self.orig_shape
         if self.probs is not None:
@@ -249,9 +251,11 @@ class Results:
                 lines.append(" ".join(parts))
         elif self.boxes is not None:
             kpts = self.keypoints
+            polys = self.masks.xyn if self.masks is not None else ()
             for j, (row, xywhn) in enumerate(zip(self.boxes.data, self.boxes.xywhn)):
-                parts = [str(int(row[-1])), *(f"{v:.6f}" for v in xywhn)]
-                if kpts is not None and j < len(kpts.data):
+                poly = polys[j] if j < len(polys) else ()
+                parts = [str(int(row[-1])), *(f"{v:.6f}" for v in (poly.reshape(-1) if len(poly) else xywhn))]
+                if not len(poly) and kpts is not None and j < len(kpts.data):
                     kn, kc = kpts.xyn[j], kpts.conf[j] if kpts.conf is not None else None
                     for ki in range(len(kn)):
                         parts += [f"{kn[ki][0]:.6f}", f"{kn[ki][1]:.6f}"] + ([f"{kc[ki]:.6f}"] if kc is not None else [])
@@ -330,23 +334,25 @@ class Results:
         return json.dumps(self.summary(), indent=2)
 
     def plot(self, line_width: Optional[int] = None, font_scale: float = 0.5, conf: bool = True,
-             labels: bool = True, kpt_radius: int = 3) -> np.ndarray:
-        """Draw the masks (blended in their class colour), the boxes (with ``id:`` labels on tracked
-        boxes) and the keypoints of visibility 0.5 or more on a copy of the original (BGR) image."""
-        if self.obb is not None or self.probs is not None:
-            raise NotImplementedError("drawing rotated boxes and class probabilities is not ported yet (ROADMAP "
-                                      "queue 1, item 25)")
+             labels: bool = True, boxes: bool = True, masks: bool = True, kpts: bool = True,
+             kpt_radius: int = 3) -> np.ndarray:
+        """A copy of the original (BGR) image with the masks (blended in their class colour), the boxes
+        (with ``id:`` labels on tracked boxes), the rotated boxes (``cv2.boxPoints`` polygons labelled at
+        their centre) and the keypoints of visibility 0.5 or more drawn, as the JAX package's
+        ``Results.plot``; ``boxes``, ``masks`` and ``kpts`` turn each layer off, ``labels`` and ``conf``
+        the labels and their scores. Class probabilities are not drawn: such a result comes back as a
+        copy of the image."""
         cv2 = import_cv2("Results.plot", CV2_DRAWING)
 
         img = self.orig_img.copy()
         lw = line_width or max(round(sum(img.shape[:2]) / 2 * 0.003), 2)
-        if self.masks is not None and len(self.masks.data):
+        if masks and self.masks is not None and len(self.masks.data):
             overlay = img.copy()
             for j, m in enumerate(self.masks.data):
                 cls_j = int(self.boxes.data[j][-1]) if self.boxes is not None and j < len(self.boxes.data) else j
                 overlay[m > 0.5] = _class_color(cls_j)
             img = cv2.addWeighted(img, 0.55, overlay, 0.45, 0)
-        for row in self.boxes.data if self.boxes is not None else ():
+        for row in self.boxes.data if boxes and self.boxes is not None else ():
             x1, y1, x2, y2 = row[:4].astype(int)
             cf, cls = row[-2], int(row[-1])
             color = _class_color(cls)
@@ -356,7 +362,17 @@ class Results:
                 label = f"{tid}{self.names.get(cls, cls)}" + (f" {cf:.2f}" if conf else "")
                 cv2.putText(img, label, (x1, max(y1 - 4, 12)), cv2.FONT_HERSHEY_SIMPLEX, font_scale, color,
                             max(lw - 1, 1))
-        for inst in self.keypoints.data if self.keypoints is not None else ():
+        for row in self.obb.data if boxes and self.obb is not None else ():
+            cx, cy, w, h = row[:4]
+            ang, cls, cf = row[-1], int(row[-2]), row[-3]
+            color = _class_color(cls)
+            pts = cv2.boxPoints(((float(cx), float(cy)), (float(w), float(h)), float(np.degrees(ang))))
+            cv2.polylines(img, [pts.astype(np.int32)], True, color, lw)
+            if labels:
+                label = f"{self.names.get(cls, cls)}" + (f" {cf:.2f}" if conf else "")
+                cv2.putText(img, label, (int(cx), max(int(cy) - 4, 12)), cv2.FONT_HERSHEY_SIMPLEX, font_scale,
+                            color, max(lw - 1, 1))
+        for inst in self.keypoints.data if kpts and self.keypoints is not None else ():
             for p in inst:
                 if len(p) > 2 and p[2] < 0.5:
                     continue

@@ -1,8 +1,8 @@
 """Build the port's native code and load it with ctypes.
 
 Each ``csrc/<name>.cu`` (a CUDA kernel) compiles on first use with nvcc, and
-each ``csrc/<name>.cpp`` (host code: the JPEG codec) with the host C++
-compiler, into a shared library with a plain C interface under
+each ``csrc/<name>.cpp`` (host code: the JPEG codec, the polygon fill, the
+mask border follower) with the host C++ compiler, into a shared library with a plain C interface under
 ``build/bsyolo_tpu_torch/`` beside the package, named by a hash of its source
 and flags, so an edited source rebuilds and an unchanged one loads at once
 (loading runs no compiler; the build records which compiler made it). The host route takes no ``-march=native`` and no ``-ffast-math``: the
@@ -51,8 +51,8 @@ def cxx() -> str:
         path = name and shutil.which(name)
         if path:
             return path
-    raise RuntimeError("no host C++ compiler found (looked for $CXX, g++ and c++ on PATH); the JPEG codec "
-                       "cannot be built")
+    raise RuntimeError("no host C++ compiler found (looked for $CXX, g++ and c++ on PATH); the host code "
+                       "(JPEG codec, polygon fill, contours) cannot be built")
 
 
 @functools.lru_cache(maxsize=None)

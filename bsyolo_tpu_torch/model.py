@@ -12,6 +12,11 @@
     results = m.predict(frames, half=True)     # the bf16 graph over bf16 weights
     results = m.predict("clip.mp4", vid_stride=2)  # video (OpenCV), webcam "0", "cams.streams"
     results = m.predict("images/", save_txt=True, save_crop=True, project="runs/detect", name="predict")
+    results = m.predict("clip.mp4", save=True, save_frames=True)  # runs/detect/predict/clip.mp4, clip_<n>.jpg
+    results = m.predict(frames, show=True)     # cv2.imshow where there is a display
+    m.fuse()                                   # returns m, as the JAX facade's
+    m.info()                                   # {"layers": ..., "parameters": ...}
+    m.reset_weights()                          # the seeded init again
     vectors = m.embed("images/")               # pooled features of the second-to-last layer, one per image
     metrics = m.val(data="car.yaml", save_json=True, save_txt=True, save_dir="runs/val")
     results = m.track("clip.mp4", persist=True, tracker="bytetrack.yaml")  # boxes carry track ids
@@ -54,6 +59,8 @@ groups 1, Proto's and Classify's included):
 from __future__ import annotations
 
 import copy
+import os
+import sys
 from pathlib import Path
 from typing import Dict, Optional, Union
 
@@ -62,21 +69,18 @@ import torch
 from bsyolo_tpu_torch import select_device
 from bsyolo_tpu_torch.cfg import model_yaml_path
 from bsyolo_tpu_torch.engine.predictor import DetectionPredictor
-from bsyolo_tpu_torch.nn.model import build_model, cast_inference_graph
+from bsyolo_tpu_torch.nn.model import build_model, cast_inference_graph, count_params
 from bsyolo_tpu_torch.nn.modules import Conv, cast_convs
 from bsyolo_tpu_torch.nn.parser import HEAD_TASKS, load_model_yaml, parse_model_yaml
-from bsyolo_tpu_torch.utils import LOGGER
+from bsyolo_tpu_torch.utils import CV2_DRAWING, CV2_VIDEO, LOGGER, import_cv2
 from bsyolo_tpu_torch.utils.ckpt import load_checkpoint, load_weights, save_checkpoint
 from bsyolo_tpu_torch.utils.weights import jax_paths, load_reference_state_dict
 
 _PREDICT_ARGS = {"conf", "iou", "imgsz", "batch", "max_det", "classes", "agnostic_nms", "augment", "verbose", "half",
-                 "vid_stride", "stream_buffer", "save_txt", "save_conf", "save_crop", "embed", "project", "name",
-                 "retina_masks"}
+                 "vid_stride", "stream_buffer", "save", "save_frames", "save_txt", "save_conf", "save_crop", "show",
+                 "show_labels", "show_conf", "show_boxes", "line_width", "embed", "project", "name", "retina_masks"}
 # predict options of the JAX package that the port does not have yet -> the ROADMAP item that brings them
-_NOT_PORTED = {
-    **dict.fromkeys(("save", "show"), "queue 1, item 25"),
-    "visualize": "queue 1, item 16",
-}
+_NOT_PORTED = {"visualize": "queue 1, item 16"}
 
 
 def result_stem(path: str, i: int) -> str:
@@ -113,6 +117,7 @@ class YOLO:
         self.ckpt_meta = None
         self._callbacks = None
         self._img_size = 640
+        self._seed = seed
         self._half = None  # (key, bf16 inference graph) of half_graph
         self._tracker = None  # the tracker that track(persist=True) goes on with
         self.predictor = None  # the last predict()'s DetectionPredictor (its reader_wait and wall seconds)
@@ -179,6 +184,25 @@ class YOLO:
             self._half = (key, cast_inference_graph(self.model))
         return self._half[1]
 
+    def fuse(self) -> "YOLO":
+        """Returns ``self``, as the JAX facade's ``fuse`` does (kept for API parity): the BatchNorm of
+        each ``Conv`` stays a separate per-channel affine."""
+        return self
+
+    def reset_weights(self) -> "YOLO":
+        """Draw the weights again from the seed this facade was built with (the graph rebuilt from its
+        spec, float32) and drop the cached predictor and bf16 graph. Returns ``self``."""
+        self.model = build_model(self.spec, self._device, self._seed)
+        self._half = self.predictor = None
+        return self
+
+    def info(self) -> Dict[str, int]:
+        """The graph's layer count and parameter count (BatchNorm's running statistics not counted, as
+        the JAX package's ``count_params``), logged in the JAX package's line."""
+        n = count_params(self.model)
+        LOGGER.info(f"{self.model_path}: {len(self.spec.layers)} layers, {n:,} parameters")
+        return {"layers": len(self.spec.layers), "parameters": n}
+
     @property
     def names(self) -> Dict[int, str]:
         return dict(enumerate(self.spec.names))
@@ -194,8 +218,11 @@ class YOLO:
         graph over bf16 weights; ``vid_stride`` keeps every n-th video frame, ``stream_buffer``
         keeps every stream frame (else the latest). ``save_txt`` (with ``save_conf``) writes
         ``<project>/<name>/labels/<stem>.txt`` and ``save_crop`` ``<project>/<name>/crops/<class>/
-        <stem>_<i>.jpg`` (``runs/detect/predict`` by default; not with ``stream=True``). ``embed`` is
-        accepted and changes nothing, as in the JAX facade: ``embed()`` gives the vectors.
+        <stem>_<i>.jpg`` (``runs/detect/predict`` by default; not with ``stream=True``); ``save`` the
+        drawings (``Results.plot`` through OpenCV, with ``show_labels``, ``show_conf``, ``show_boxes`` and
+        ``line_width``) as ``<project>/<name>/<stem>.jpg``, or one ``<stem>.mp4`` per video (``save_frames``:
+        each frame's JPEG too); ``show`` shows them in an OpenCV window. ``embed`` is accepted and changes
+        nothing, as in the JAX facade: ``embed()`` gives the vectors.
         A Segment graph's results carry masks at each frame's size (``retina_masks=True``: assembled
         from the prototypes at that size, on the host); a Pose graph's carry keypoints, an OBB graph's
         rotated boxes (``Results.obb``), a Classify graph's class probabilities (``Results.probs``).
@@ -231,15 +258,77 @@ class YOLO:
         if stream:
             return gen
         results = list(gen)
+        out_dir = Path(kwargs.get("project") or "runs/detect") / (kwargs.get("name") or "predict")
+        if kwargs.get("save"):
+            self._save_results(results, out_dir, kwargs)
         if kwargs.get("save_txt") or kwargs.get("save_crop"):
-            out_dir = Path(kwargs.get("project") or "runs/detect") / (kwargs.get("name") or "predict")
             for i, r in enumerate(results):
                 stem = result_stem(r.path, i)
                 if kwargs.get("save_txt"):
                     r.save_txt(out_dir / "labels" / f"{stem}.txt", save_conf=bool(kwargs.get("save_conf", False)))
                 if kwargs.get("save_crop"):
                     r.save_crop(out_dir / "crops", file_name=stem)
+        if kwargs.get("show"):
+            self._show_results(results, kwargs)
         return results
+
+    @staticmethod
+    def _plot_options(kwargs) -> dict:
+        """``Results.plot``'s options from predict's ``show_labels``, ``show_conf``, ``show_boxes`` and
+        ``line_width``."""
+        plot_kw = {"labels": bool(kwargs.get("show_labels", True)), "conf": bool(kwargs.get("show_conf", True)),
+                   "boxes": bool(kwargs.get("show_boxes", True))}
+        if kwargs.get("line_width"):
+            plot_kw["line_width"] = int(kwargs["line_width"])
+        return plot_kw
+
+    def _save_results(self, results, out_dir: Path, kwargs) -> None:
+        """``save=True`` (the JAX facade's layout): each image's drawing as ``<out_dir>/<stem>.jpg``; the
+        frames of a video source drawn into one ``mp4v`` ``<out_dir>/<stem>.mp4`` at the source's frame
+        rate, and with ``save_frames`` each also as ``<stem>_<n>.jpg``. Where OpenCV cannot open the
+        video writer it raises, naming the codec (the JAX package writes nothing and says nothing)."""
+        plot_kw = self._plot_options(kwargs)
+        save_frames = bool(kwargs.get("save_frames", False))
+        writers = {}
+        try:
+            for i, r in enumerate(results):
+                if "#frame" not in str(r.path):
+                    r.save(out_dir / f"{result_stem(r.path, i)}.jpg", **plot_kw)
+                    continue
+                src, _, n = str(r.path).partition("#frame")
+                w = writers.get(src)
+                if w is None:
+                    cv2 = import_cv2("predict(save=True) of a video", CV2_VIDEO)
+                    cap = cv2.VideoCapture(src)
+                    fps = cap.get(cv2.CAP_PROP_FPS) or 30.0
+                    cap.release()
+                    out_dir.mkdir(parents=True, exist_ok=True)
+                    h0, w0 = r.orig_img.shape[:2]
+                    path = out_dir / f"{Path(src).stem}.mp4"
+                    w = writers[src] = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), max(fps, 1.0),
+                                                       (w0, h0))
+                    if not w.isOpened():
+                        raise RuntimeError(f"predict(save=True): OpenCV's VideoWriter could not open {path} with the "
+                                           f"mp4v codec ({w0}x{h0} at {max(fps, 1.0)} fps)")
+                w.write(r.plot(**plot_kw))
+                if save_frames:
+                    r.save(out_dir / f"{Path(src).stem}_{n}.jpg", **plot_kw)
+        finally:
+            for w in writers.values():
+                w.release()
+
+    def _show_results(self, results, kwargs) -> None:
+        """``show=True`` (the JAX facade's): each result's drawing in the window ``bsyolo`` through
+        ``cv2.imshow`` and ``waitKey(1)``; where there is no display (no ``DISPLAY`` outside Windows and
+        macOS), one warning and nothing shown."""
+        if not (os.environ.get("DISPLAY") or os.name == "nt" or sys.platform == "darwin"):
+            LOGGER.warning("show=True: no display available, skipping imshow")
+            return
+        cv2 = import_cv2("predict(show=True)", CV2_DRAWING)
+        plot_kw = self._plot_options(kwargs)
+        for r in results:
+            cv2.imshow("bsyolo", r.plot(**plot_kw))
+            cv2.waitKey(1)
 
     def embed(self, source, stream: bool = False, embed=None, imgsz: Optional[int] = None):
         """One 1-D float32 vector per image of ``source`` (sources as ``predict``): the global-average

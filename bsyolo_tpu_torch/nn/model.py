@@ -225,4 +225,6 @@ def cast_inference_graph(model: nn.Module, dtype: torch.dtype = torch.bfloat16) 
 
 
 def count_params(model: nn.Module) -> int:
+    """The parameters of ``model``, as the JAX package's ``count_params`` counts its ``params``
+    collection (BatchNorm's running statistics are buffers, not counted)."""
     return sum(p.numel() for p in model.parameters())

@@ -7,8 +7,9 @@ Needs one CUDA card, nvcc (PATH or $CUDA_HOME/bin), a host C++ compiler and
 this checkout; exits non-zero without them. Phases, each of which fails the run on its own:
 
 1. the card's name and power limit; every kernel of the port built with
-   nvcc from ``bsyolo_tpu_torch/kernels/csrc``, and the JPEG codec with the
-   host C++ compiler, one compiler per source, all at once;
+   nvcc from ``bsyolo_tpu_torch/kernels/csrc``, and the JPEG codec and the
+   mask border follower with the host C++ compiler, one compiler per source,
+   all at once;
 2. each kernel against its plain PyTorch version on the card, at the shapes
    its paths give it and at ragged ones, with its time (the decode kernels'
    at the predict shape, B 4 at 640 px), the plain version's
@@ -232,9 +233,26 @@ this checkout; exits non-zero without them. Phases, each of which fails the run 
    fitted graph (the int8 kernel once per quantized conv of HGNetv2 and
    the neck per batch) and the int8 kernel over the products of one
    forward beside its bound and ``torch._int_mm``.
+18. The facade's outputs, on the bsyolo8 photos at 640 px, batch 4, conf
+   0.25: (a) yolo11n (nc 12, drawn weights) ``predict(save=True,
+   save_txt=True)``: rows paired 1.0 with the CPU's predictor run on the
+   card's head maps, the 8 JPEGs and label files written, each JPEG
+   byte-equal to this machine's cv2 drawing (``Results.save``) of the
+   replayed rows, except at most one whose drawn corners or labels float
+   rounding moved, which must equal the drawing of the card's own rows; an
+   8-frame mp4v clip written with this
+   machine's cv2 and ``predict(save=True, save_frames=True)`` of it, the
+   saved video read back through ``cv2.VideoCapture`` (frame count and
+   size), or, where the mp4v writer does not open, the port's error held and
+   printed; (b) yolo11n-seg (nc 80, drawn weights) ``predict(save_txt=True)``:
+   every mask's contours equal this machine's ``cv2.findContours`` and each
+   label line cv2's largest contour, cv2's version printed, with the host
+   cost of ``save_txt`` per frame (the predict with it against the one
+   without) and of the border follower and cv2 per mask. The box decode
+   kernel once per batch throughout.
 
 Phases 10a to 10c run right after phase 6, on the float graph phases 3 to 6
-used; 10d, 10e, 15f, 16 and 17 after phase 9, 11, 12, 13, 14 and 15 last. Each
+used; 10d, 10e, 15f, 16 and 17 after phase 9, 11, 12, 13, 14, 15 and 18 last. Each
 phase prints its seconds. Every launch counter is set to 0 just before a path
 is driven and read just after, so each path shows the kernels it went through.
 
@@ -247,8 +265,8 @@ product path (``product_launches``) and on phase 12's photos
 (``photo_launches``) among all its launches, and
 ``int8_matmul`` its bf16 epilogue's figures (``bf16_out``); each also carries
 its launches on phase 13's and 14's task paths (``task_launches``), on
-phase 15's (``mode_launches``), on phase 16's (``zoo_launches``) and on
-phase 17's (``detr_launches``),
+phase 15's (``mode_launches``), on phase 16's (``zoo_launches``), on
+phase 17's (``detr_launches``) and on phase 18's (``facade_launches``),
 ``decode_box_best`` phase 2's task-head figures (``task_heads``, float32 and
 bf16), both decode kernels phase 16d's (``zoo_heads``), ``int8_matmul``
 phase 15's figures per task graph (``task_graphs``), phase 16's per
@@ -335,7 +353,8 @@ def build_kernels():
     from bsyolo_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    names = sorted({src for _, src in kernels.KERNELS.values()}) + ["jpeg"]  # jpeg: the host JPEG codec
+    names = sorted({src for _, src in kernels.KERNELS.values()}) + ["jpeg", "contours"]  # host C++: the JPEG
+    # codec and the mask border follower
     build.compile_all(names)
     for name in names:
         rec = build.BUILD_LOG[name]
@@ -1707,12 +1726,15 @@ def val_batches():
 
 @contextlib.contextmanager
 def plain_decode_calls():
-    """A list that gets one entry per call of either decode's plain version while the block runs."""
+    """A list that gets one entry per call of either decode's plain version on the card's levels while the block
+    runs (the CPU's predictor, replaying the card's head maps, runs the plain version by design)."""
     from bsyolo_tpu_torch.kernels import decode
 
     calls, box, xywh = [], decode.box_best_reference, decode.decode_xywh_reference
-    decode.box_best_reference = lambda *a, **k: calls.append("box") or box(*a, **k)
-    decode.decode_xywh_reference = lambda *a, **k: calls.append("xywh") or xywh(*a, **k)
+    decode.box_best_reference = lambda feats, *a, **k: (feats[0].is_cuda and calls.append("box")) or box(
+        feats, *a, **k)
+    decode.decode_xywh_reference = lambda feats, *a, **k: (feats[0].is_cuda and calls.append("xywh")) or xywh(
+        feats, *a, **k)
     try:
         yield calls
     finally:
@@ -3077,6 +3099,48 @@ def _to(out, dev):
         [t.to(dev) for t in out] if isinstance(out, list) else out.to(dev))
 
 
+@contextlib.contextmanager
+def recording(graph, keep_inputs: bool = False):
+    """While the block runs, ``graph``'s outputs (and with ``keep_inputs`` its inputs) are recorded on the host;
+    yields (outputs, inputs). The hook returns None: the outputs pass on unchanged."""
+    outputs, inputs = [], []
+
+    def record(module, args, output):
+        if keep_inputs:
+            inputs.append(args[0].cpu())
+        outputs.append(_to(output, "cpu"))
+
+    hook = graph.register_forward_hook(record)
+    try:
+        yield outputs, inputs
+    finally:
+        hook.remove()
+
+
+def predict_replayed(card, graph, best, source, args, card_kw=None, same_inputs=False):
+    """``card.predict(source, **args, **card_kw)`` with ``graph``'s outputs recorded, and the CPU's predictor
+    (``YOLO(best)`` on a Replay of them) run on ``source`` with ``args``; with ``same_inputs`` the card's uint8
+    letterboxed batches must equal the CPU's (the graph's input is x / 255, which the card divides otherwise).
+    Returns (the card's results, the CPU's, the card's predict in ms on the host clock, synchronized)."""
+    import torch
+
+    from bsyolo_tpu_torch import YOLO
+
+    with recording(graph, keep_inputs=same_inputs) as (outputs, inputs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = card.predict(source, **args, **(card_kw or {}))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    replay = YOLO(best, device="cpu")
+    replay.model = Replay(outputs)
+    want = replay.predict(source, **args)
+    if same_inputs and not (len(inputs) == len(replay.model.inputs) and all(
+            torch.equal((a * 255).round(), (b * 255).round()) for a, b in zip(inputs, replay.model.inputs))):
+        raise SystemExit(f"{best}: the card's letterboxed batches differ from the CPU's")
+    return got, want, ms
+
+
 def _paired_payloads(task, got, want):
     """(mean mask IoU, min) or (max |keypoint xy diff|, max |visibility diff|) over the rows match_pairs pairs."""
     ious, kpt, vis = [], 0.0, 0.0
@@ -3121,27 +3185,9 @@ def task_predict_against_cpu(dev, task, best, frames):
     out = {}
     for kw in ({}, {"retina_masks": True}) if task == "segment" else ({},):
         card.predict(frames[:4], imgsz=IMGSZ, batch=4, conf=P13_CONF, **kw)  # warm-up
-        recorded, inputs = [], []
-
-        def record(module, args, output):  # returns None: the output passes on unchanged
-            inputs.append(args[0].cpu())
-            recorded.append(_to(output, "cpu"))
-
-        hook = card.model.register_forward_hook(record)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        try:
-            got = card.predict(frames, imgsz=IMGSZ, batch=4, conf=P13_CONF, **kw)
-            torch.cuda.synchronize()
-        finally:
-            hook.remove()
-        ms = (time.perf_counter() - t0) * 1e3 / math.ceil(len(frames) / 4)
-        replay = YOLO(best, device="cpu")
-        replay.model = Replay(recorded)
-        want = replay.predict(frames, imgsz=IMGSZ, batch=4, conf=P13_CONF, **kw)
-        # the uint8 letterboxed batches (the graph's input is x / 255, which the card divides otherwise)
-        if not all(torch.equal((a * 255).round(), (b * 255).round()) for a, b in zip(inputs, replay.model.inputs)):
-            raise SystemExit(f"{task}: the card's letterboxed batches differ from the CPU's")
+        got, want, ms = predict_replayed(card, card.model, best, frames, dict(imgsz=IMGSZ, batch=4, conf=P13_CONF,
+                                                                              **kw), same_inputs=True)
+        ms /= math.ceil(len(frames) / 4)
         label = f"{task} predict{' retina_masks' if kw else ''}"
         frac = compare_with_cpu(f"{label}, the CPU's path on the card's head maps", [r.boxes.data for r in got],
                                 [r.boxes.data for r in want])
@@ -3397,19 +3443,8 @@ def obb_predict_against_cpu(dev, best, frames):
         if not err <= P13_HEAD_RTOL * scale:
             raise SystemExit(f"the OBB head on the card disagrees with the CPU beyond {P13_HEAD_RTOL} of its scale")
     card.predict(frames[:4], imgsz=side, batch=4, conf=P13_CONF)  # warm-up
-    recorded = []
-    hook = card.model.register_forward_hook(lambda module, args, output: recorded.append(_to(output, "cpu")))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    try:
-        got = card.predict(frames, imgsz=side, batch=4, conf=P13_CONF)
-        torch.cuda.synchronize()
-    finally:
-        hook.remove()
-    ms = (time.perf_counter() - t0) * 1e3 / math.ceil(len(frames) / 4)
-    replay = YOLO(best, device="cpu")
-    replay.model = Replay(recorded)
-    want = replay.predict(frames, imgsz=side, batch=4, conf=P13_CONF)
+    got, want, ms = predict_replayed(card, card.model, best, frames, dict(imgsz=side, batch=4, conf=P13_CONF))
+    ms /= math.ceil(len(frames) / 4)
     pairs = [obb_pairs(g.obb.data, w.obb.data) for g, w in zip(got, want)]
     rows, want_rows = sum(len(r) for r in got), sum(len(r) for r in want)
     frac = sum(len(p) for p in pairs) / max(rows, want_rows, 1)
@@ -3694,23 +3729,8 @@ def replayed_rows(task, card, best, graph, frames, imgsz, label, **kw):
     """``card.predict(frames, **kw)`` at batch 4 with ``graph``'s outputs recorded, and the CPU's predictor run on
     those outputs (a Replay): the rows (boxes, masks, keypoints, rotated rows, probabilities) held against the CPU's;
     returns (ms per batch of 4, the card's results)."""
-    import torch
-
-    from bsyolo_tpu_torch import YOLO
-
-    recorded = []
-    hook = graph.register_forward_hook(lambda module, args, output: recorded.append(_to(output, "cpu")))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    try:
-        got = card.predict(frames, imgsz=imgsz, batch=4, conf=P15_CONF, **kw)
-        torch.cuda.synchronize()
-    finally:
-        hook.remove()
-    ms = (time.perf_counter() - t0) * 1e3 / math.ceil(len(frames) / 4)
-    replay = YOLO(best, device="cpu")
-    replay.model = Replay(recorded)
-    want = replay.predict(frames, imgsz=imgsz, batch=4, conf=P15_CONF)
+    got, want, ms = predict_replayed(card, graph, best, frames, dict(imgsz=imgsz, batch=4, conf=P15_CONF), kw)
+    ms /= math.ceil(len(frames) / 4)
     if task == "classify":
         err = max(float(np.abs(g.probs.data - w.probs.data).max()) for g, w in zip(got, want))
         top5 = all(g.probs.top5 == w.probs.top5 for g, w in zip(got, want))
@@ -3758,14 +3778,10 @@ def val_against_cpu(label, card, host, best, data, imgsz, batch, main, **kw):
     from bsyolo_tpu_torch import YOLO
 
     graph = card.half_graph() if kw.get("half") else card.model
-    recorded = []
-    hook = graph.register_forward_hook(lambda module, args, output: recorded.append(_to(output, "cpu")))
     t0 = time.perf_counter()
-    try:
+    with recording(graph) as (recorded, _):
         got = card.val(data=str(data), batch=batch, imgsz=imgsz, **kw).results_dict
         torch.cuda.synchronize()
-    finally:
-        hook.remove()
     card_s = time.perf_counter() - t0
     replay = YOLO(best, device="cpu")
     replay.model = Replay(recorded)
@@ -4471,12 +4487,8 @@ def detr_train_val_predict(dev, graph, own, frames, root):
         raise SystemExit(f"rtdetr-l: YOLO.train's loss did not fall: {losses}")
     best = Path(root) / "runs" / "p17rtdetr" / "weights" / "best.ckpt"
     card = YOLO(best)
-    recorded = []
-    hook = card.model.register_forward_hook(lambda m, a, out: recorded.append(_to(out, "cpu")))
-    try:
+    with recording(card.model) as (recorded, _):
         got = card.val(data=str(own), batch=P15_OWN, imgsz=IMGSZ).results_dict
-    finally:
-        hook.remove()
     replay = YOLO(best, device="cpu")
     replay.model = Replay(recorded)
     same = replay.val(data=str(own), batch=P15_OWN, imgsz=IMGSZ).results_dict
@@ -4495,23 +4507,8 @@ def detr_train_val_predict(dev, graph, own, frames, root):
 def detr_predict_against_cpu(card, best, graph, frames, label, **kw):
     """``card.predict`` at batch 4 and conf P15_CONF with ``graph``'s decoder outputs recorded, and the CPU's
     predictor on them (a Replay, ``decode_rtdetr`` on the CPU): every row paired; returns (ms per batch, 1.0)."""
-    import torch
-
-    from bsyolo_tpu_torch import YOLO
-
-    recorded = []
-    hook = graph.register_forward_hook(lambda m, a, out: recorded.append(_to(out, "cpu")))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    try:
-        got = card.predict(frames, imgsz=IMGSZ, batch=4, conf=P15_CONF, **kw)
-        torch.cuda.synchronize()
-    finally:
-        hook.remove()
-    ms = (time.perf_counter() - t0) * 1e3 / math.ceil(len(frames) / 4)
-    replay = YOLO(best, device="cpu")
-    replay.model = Replay(recorded)
-    want = replay.predict(frames, imgsz=IMGSZ, batch=4, conf=P15_CONF)
+    got, want, ms = predict_replayed(card, graph, best, frames, dict(imgsz=IMGSZ, batch=4, conf=P15_CONF), kw)
+    ms /= math.ceil(len(frames) / 4)
     frac = compare_with_cpu(f"{label}, the CPU's decode_rtdetr on the card's decoder outputs",
                             [r.boxes.data for r in got], [r.boxes.data for r in want], min_fraction=1.0)
     print(f"  {label}: {ms:.1f} ms per batch of 4, {sum(len(r) for r in got)} rows, {frac:.4f} paired")
@@ -4577,18 +4574,232 @@ def detr_path(dev, own, frames, root):
     return launches, figures
 
 
+# phase 18: the facade's outputs (predict(save, save_txt) of images and video, save_txt's mask polygons)
+P18_BATCH = 4
+P18_CONF = 0.25  # a served threshold: the rows predict(save=True) draws
+P18_CLIP = 8, 10.0, (480, 640)  # the mp4v clip written on the card's machine: frames, fps, (h, w)
+P18_FEW_MASKS = 8  # max_det of the second save_txt timing: about COCO's mean of 7.3 instances per image
+P18_MOVED_MAX = 1  # saved JPEGs whose drawn corners or labels float rounding may move from the replayed rows'
+
+
+def drawn(rows: np.ndarray):
+    """What ``Results.plot`` draws of each detection row, in order: its integer corners, class and label score."""
+    return [(*(int(v) for v in r[:4]), int(r[-1]), f"{r[-2]:.2f}") for r in rows]
+
+
+def saved_drawings(got, want, out: Path, scratch: Path):
+    """Each saved JPEG against the card machine's cv2 drawing (``Results.save``) of the CPU's replayed rows:
+    byte-equal, except for at most P18_MOVED_MAX images where float rounding moved a drawn corner or label of a
+    row (the rows themselves are paired, 1.0), and each of those byte-equal to the drawing of the card's own
+    rows. Returns (equal, moved)."""
+    equal = moved = 0
+    for r, w in zip(got, want):
+        stem = Path(r.path).stem
+        saved = (out / f"{stem}.jpg").read_bytes()
+        w.save(scratch / f"{stem}.jpg")
+        if saved == (scratch / f"{stem}.jpg").read_bytes():
+            equal += 1
+            continue
+        r.save(scratch / f"{stem}_card.jpg")
+        if drawn(r.boxes.data) == drawn(w.boxes.data) or saved != (scratch / f"{stem}_card.jpg").read_bytes():
+            raise SystemExit(f"phase 18: {out / stem}.jpg differs from this machine's drawing of the same rows")
+        moved += 1
+    if moved > P18_MOVED_MAX or equal + moved != len(got):
+        raise SystemExit(f"phase 18: {moved} of {len(got)} saved JPEGs had drawn corners or labels moved from the "
+                         f"replayed rows (at most {P18_MOVED_MAX})")
+    return equal, moved
+
+
+def photo_clip(root: Path, cv2):
+    """An mp4v clip of the photos (P18_CLIP) written with this machine's OpenCV; where its VideoWriter does not
+    open, an MJPG AVI (OpenCV's own encoder) instead. Returns (path, mp4v opened)."""
+    n, fps, (h, w) = P18_CLIP
+    frames = [cv2.resize(cv2.imread(str(PHOTOS / "images" / "train" / f"{i % 8}.jpg")), (w, h)) for i in range(n)]
+    for path, fourcc in ((root / "clip.mp4", "mp4v"), (root / "clip.avi", "MJPG")):
+        writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*fourcc), fps, (w, h))
+        if writer.isOpened():
+            for f in frames:
+                writer.write(f)
+            writer.release()
+            return path, fourcc == "mp4v"
+        writer.release()
+    raise SystemExit("phase 18: this machine's OpenCV opens neither an mp4v nor an MJPG VideoWriter")
+
+
+def video_frames(path: Path, cv2):
+    cap = cv2.VideoCapture(str(path))
+    n, size = 0, None
+    while True:
+        ok, f = cap.read()
+        if not ok:
+            break
+        n, size = n + 1, f.shape[:2]
+    cap.release()
+    return n, size
+
+
+def detector_outputs(root: Path, cv2):
+    """Phase 18a: predict(save=True, save_txt=True) of the photos and of a clip written here; returns the
+    launches."""
+    from bsyolo_tpu_torch import YOLO, kernels
+
+    source = str(PHOTOS / "images" / "train")
+    args = dict(imgsz=IMGSZ, batch=P18_BATCH, conf=P18_CONF)
+    host = YOLO("yolo11n.yaml", device="cpu", seed=SEED)
+    draw_weights(host.model, SEED + 18)
+    card = YOLO("yolo11n.yaml", seed=SEED)
+    card.model.load_state_dict(host.model.state_dict())
+    card.predict(source, **args)  # warm-up
+    with plain_decode_calls() as plain_calls:
+        kernels.reset_launch_counts()
+        got, want, ms = predict_replayed(card, card.model, "yolo11n.yaml", source, args,
+                                         dict(save=True, save_txt=True, project=str(root), name="det"),
+                                         same_inputs=True)
+        launches = expect_launches("predict(save, save_txt) of the photos",
+                                   {"decode_box_best": -(-8 // P18_BATCH), "decode_xywh": 0, "int8_matmul": 0})
+    if plain_calls:
+        raise SystemExit(f"phase 18 ran the decode's plain version {len(plain_calls)} times on the card")
+    check_finite("phase 18 photo predictions", [r.boxes.data for r in got])
+    compare_with_cpu("predict(save=True), the CPU's path on the card's head maps", [r.boxes.data for r in got],
+                     [r.boxes.data for r in want], min_fraction=1.0)
+    out = root / "det"
+    files = sorted(p.name for p in out.glob("*.jpg"))
+    labels = sorted(p.name for p in (out / "labels").glob("*.txt"))
+    if files != [f"{i}.jpg" for i in range(8)] or labels != [f"{i}.txt" for i in range(8)]:
+        raise SystemExit(f"phase 18: predict(save=True, save_txt=True) wrote {files} and labels {labels}")
+    (root / "drawn").mkdir()
+    equal, moved = saved_drawings(got, want, out, root / "drawn")
+    print(f"phase 18a predict(save=True, save_txt=True) of the 8 photos at batch {P18_BATCH}, conf {P18_CONF}: "
+          f"{ms:.1f} ms (host clock, drawing and JPEG writing included), {sum(len(r) for r in got)} rows; "
+          f"{equal} of 8 JPEGs byte-equal to this machine's cv2 drawing of the CPU's replayed rows, {moved} with a "
+          "drawn corner or label moved by float rounding")
+    path, mp4v = photo_clip(root, cv2)
+    n, fps, (h, w) = P18_CLIP
+    if not mp4v:
+        print(f"phase 18 finding: this machine's OpenCV {cv2.__version__} does not open an mp4v VideoWriter; "
+              "predict(save=True) of a video raises the port's error")
+        try:
+            card.predict(str(path), save=True, project=str(root), name="vid", **args)
+        except RuntimeError as e:
+            if "mp4v" not in str(e):
+                raise
+            print(f"  raised: {e}")
+        else:
+            raise SystemExit("phase 18: predict(save=True) of a video did not raise where mp4v does not open")
+        return launches
+    read_back = video_frames(path, cv2)
+    kernels.reset_launch_counts()
+    vid = card.predict(str(path), save=True, save_frames=True, project=str(root), name="vid", **args)
+    vid_launches = expect_launches("predict(save=True) of the clip",
+                                   {"decode_box_best": -(-len(vid) // P18_BATCH), "decode_xywh": 0, "int8_matmul": 0})
+    saved = video_frames(root / "vid" / "clip.mp4", cv2)
+    frames = sorted((root / "vid").glob("clip_*.jpg"))  # the JAX layout: clip_<n>.jpg
+    print(f"phase 18 finding: this machine's OpenCV {cv2.__version__} writes and reads mp4v: the {n}-frame clip "
+          f"read back as {read_back[0]} frames of {read_back[1]}; predict(save=True, save_frames=True) of it wrote "
+          f"vid/clip.mp4, read back as {saved[0]} frames of {saved[1]}, and {len(frames)} frame JPEGs")
+    if len(vid) != n or saved != (n, (h, w)) or len(frames) != n:
+        raise SystemExit(f"phase 18: the saved video has {saved}, expected {n} frames of {(h, w)}")
+    return {k: launches[k] + vid_launches[k] for k in launches}
+
+
+def segment_polygons(root: Path, cv2):
+    """Phase 18b: yolo11n-seg predict(save_txt=True) of the photos; every mask's contours equal this machine's
+    cv2.findContours, the written polygons cv2's largest contour; the host cost of save_txt per frame (the predict
+    with it against the one without) and of the follower and cv2 per mask. Returns the launches."""
+    import torch
+
+    from bsyolo_tpu_torch import YOLO, kernels
+    from bsyolo_tpu_torch.ops.contours import find_external_contours
+
+    source = str(PHOTOS / "images" / "train")
+    args = dict(imgsz=IMGSZ, batch=P18_BATCH, conf=P18_CONF)
+    card = YOLO("yolo11n-seg.yaml", seed=SEED)
+    draw_weights(card.model, SEED + 18)
+    card.predict(source, **args)  # warm-up
+    kernels.reset_launch_counts()
+    walls, kept = {(k, t): [] for k in (300, P18_FEW_MASKS) for t in (False, True)}, {}
+    for max_det in (300, P18_FEW_MASKS):  # each without and with save_txt, in turns
+        for txt in (False, True, True, False):
+            kw = dict(save_txt=True, project=str(root), name=f"seg{max_det}") if txt else {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = card.predict(source, **args, max_det=max_det, **kw)
+            torch.cuda.synchronize()
+            walls[max_det, txt].append(time.perf_counter() - t0)
+            kept[max_det] = sum(len(r) for r in res) / len(res)
+            if max_det == 300 and txt:
+                got = res
+    launches = expect_launches("segment predicts with and without save_txt", {
+        "decode_box_best": 8 * -(-8 // P18_BATCH), "decode_xywh": 0, "int8_matmul": 0})
+    masks = contours = lines = 0
+    t_port = t_cv2 = 0.0
+    for r in got:
+        h, w = r.orig_shape
+        want_lines = []
+        for m, row in zip(r.masks.data, r.boxes.data):
+            u8 = (m > 0.5).astype(np.uint8)
+            t1 = time.perf_counter()
+            mine = find_external_contours(u8)
+            t2 = time.perf_counter()
+            theirs, _ = cv2.findContours(u8, cv2.RETR_EXTERNAL, cv2.CHAIN_APPROX_SIMPLE)
+            t_port, t_cv2 = t_port + t2 - t1, t_cv2 + time.perf_counter() - t2
+            if len(mine) != len(theirs) or not all(np.array_equal(a, b) for a, b in zip(mine, theirs)):
+                raise SystemExit(f"phase 18: {r.path}: the port's contours of mask {masks} differ from cv2.findContours")
+            masks, contours = masks + 1, contours + len(theirs)
+            poly = (max(theirs, key=cv2.contourArea).reshape(-1, 2).astype(np.float32) / np.float32([w, h])
+                    if theirs else ())
+            cx, cy = (row[0] + row[2]) / 2, (row[1] + row[3]) / 2
+            vals = poly.reshape(-1) if len(poly) else np.float32([cx, cy, row[2] - row[0], row[3] - row[1]]) / \
+                np.float32([w, h, w, h])
+            want_lines.append(" ".join([str(int(row[-1])), *(f"{v:.6f}" for v in vals)]))
+        text = (root / "seg300" / "labels" / f"{Path(r.path).stem}.txt").read_text().splitlines()
+        if text != want_lines:
+            raise SystemExit(f"phase 18: {r.path}: save_txt's polygons differ from cv2's largest contours")
+        lines += len(text)
+    med = {k: float(np.median(v)) * 1e3 for k, v in walls.items()}
+    cost = "; ".join(f"max_det {k}: {med[k, False]:.1f} ms, with save_txt {med[k, True]:.1f} ms, so save_txt "
+                     f"{(med[k, True] - med[k, False]) / len(got):.2f} ms per frame at {kept[k]:.2f} masks per frame"
+                     for k in (300, P18_FEW_MASKS))
+    print(f"phase 18b yolo11n-seg predict of the 8 photos at batch {P18_BATCH}, conf {P18_CONF} (host clock, medians "
+          f"of 2 in turns): {cost}; "
+          f"{lines} label lines; {masks} masks, {contours} contours, each equal to this machine's cv2.findContours "
+          f"(OpenCV {cv2.__version__}): the port's follower {t_port * 1e3 / max(masks, 1):.3f} ms per mask, cv2 "
+          f"{t_cv2 * 1e3 / max(masks, 1):.3f} ({card_line()})")
+    if not masks:
+        raise SystemExit("phase 18: the segment predict kept no mask")
+    return launches
+
+
+def facade_path():
+    """Phase 18: the facade's outputs (module docstring)."""
+    from bsyolo_tpu_torch.utils import CV2_DRAWING, import_cv2
+
+    cv2 = import_cv2("phase 18's drawings", CV2_DRAWING)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p18_") as d:
+        root = Path(d)
+        t0 = time.perf_counter()
+        det = detector_outputs(root, cv2)
+        print(f"  phase 18a in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        seg = segment_polygons(root, cv2)
+        print(f"  phase 18b in {time.perf_counter() - t0:.1f} s")
+    return {k: det[k] + seg[k] for k in det}
+
+
 def kernel_entry(name, source, replaces, launches, row, bf16_launches, bf16_head=None, product_launches=0,
-                 photo_launches=0, task_launches=0, mode_launches=0, zoo_launches=0, detr_launches=0):
+                 photo_launches=0, task_launches=0, mode_launches=0, zoo_launches=0, detr_launches=0,
+                 facade_launches=0):
     """One entry of the kernels line; ``launches`` counts every path's run, ``bf16_launches`` those of
     phase 10's bf16 paths among them, ``product_launches`` those of phase 11's product path,
     ``photo_launches`` those of phase 12's real photos, ``task_launches`` those of phase 13's and 14's task
     paths, ``mode_launches`` those of phase 15's bf16 and int8 paths (the four task graphs and Detect's int8
     val), ``zoo_launches`` those of phase 16's YOLO v8, v10 and v6 paths, ``detr_launches`` those of phase 17's
-    RT-DETR int8 paths, ``bf16_head`` the kernel on a real forward's bf16 head."""
+    RT-DETR int8 paths, ``facade_launches`` those of phase 18's facade outputs, ``bf16_head`` the kernel on a
+    real forward's bf16 head."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "bf16_launches": bf16_launches, "product_launches": product_launches, "photo_launches": photo_launches,
             "task_launches": task_launches, "mode_launches": mode_launches, "zoo_launches": zoo_launches,
-            "detr_launches": detr_launches,
+            "detr_launches": detr_launches, "facade_launches": facade_launches,
             **({"task_heads": row["task_heads"]} if "task_heads" in row else {}),
             **({"zoo_heads": row["zoo_heads"]} if "zoo_heads" in row else {}),
             **({"zoo_graphs": row["zoo_graphs"]} if "zoo_graphs" in row else {}),
@@ -4667,6 +4878,7 @@ def main() -> int:
         task_launches = phase("13", task_path, dev, root)
         obb_cls_launches = phase("14", obb_classify_path, dev, root)
         mode_launches, int8_row["task_graphs"] = phase("15", task_modes_path, dev, root)
+    facade_launches = phase("18", facade_path)
     task_launches = {k: task_launches[k] + obb_cls_launches[k] for k in task_launches}
     mode_launches = {k: mode_launches[k] + detect_int8_launches[k] for k in mode_launches}
     bf16 = {k: half_launches[k] + half_xywh_launches[k] + half_int8_launches[k] + amp_launches[k]
@@ -4677,10 +4889,11 @@ def main() -> int:
                      + trainer_launches["decode_box_best"] + bf16["decode_box_best"]
                      + product_launches["decode_box_best"] + photo_launches["decode_box_best"]
                      + task_launches["decode_box_best"] + mode_launches["decode_box_best"]
-                     + zoo_launches["decode_box_best"], box_row,
+                     + zoo_launches["decode_box_best"] + facade_launches["decode_box_best"], box_row,
                      bf16["decode_box_best"], box_half, product_launches["decode_box_best"],
                      photo_launches["decode_box_best"], task_launches["decode_box_best"],
-                     mode_launches["decode_box_best"], zoo_launches["decode_box_best"]),
+                     mode_launches["decode_box_best"], zoo_launches["decode_box_best"],
+                     facade_launches=facade_launches["decode_box_best"]),
         kernel_entry("decode_xywh", "bsyolo_tpu_torch/kernels/csrc/decode.cu",
                      "bsyolo_tpu/kernels/decode.py:34",
                      tta_launches["decode_xywh"] + tiled_launches["decode_xywh"] + bf16["decode_xywh"]

@@ -353,7 +353,7 @@ def test_val_half_matches_jax(amp_trained):
 
 
 @pytest.mark.parametrize("mode", ["val", "predict"])
-def test_cli_half_reaches_the_bf16_graph(mode, amp_trained, monkeypatch):
+def test_cli_half_reaches_the_bf16_graph(mode, amp_trained, monkeypatch, tmp_path):
     from bsyolo_tpu_torch.cli import main
     from bsyolo_tpu_torch.model import YOLO
 
@@ -362,7 +362,8 @@ def test_cli_half_reaches_the_bf16_graph(mode, amp_trained, monkeypatch):
     half_graph = YOLO.half_graph
     monkeypatch.setattr(YOLO, "half_graph", lambda self: built.append(self) or half_graph(self))
     best = m.trainer.save_dir / "weights" / "best.ckpt"
-    extra = [f"data={data}", "batch=8"] if mode == "val" else [f"source={data.parent / 'images' / 'val'}", "conf=0.001"]
+    extra = [f"data={data}", "batch=8"] if mode == "val" else [f"source={data.parent / 'images' / 'val'}", "conf=0.001",
+                                                                f"project={tmp_path}"]
     assert main([mode, f"model={best}", "imgsz=64", "device=cpu", "half=True", *extra]) == 0
     assert len(built) == 1 and built[0]._half is not None
 

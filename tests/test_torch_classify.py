@@ -354,13 +354,14 @@ def test_facade_train_val_predict_match_jax(legs):
     assert [w[2] for w in p["trainer"].loader_wait] == [2]
 
 
-def test_cli_classify_task(legs, capsys):
+def test_cli_classify_task(legs, capsys, tmp_path):
     from bsyolo_tpu_torch.cli import TASK_MODELS, main
 
     assert TASK_MODELS["classify"] == "yolo11n-cls.yaml"
     best = str(Path(legs["port"]["trainer"].save_dir) / "weights" / "best.ckpt")
     src = str(legs["data"] / "val" / "c1")
-    assert main(["classify", "predict", f"model={best}", "device=cpu", f"source={src}", "imgsz=32"]) == 0
+    assert main(["classify", "predict", f"model={best}", "device=cpu", f"source={src}", "imgsz=32",
+                 f"project={tmp_path}"]) == 0
     assert "top-1 classes" in capsys.readouterr().out
     assert main(["classify", "val", f"model={best}", "device=cpu", f"data={legs['data']}", "imgsz=32"]) == 0
     assert "metrics/accuracy_top1" in capsys.readouterr().out

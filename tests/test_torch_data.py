@@ -448,7 +448,7 @@ def test_bundled_dataset_yaml_resolves_against_datasets_dir(tmp_path, monkeypatc
 
     f = tmp_path / "settings.json"
     f.write_text('{"datasets_dir": "%s"}' % (tmp_path / "sets"))
-    monkeypatch.setattr(settings, "SETTINGS_FILE", f)
+    monkeypatch.setattr(settings, "settings_file", lambda: f)
     d = load_dataset_yaml("car.yaml")
     assert d["path"] == tmp_path / "sets" / "car" and d["nc"] == 12 and d["names"][11] == "xiaofang"
     assert d["train"] == str(tmp_path / "sets" / "car" / "images" / "train")

@@ -428,8 +428,8 @@ def test_predict_rows_results_and_json_match_jax(obb, tmp_path):
     np.testing.assert_allclose(r.obb.xyxyxyxy, j.obb.xyxyxyxy, rtol=1e-6, atol=1e-5)
     assert len(r) == len(r.obb) and len(r[1:3].obb) == 2 and r.verbose_line
     assert obb_pred_to_json(r.obb.data, "images/7.jpg", [3]) == jjson(r.obb.data, "images/7.jpg", [3])
-    with pytest.raises(NotImplementedError, match="item 25"):
-        r.plot()
+    for kw in ({}, {"labels": False}, {"conf": False, "line_width": 1}, {"boxes": False}):  # drawn as JAX draws
+        assert np.array_equal(r.plot(**kw), j.plot(**kw))
 
 
 def test_split_dota_matches_jax(tmp_path):

@@ -20,7 +20,8 @@ The JAX facade and the port's share seeded weights on tiny.yaml (carried by
 
 The card's machine has no OpenCV and no PIL: a subprocess that refuses both
 trains, validates and predicts on bsyolo8 with the port, and its crops decode
-to the arrays cv2 gives.
+to the arrays cv2 gives; a tiny segment graph's ``save_txt`` writes its mask
+polygons there too (the port's own border follower).
 """
 
 import json
@@ -344,6 +345,16 @@ metrics = m.val(data=data, imgsz=64, batch=8, save_json=True, save_txt=True, sav
 res = m.predict("tests/fixtures/bsyolo8/images/train", imgsz=64, conf=0.0001, save_txt=True, save_crop=True,
                 project=str(root), name="pred")
 vec = m.embed("tests/fixtures/bsyolo8/images/train", imgsz=64)
+import torch
+seg = YOLO("tests/fixtures/tinyseg.yaml", device="cpu")
+with torch.no_grad():  # weights three times the seeded init's: masks that pass 0.5
+    for p in seg.model.parameters():
+        if p.ndim == 4:
+            p.mul_(3.0)
+seg_res = seg.predict("tests/fixtures/bsyolo8/images/train", imgsz=64, conf=0.0001, max_det=20, save_txt=True,
+                      project=str(root), name="seg")
+polygons = [len(line.split()) for f in sorted((root / "seg" / "labels").glob("*.txt")) for line in f.read_text().splitlines()]
+assert len(polygons) == sum(len(r) for r in seg_res) > 0 and min(polygons) > 6 and all(n % 2 for n in polygons), polygons
 assert "cv2" not in [k for k, v in sys.modules.items() if v is not None]
 print(len(res), sum(len(r) for r in res), len(vec))
 '''

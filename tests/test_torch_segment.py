@@ -166,13 +166,22 @@ def test_predict_kept_anchor_indices_match_jax(seg):
     np.testing.assert_allclose(pd.numpy()[..., :4], np.asarray(jd)[..., :4], rtol=0, atol=1e-3)
 
 
-def test_results_masks_and_unported_contours(seg, frames):
+def test_results_masks_and_unported_contours(seg, frames, tmp_path):
+    """The masks' contours and a segment result's label lines, once not ported, now equal the JAX package's
+    (whose contours come from cv2.findContours) on the same masks and boxes."""
+    from bsyolo_tpu.engine.results import Results as JResults
+
     (r,) = seg[3].predict(frames[0], imgsz=IMG, conf=0.05)
     assert r.keypoints is None and len(r.masks) == len(r)
     assert r[:2].masks.data.shape == (2, 96, 128)
-    for call in (lambda: r.masks.xy, lambda: r.masks.xyn, lambda: r.save_txt("/nonexistent/x.txt")):
-        with pytest.raises(NotImplementedError, match="item 31"):
-            call()
+    j = JResults(frames[0], "f.jpg", r.names, boxes=r.boxes.data, masks=r.masks.data)
+    assert sum(len(c) > 0 for c in r.masks.xy) > 0
+    for g, w in zip(r.masks.xy + r.masks.xyn, j.masks.xy + j.masks.xyn):
+        assert np.array_equal(g, w)
+    for conf in (False, True):
+        r.save_txt(tmp_path / f"p{conf}.txt", save_conf=conf)
+        j.save_txt(tmp_path / f"j{conf}.txt", save_conf=conf)
+        assert (tmp_path / f"p{conf}.txt").read_bytes() == (tmp_path / f"j{conf}.txt").read_bytes()
 
 
 def _loss_inputs(seg, size, seed=3, zero_head=False):
@@ -370,6 +379,6 @@ def test_unported_modes_on_task_graphs_raise_and_augment_reverts(seg, frames, tm
 
     cv2.imwrite(str(tmp_path / "a.png"), frames[0])
     assert main(["segment", "predict", f"model={SEG}", "device=cpu", f"source={tmp_path}", "imgsz=64",
-                 "retina_masks=True"]) == 0
+                 "retina_masks=True", f"project={tmp_path}"]) == 0
     with pytest.raises(ValueError, match="Segment head"):
         main(["pose", "predict", f"model={SEG}", "device=cpu", f"source={tmp_path}"])

@@ -124,7 +124,8 @@ def test_cli_track(tmp_path, capsys):
 
     clip = write_clip(tmp_path / "clip.mp4", n=6)
     args = dict(imgsz=IMG, tracker=TRACKER_TEST, conf=0.0001)
-    assert main(["track", f"model={TINY}", f"source={clip}", "device=cpu"] + [f"{k}={v}" for k, v in args.items()]) == 0
+    assert main(["track", f"model={TINY}", f"source={clip}", "device=cpu", f"project={tmp_path}"]
+                + [f"{k}={v}" for k, v in args.items()]) == 0
     want = YOLO(TINY, device="cpu").track(clip, **args)
     assert capsys.readouterr().out.strip().endswith(f"6 frames, {sum(len(r) for r in want)} detections")
     assert all(r.boxes.is_track for r in want if len(r))

@@ -218,9 +218,11 @@ def test_cli_train_val_predict(legs, tmp_path):
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).parents[1]))
     out = subprocess.run([sys.executable, "-m", "bsyolo_tpu_torch", "predict", f"model={best}",
                           f"source={legs['data'].parent / 'images' / 'val'}", "imgsz=64", "conf=0.0001", "device=cpu"],
-                         capture_output=True, text=True, env=env, timeout=300)
+                         capture_output=True, text=True, env=env, timeout=300, cwd=tmp_path)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert out.stdout.startswith("6 frames")
+    lines = out.stdout.splitlines()  # predict on the command line logs each frame and saves its drawing, as JAX's
+    assert len(lines) == 7 and lines[-1].startswith("6 frames")
+    assert len(list((tmp_path / "runs" / "detect" / "predict").glob("*.jpg"))) == 6
 
 
 @pytest.mark.parametrize("option,item", [
@@ -268,8 +270,8 @@ def test_unported_processes_modes_tasks_and_formats_raise(monkeypatch):
 
 
 @pytest.mark.parametrize("mode,option,item", [
-    ("val", "plots=True", "item 16"), ("predict", "save=True", "item 25"), ("predict", "visualize=True", "item 16"),
-    ("predict", "show=True", "item 25"), pytest.param("predict", "retina_masks=True", "Segment graph", id="predict-retina_masks=True-item 12"),
+    ("val", "plots=True", "item 16"), ("predict", "visualize=True", "item 16"),
+    pytest.param("predict", "retina_masks=True", "Segment graph", id="predict-retina_masks=True-item 12"),
 ])
 def test_cli_passes_unported_val_and_predict_options_to_the_facade(mode, option, item, tmp_path):
     from bsyolo_tpu_torch.cli import main

@@ -227,5 +227,7 @@ def test_cli_trains_validates_and_predicts_a_v10_graph(tiny_v10, tmp_path, capsy
     assert main(["detect", "val", f"model={best}", f"data={data}", "imgsz=64", "batch=4", "device=cpu"]) == 0
     capsys.readouterr()
     assert main(["predict", f"model={best}", f"source={data.parent / 'images' / 'val'}", "imgsz=64", "conf=0.0001",
-                 "device=cpu"]) == 0
-    assert capsys.readouterr().out.startswith("4 frames")
+                 "device=cpu", f"project={tmp_path}", "name=pred"]) == 0
+    lines = capsys.readouterr().out.splitlines()  # the command line logs each frame and saves its drawing, as JAX's
+    assert len(lines) == 5 and lines[-1].startswith("4 frames")
+    assert len(list((tmp_path / "pred").glob("*.jpg"))) == 4
