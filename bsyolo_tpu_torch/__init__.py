@@ -27,6 +27,7 @@ def select_device(device: Optional[Union[str, torch.device]] = None) -> torch.de
     return dev
 
 
-from bsyolo_tpu_torch.model import RTDETR, YOLO  # noqa: E402  (needs select_device above)
+from bsyolo_tpu_torch.model import RTDETR, YOLO, YOLOWorld  # noqa: E402  (needs select_device above)
+from bsyolo_tpu_torch.models.nas import NAS  # noqa: E402
 
-__all__ = ["RTDETR", "YOLO", "__version__", "select_device"]
+__all__ = ["NAS", "RTDETR", "YOLO", "YOLOWorld", "__version__", "select_device"]

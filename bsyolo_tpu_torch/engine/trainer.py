@@ -28,7 +28,9 @@ with ``losses/segment.py`` on the loader's overlap-encoded masks (at
 ``PoseValidator``, an OBB graph with ``losses/obb.py`` on the loader's
 ``rboxes`` and ``OBBValidator``, an RT-DETR graph (an RTDETRDecoder head) with
 ``losses/detr.py`` (items cls, bbox, giou), its labels fed into the graph for the
-denoising queries, and ``DetectionValidator``. ``amp`` builds their bf16 graph as it builds
+denoising queries, and ``DetectionValidator``. A YOLO-World graph trains against the text of the
+data's class names (``utils/text_embed.py world_text``), bound to the graph and written into every
+checkpoint as ``txt_feats``, as the JAX trainer does. ``amp`` builds their bf16 graph as it builds
 Detect's; ``assigner_bf16`` acts on the detection loss only, as in the JAX
 package (the task losses rank in float32). Classify graphs train with
 ``engine/classify.py ClassificationTrainer``.
@@ -57,11 +59,12 @@ from bsyolo_tpu_torch.engine.optim import OptimConfig, resolve_auto
 from bsyolo_tpu_torch.engine.train_step import StepConfig, init_train_state, make_train_step, task_criterion
 from bsyolo_tpu_torch.engine.validator import DetectionValidator, OBBValidator, PoseValidator, SegmentationValidator
 from bsyolo_tpu_torch.losses import DetectionLossConfig
-from bsyolo_tpu_torch.nn.model import build_model
+from bsyolo_tpu_torch.nn.model import bind_text, build_model
 from bsyolo_tpu_torch.nn.parser import load_model_yaml, parse_model_yaml
 from bsyolo_tpu_torch.utils import LOGGER
 from bsyolo_tpu_torch.utils.callbacks import EarlyStopping, default_callbacks
 from bsyolo_tpu_torch.utils.ckpt import load_checkpoint, load_weights, save_checkpoint, train_state_from_payload
+from bsyolo_tpu_torch.utils.text_embed import world_text
 from bsyolo_tpu_torch.utils.weights import _tree_to_port, jax_paths, load_reference_state_dict, state_dict_from_jax
 
 
@@ -105,8 +108,10 @@ def val_batches(loader, device):
 class DetectionTrainer:
     """Train a detect, segment, pose or OBB graph from a model YAML and a dataset YAML."""
 
-    def __init__(self, overrides: Optional[Dict] = None, callbacks=None):
+    def __init__(self, overrides: Optional[Dict] = None, callbacks=None, text_embeddings=None):
         self.args = get_cfg(overrides=overrides or {})
+        self.text_embeddings = text_embeddings  # a YOLO-World graph's text source (world_text)
+        self.txt_feats = None
         refuse_unported(self.args)
         self.device = select_device(self.args.device)
         self.save_dir = Path(self.args.project or "runs/detect") / (self.args.name or "train")
@@ -138,6 +143,10 @@ class DetectionTrainer:
         dtype = torch.bfloat16 if args.amp else torch.float32
         self.model = build_model(self.spec, self.device, args.seed, dtype=dtype)
         self.paths = jax_paths(self.model)
+        if self.spec.world:
+            names = [str(v) for v in (data.get("names") or {}).values()] or [str(i) for i in range(data["nc"])]
+            self.txt_feats = world_text(names, self.text_embeddings)
+            bind_text(self.model, self.txt_feats)
         if isinstance(args.pretrained, str) and args.pretrained.lower() not in ("true", "false", ""):
             self._load_pretrained(args.pretrained)
 
@@ -247,7 +256,7 @@ class DetectionTrainer:
         return {"epoch": epoch, "fitness": fitness, "best_fitness": self.best_fitness,
                 "args": {k: str(v) for k, v in vars(self.args).items()},
                 "names": [str(v) for v in (self.data.get("names") or {}).values()],
-                "task": self.spec.task, "kpt_shape": list(self.spec.kpt_shape)}
+                "task": self.spec.task, "kpt_shape": list(self.spec.kpt_shape), "graph_nc": self.spec.nc}
 
     def train(self):
         self.start_epoch = 0
@@ -315,12 +324,13 @@ class DetectionTrainer:
                         self.best_fitness = fitness
                     meta = self._meta(epoch, fitness)
                     weights = self.save_dir / "weights"
-                    save_checkpoint(weights / "last.ckpt", self.state, self.paths, meta, full=True)
+                    extras = None if self.txt_feats is None else {"txt_feats": self.txt_feats}
+                    save_checkpoint(weights / "last.ckpt", self.state, self.paths, meta, full=True, extras=extras)
                     if improved:
-                        save_checkpoint(weights / "best.ckpt", self.state, self.paths, meta)
+                        save_checkpoint(weights / "best.ckpt", self.state, self.paths, meta, extras=extras)
                     sp = int(getattr(args, "save_period", -1) or -1)
                     if sp > 0 and epoch % sp == 0:
-                        save_checkpoint(weights / f"epoch{epoch}.ckpt", self.state, self.paths, meta)
+                        save_checkpoint(weights / f"epoch{epoch}.ckpt", self.state, self.paths, meta, extras=extras)
                     self.callbacks.run("on_model_save", self)
                 if self.stopper(epoch, fitness):
                     LOGGER.info(f"early stopping at epoch {epoch} (no improvement for {self.stopper.patience} epochs)")

@@ -34,6 +34,10 @@
     m.train(data="car.yaml")                   # train() runs the end-to-end loss (one-to-many + one-to-one)
     m = RTDETR("rtdetr-l.yaml")                # RT-DETR (also YOLO("rtdetr-x.yaml"), "rtdetr-resnet50.yaml",
     m.train(data="car.yaml")                   # "yolov8-rtdetr.yaml"): NMS-free, the Hungarian-matched DETR loss
+    m = YOLOWorld("yolov8s-world.yaml")        # open vocabulary (also "yolov8s-worldv2.yaml"): classes are text rows
+    m.set_classes(["person", "bus"])           # hashed n-gram text (not CLIP), or embeddings=(K, 512) | {name: vec} | .npz
+    m.train(data="car.yaml", text_embeddings=None)  # the data's class names as text; txt_feats go into each .ckpt
+    m = NAS("yolo_nas_s")                      # YOLO-NAS (bsyolo_tpu_torch.models.nas): a YOLO facade, 17-bin head
 
 ``half=True`` runs a bfloat16 copy of the graph (``YOLO.half_graph``, built by
 ``nn.model.cast_inference_graph``: convolution weights cast once and kept until
@@ -59,21 +63,24 @@ groups 1, Proto's and Classify's included):
 from __future__ import annotations
 
 import copy
+import dataclasses
 import os
 import sys
 from pathlib import Path
 from typing import Dict, Optional, Union
 
+import numpy as np
 import torch
 
 from bsyolo_tpu_torch import select_device
 from bsyolo_tpu_torch.cfg import model_yaml_path
 from bsyolo_tpu_torch.engine.predictor import DetectionPredictor
-from bsyolo_tpu_torch.nn.model import build_model, cast_inference_graph, count_params
+from bsyolo_tpu_torch.nn.model import bind_text, build_model, cast_inference_graph, count_params
 from bsyolo_tpu_torch.nn.modules import Conv, cast_convs
 from bsyolo_tpu_torch.nn.parser import HEAD_TASKS, load_model_yaml, parse_model_yaml
 from bsyolo_tpu_torch.utils import CV2_DRAWING, CV2_VIDEO, LOGGER, import_cv2
 from bsyolo_tpu_torch.utils.ckpt import load_checkpoint, load_weights, save_checkpoint
+from bsyolo_tpu_torch.utils.text_embed import world_text
 from bsyolo_tpu_torch.utils.weights import jax_paths, load_reference_state_dict
 
 _PREDICT_ARGS = {"conf", "iou", "imgsz", "batch", "max_det", "classes", "agnostic_nms", "augment", "verbose", "half",
@@ -121,6 +128,7 @@ class YOLO:
         self._half = None  # (key, bf16 inference graph) of half_graph
         self._tracker = None  # the tracker that track(persist=True) goes on with
         self.predictor = None  # the last predict()'s DetectionPredictor (its reader_wait and wall seconds)
+        self.txt_feats = None  # a YOLO-World graph's bound text, (1, K, 512) float32 (None: the placeholder)
         if suffix == ".ckpt":
             self._load_ckpt(self.model_path, seed)
         else:
@@ -148,16 +156,27 @@ class YOLO:
     def _load_ckpt(self, path: str, seed: int = 0):
         """A ``.ckpt`` of either package: the graph of ``meta.args.model`` with the class count and
         names the checkpoint was trained with (and the port's ``kpt_shape``), its EMA weights (else
-        params) and BatchNorm statistics; a ``task`` recorded in the meta must be the graph's."""
+        params) and BatchNorm statistics; a ``task`` recorded in the meta must be the graph's. The graph
+        is built at the meta's ``graph_nc`` where it has one (the port's), else at the names' count. A
+        YOLO-World checkpoint's ``txt_feats`` are bound to the graph, the text it was trained against, and
+        its K rows are the classes (after ``set_classes`` K need not be the graph's class count)."""
         payload, meta = load_checkpoint(path)
         args = meta.get("args", {})
         names = meta.get("names") or None  # the trainer's data names; their count is the head's nc
-        self._new(args.get("model", "yolo11n.yaml"), seed, nc=len(names) if names else None, names=names,
+        tf = payload.get("txt_feats")
+        if tf is not None and not names:
+            names = [str(i) for i in range(np.asarray(tf).shape[1])]
+        nc = meta.get("graph_nc") or (len(names) if names else None)
+        self._new(args.get("model", "yolo11n.yaml"), seed, nc=nc, names=names if names and len(names) == nc else None,
                   kpt_shape=meta.get("kpt_shape"))
         if meta.get("task", self.spec.task) != self.spec.task:
             raise ValueError(f"{path} was trained as a {meta['task']} model, but its graph "
                              f"{args.get('model')} has a {self.spec.head.module} head")
         load_weights(payload, self.model)
+        if tf is not None:
+            self.txt_feats = np.asarray(tf, np.float32)
+            bind_text(self.model, self.txt_feats)
+            self.spec = dataclasses.replace(self.spec, nc=len(names), names=tuple(names))
         if str(args.get("imgsz", "")).isdigit():
             self._img_size = int(args["imgsz"])
         self.ckpt_meta = meta
@@ -176,10 +195,13 @@ class YOLO:
         """The bf16 inference graph that predict and val ``half=True`` run (shared, so the two
         cannot diverge), e.g. for ``predict_tiled(m.half_graph(), m.spec, frame)``: built once,
         and again when a convolution weight (by storage and version) or the int8 mode changes;
-        the graph runs eagerly, so no input size enters the key."""
+        the graph runs eagerly, so no input size enters the key; a YOLO-World graph's copy shares its text,
+        and a new text (``set_classes``) makes a new copy."""
         convs = cast_convs(self.model)
+        text = getattr(self.model, "txt_feats", None)
         key = (id(self.model), tuple((p.data_ptr(), p._version) for m in convs for p in m.parameters()),
-               tuple((m.int8, m.act_absmax) for m in self.model.modules() if isinstance(m, Conv)))
+               tuple((m.int8, m.act_absmax) for m in self.model.modules() if isinstance(m, Conv)),
+               None if text is None else (text.data_ptr(), text._version))
         if self._half is None or self._half[0] != key:
             self._half = (key, cast_inference_graph(self.model))
         return self._half[1]
@@ -192,7 +214,9 @@ class YOLO:
     def reset_weights(self) -> "YOLO":
         """Draw the weights again from the seed this facade was built with (the graph rebuilt from its
         spec, float32) and drop the cached predictor and bf16 graph. Returns ``self``."""
-        self.model = build_model(self.spec, self._device, self._seed)
+        self.model = build_model(self.model.spec, self._device, self._seed)
+        if self.txt_feats is not None:
+            bind_text(self.model, self.txt_feats)
         self._half = self.predictor = None
         return self
 
@@ -361,16 +385,14 @@ class YOLO:
         folder-per-class root; overrides as in ``cfg/default.yaml``; the graph is this model's unless
         ``model=`` names another), on this model's device unless ``device=`` names another; then adopt
         the trained EMA weights and the trainer's graph (the bf16 graph under ``amp=True``, the
-        default). Returns the last validation's metrics."""
-        from bsyolo_tpu_torch.engine.classify import ClassificationTrainer
-        from bsyolo_tpu_torch.engine.trainer import DetectionTrainer
-
+        default). A YOLO-World graph trains against the text of the data's class names. Returns the
+        last validation's metrics."""
         overrides = dict(kwargs)
         overrides.setdefault("model", self.model_path)
         overrides.setdefault("device", str(self._device))
-        trainer_cls = ClassificationTrainer if self.task == "classify" else DetectionTrainer
-        self.trainer = trainer = trainer_cls(overrides=overrides, callbacks=self._callbacks)
+        self.trainer = trainer = self._trainer(overrides)
         self.metrics = trainer.train()
+        self.txt_feats = getattr(trainer, "txt_feats", None)
         # a copy of the trained graph with the EMA weights and the live BatchNorm statistics; the
         # trainer's state keeps its own parameters
         self.spec, self.model, self._device = trainer.spec, copy.deepcopy(trainer.model).eval(), trainer.device
@@ -379,6 +401,14 @@ class YOLO:
                 p.copy_(trainer.state.ema_params[name])
         self._img_size = trainer.args.imgsz
         return self.metrics
+
+    def _trainer(self, overrides: Dict):
+        """The trainer that ``train`` runs."""
+        from bsyolo_tpu_torch.engine.classify import ClassificationTrainer
+        from bsyolo_tpu_torch.engine.trainer import DetectionTrainer
+
+        trainer_cls = ClassificationTrainer if self.task == "classify" else DetectionTrainer
+        return trainer_cls(overrides=overrides, callbacks=self._callbacks)
 
     def val(self, data: Optional[str] = None, batch: int = 16, imgsz: Optional[int] = None, **kwargs):
         """Metrics of this model on ``data``'s ``split`` (val by default), letterboxed to ``imgsz``
@@ -457,8 +487,9 @@ class YOLO:
         meta = {"args": {"model": self.model_path if Path(self.model_path).suffix == ".yaml" else
                          (self.ckpt_meta or {}).get("args", {}).get("model", "yolo11n.yaml")},
                 "epoch": -1, "fitness": 0.0, "names": [str(n) for n in self.spec.names], "task": self.task,
-                "kpt_shape": list(self.spec.kpt_shape)}
-        save_checkpoint(path, init_train_state(self.model), jax_paths(self.model), meta)
+                "kpt_shape": list(self.spec.kpt_shape), "graph_nc": self.model.spec.nc}
+        extras = None if self.txt_feats is None else {"txt_feats": np.asarray(self.txt_feats, np.float32)}
+        save_checkpoint(path, init_train_state(self.model), jax_paths(self.model), meta, extras=extras)
         return path
 
     # --- callbacks ----------------------------------------------------------------------------------
@@ -510,3 +541,47 @@ class RTDETR(YOLO):
     def __init__(self, model: Union[str, Path] = "rtdetr-l.yaml", task: Optional[str] = None,
                  device: Optional[Union[str, torch.device]] = None, seed: int = 0):
         super().__init__(model, task or "detect", device=device, seed=seed)
+
+
+class YOLOWorld(YOLO):
+    """The open-vocabulary YOLO-World facade: the classes are rows of text embeddings, not a fixed head.
+
+        m = YOLOWorld("yolov8s-world.yaml")
+        m.set_classes(["person", "bus"], embeddings=E)   # E: (2, 512); without it, hashed n-gram text
+        results = m.predict(frames)
+
+    CLIP is not bundled: pass CLIP ViT-B/32 embeddings (an array, a ``{name: vector}`` dict or a saved
+    ``.npz`` table), or take the deterministic hashed n-gram vectors of ``utils/text_embed.py``, which drive
+    the whole path but carry no visual meaning. Without ``set_classes`` the graph reads its placeholder text,
+    as the JAX package's does. The text is the graph's ``txt_feats`` buffer (``nn.model.bind_text``), so
+    predict, val, ``half`` and int8 all see it; ``save`` writes it into the checkpoint.
+    """
+
+    def __init__(self, model: Union[str, Path] = "yolov8s-world.yaml", task: Optional[str] = None,
+                 device: Optional[Union[str, torch.device]] = None, seed: int = 0):
+        super().__init__(model, task or "detect", device=device, seed=seed)
+
+    _text_embeddings = None  # train()'s text source, for _trainer
+
+    def train(self, text_embeddings=None, **kwargs):
+        """``YOLO.train`` against the text of the data's class names: ``text_embeddings`` a (K, 512) array or
+        list, a ``{name: vector}`` dict or a ``.npz`` table (looked up, "/" synonyms averaged), else the hashed
+        n-gram vectors of each name's "/" synonyms, averaged (``utils/text_embed.py world_text``)."""
+        self._text_embeddings = text_embeddings
+        return super().train(**kwargs)
+
+    def _trainer(self, overrides: Dict):
+        from bsyolo_tpu_torch.engine.trainer import DetectionTrainer
+
+        return DetectionTrainer(overrides=overrides, callbacks=self._callbacks, text_embeddings=self._text_embeddings)
+
+    def set_classes(self, names, embeddings=None) -> None:
+        """Bind the classes ``names`` to text rows: ``embeddings`` a (K, E) array, list or tensor, a
+        ``{name: vector}`` dict or a ``.npz`` table (names looked up, "/" synonyms averaged), else the hashed
+        n-gram vectors of the whole names, with a warning (``utils/text_embed.py world_text``). Rows are
+        L2-normalized; the names and class count follow, and the next predict reads the new text."""
+        names = [str(n) for n in names]
+        self.txt_feats = world_text(names, embeddings, synonyms=False)
+        bind_text(self.model, self.txt_feats)
+        self.spec = dataclasses.replace(self.spec, nc=len(names), names=tuple(names))
+        self.predictor = None

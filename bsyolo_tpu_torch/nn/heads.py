@@ -14,7 +14,10 @@ which have no C3k2) has two 3x3 convs for its class branch in place of the
 depthwise-separable stacks. ``v10Detect`` (YOLOv10) carries two Detect
 branches, one-to-many (``cv2``/``cv3``) and one-to-one (``one2one_cv2``/
 ``one2one_cv3``, fed the features detached); ``postprocess_e2e`` selects the
-one-to-one head's detections without NMS.
+one-to-one head's detections without NMS. ``WorldDetect`` (YOLO-World) keeps
+Detect's box branch and scores an embedding branch against the text rows with
+a contrastive head (``cv4``): K class logits per anchor, K the text's row count
+at run time.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ import torch
 import torch.nn as nn
 
 from bsyolo_tpu_torch.kernels.decode import decode_xywh
-from bsyolo_tpu_torch.nn.modules import Conv, Conv2d, ConvTranspose2d, DWConv, Linear, dfl_decode
+from bsyolo_tpu_torch.nn.modules import (BNContrastiveHead, ContrastiveHead, Conv, Conv2d, ConvTranspose2d, DWConv,
+                                         Linear, dfl_decode)
 from bsyolo_tpu_torch.ops.anchors import dist2rbox, make_anchors
 from bsyolo_tpu_torch.ops.boxes import xywh2xyxy
 
@@ -142,6 +146,34 @@ class OBB(Detect):
     def forward(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         det = super().forward(feats)
         return [torch.cat([d, self.cv4[i](x)], 1) for i, (d, x) in enumerate(zip(det, feats))]
+
+
+class WorldDetect(nn.Module):
+    """Open-vocabulary head: Detect's box branch (``cv2``), an embedding branch per level (two 3x3 convs, a 1x1
+    conv with a bias to ``embed`` channels, ``cv3``) and a contrastive head (``cv4``; BatchNorm on the image side
+    with ``with_bn``) scoring it against the text (B, K, embed). Levels (B, 4 * reg_max + K, H, W) in the
+    graph's compute dtype; the box bias starts at 1.0."""
+
+    def __init__(self, nc: int, ch: Tuple[int, ...], strides: Tuple[int, ...], embed: int = 512,
+                 with_bn: bool = False, reg_max: int = 16):
+        super().__init__()
+        self.nc, self.reg_max, self.strides = nc, reg_max, tuple(strides)
+        c3 = max(ch[0], min(nc, 100))
+        self.cv2 = _box_branch(ch, reg_max)
+        self.cv3 = nn.ModuleList(nn.Sequential(Conv(x, c3, 3), Conv(c3, c3, 3), Conv2d(c3, embed, 1)) for x in ch)
+        self.cv4 = nn.ModuleList(BNContrastiveHead(embed) if with_bn else ContrastiveHead() for _ in ch)
+
+    def init_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            for box in self.cv2:
+                box[-1].bias.fill_(1.0)
+
+    def forward(self, feats: Sequence[torch.Tensor], text: torch.Tensor) -> List[torch.Tensor]:
+        out = []
+        for i, x in enumerate(feats):
+            box = self.cv2[i](x)
+            out.append(torch.cat([box, self.cv4[i](self.cv3[i](x), text).to(box.dtype)], 1))
+        return out
 
 
 class v10Detect(nn.Module):

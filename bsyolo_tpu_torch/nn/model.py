@@ -4,6 +4,11 @@
 outputs the save-list names for later layers. Its layers live in
 ``self.model``, an ``nn.ModuleList``, so parameter keys read
 ``model.{i}.…`` like the reference torch graph.
+
+A YOLO-World graph carries its text, (1, K, 512), as the non-persistent
+buffer ``txt_feats`` (``bind_text``; the JAX package's ``TextConditioned``
+wrapper): it is not in the ``state_dict``, every engine that runs a graph
+runs it with its text, and ``cast_inference_graph``'s copy shares it.
 """
 
 from __future__ import annotations
@@ -12,16 +17,19 @@ import copy
 import itertools
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from bsyolo_tpu_torch.nn import modules as M
+from bsyolo_tpu_torch.nn import modules_nas as NAS
 from bsyolo_tpu_torch.nn import transformer as T
-from bsyolo_tpu_torch.nn.heads import OBB, Classify, Detect, Pose, Segment, v10Detect
-from bsyolo_tpu_torch.nn.parser import LayerSpec, ModelSpec
+from bsyolo_tpu_torch.nn.heads import OBB, Classify, Detect, Pose, Segment, WorldDetect, v10Detect
+from bsyolo_tpu_torch.nn.parser import TEXT_MODULES, LayerSpec, ModelSpec
 
 
-def _build_layer(spec: LayerSpec, strides, dropout: float = 0.0) -> nn.Module:
+def _build_layer(spec: LayerSpec, strides, dropout: float = 0.0, in_ch: Sequence[int] = ()) -> nn.Module:
+    """The module of layer ``spec``; ``in_ch`` are the widths of its inputs (the NAS merges take several)."""
     m, a, c1 = spec.module, spec.args, spec.c1
 
     def opt(i, default):
@@ -116,6 +124,24 @@ def _build_layer(spec: LayerSpec, strides, dropout: float = 0.0) -> nn.Module:
         return v10Detect(a[0], a[1], strides)
     if m == "Classify":
         return Classify(c1, a[0], dropout)
+    if m == "C2fAttn":  # (c2, n, ec, nh)
+        return M.C2fAttn(c1, a[0], a[1], a[2], a[3])
+    if m == "ImagePoolingAttn":  # (ec, in_ch)
+        return M.ImagePoolingAttn(a[0], tuple(a[1]))
+    if m == "WorldDetect":  # (nc, embed, with_bn, in_ch, legacy)
+        return WorldDetect(a[0], tuple(a[3]), strides, a[1], a[2])
+    if m == "Index":
+        return M.Index()
+    if m == "YoloNASStem":
+        return NAS.YoloNASStem(c1, a[0])
+    if m == "YoloNASStage":  # (c2, n, hidden, concat_intermediates)
+        return NAS.YoloNASStage(c1, a[0], a[1], a[2], opt(3, False))
+    if m == "NASUpMerge":  # (c2, n, hidden) on (pre, skip1, skip2)
+        return NAS.NASUpMerge(tuple(in_ch), a[0], a[1], a[2])
+    if m == "NASDown":  # (c2, n, hidden) on (x, skip)
+        return NAS.NASDown(tuple(in_ch), a[0], a[1], a[2])
+    if m == "NASDetect":  # (nc, inter, in_ch)
+        return NAS.NASDetect(a[0], tuple(a[-1]), strides, tuple(a[1]) if len(a) > 2 else (64, 128, 256))
     raise NotImplementedError(f"module {m} has no layer constructor in DetectionGraph")
 
 
@@ -135,22 +161,42 @@ class DetectionGraph(nn.Module):
             if layer.n > 1:  # plain repeated modules become a Sequential, children 0..n-1
                 layers.append(nn.Sequential(*(_build_layer(layer, spec.head_strides) for _ in range(layer.n))))
             else:
-                layers.append(_build_layer(layer, spec.head_strides, spec.dropout))
+                in_ch = tuple(spec.layers[layer.i - 1 if j == -1 else j].c2 for j in layer.f) if layer.i else ()
+                layers.append(_build_layer(layer, spec.head_strides, spec.dropout, in_ch))
         self.model = nn.ModuleList(layers)
         M.set_activation(self, spec.act)
+        self.world = spec.world
+        if self.world:  # the JAX graph's placeholder text: not a parameter, replaced by bind_text
+            placeholder = np.random.default_rng(0).normal(size=(1, spec.nc, 512)).astype(np.float32)
+            self.register_buffer("txt_feats", torch.from_numpy(placeholder), persistent=False)
 
     def forward(self, x: torch.Tensor, embed: Sequence[int] = (), targets: Optional[Dict[str, torch.Tensor]] = None):
         """The head's list of per-level maps; with ``embed`` (layer indices), the global-average-pooled
         outputs of those layers concatenated over channels, (B, C1 + C2 + ...), the walk stopping at the
         last of them (``bsyolo_tpu/nn/model.py`` embed). ``targets`` (the padded labels ``cls``,
         ``bboxes``, ``mask``) go to an RTDETRDecoder head, whose train mode builds denoising queries
-        from them."""
+        from them. A YOLO-World graph reads its ``txt_feats`` (B or 1, K, 512; ``bind_text``), in the
+        dtype of the map that meets it first: C2fAttn takes the running text, ImagePoolingAttn
+        replaces it, WorldDetect takes the text as it came in."""
         saved: Dict[int, torch.Tensor] = {}
         save = set(self.spec.save)
         pooled: List[torch.Tensor] = []
         last = max(embed) if embed else -1
+        txt = ori_txt = None
+        if self.world:
+            txt = self.txt_feats.expand(x.shape[0], -1, -1) if self.txt_feats.shape[0] == 1 else self.txt_feats
         for layer, m in zip(self.spec.layers, self.model):
-            if layer.module == "RTDETRDecoder":
+            if layer.module in TEXT_MODULES:
+                if ori_txt is None:  # the JAX graph casts the text to its compute dtype once
+                    txt = ori_txt = txt.to(x.dtype)
+                feats = [x if j == -1 else saved[j] for j in layer.f]
+                if layer.module == "C2fAttn":
+                    x = m(feats[0], txt)
+                elif layer.module == "ImagePoolingAttn":
+                    x = txt = m(feats, txt)
+                else:
+                    x = m(feats, ori_txt)
+            elif layer.module == "RTDETRDecoder":
                 x = m([x if j == -1 else saved[j] for j in layer.f], targets=targets)
             elif len(layer.f) > 1:
                 x = m([x if j == -1 else saved[j] for j in layer.f])
@@ -163,6 +209,16 @@ class DetectionGraph(nn.Module):
                 if layer.i == last:
                     return torch.cat(pooled, 1)
         return x
+
+
+def bind_text(model: DetectionGraph, text) -> DetectionGraph:
+    """Bind a YOLO-World graph to ``text``, (K, E) or (1, K, E) rows, as its ``txt_feats`` (float32, on the
+    graph's device), the port's counterpart of the JAX package's ``TextConditioned``; returns ``model``."""
+    if not getattr(model, "world", False):
+        raise TypeError("bind_text takes a YOLO-World graph (C2fAttn, ImagePoolingAttn or WorldDetect layers)")
+    t = torch.as_tensor(np.asarray(text, np.float32) if not torch.is_tensor(text) else text, dtype=torch.float32)
+    model.txt_feats = (t[None] if t.ndim == 2 else t).to(model.txt_feats.device)
+    return model
 
 
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)

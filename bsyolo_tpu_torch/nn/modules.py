@@ -109,6 +109,24 @@ class Linear(_CastConv, nn.Linear):
         return F.linear(x, w, b)
 
 
+LN_EPS = 1e-6  # flax nn.LayerNorm's default
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm``: epsilon 1e-6, the fast variance E[x^2] - E[x]^2 clipped at 0, computed in
+    (at least) float32 and returned in the input's dtype."""
+
+    def __init__(self, c: int):
+        super().__init__(c, eps=LN_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = at_least_f32(x)
+        mean = xf.mean(-1, keepdim=True)
+        var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_(min=0)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(x.dtype)
+
+
 def cast_convs(model: nn.Module):
     """Every convolution and linear layer of ``model`` that takes a compute dtype."""
     return [m for m in model.modules() if isinstance(m, _CastConv)]
@@ -996,3 +1014,122 @@ class RepC3(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.cv3(self.m(self.cv1(x)) + self.cv2(x))
+
+
+# --- blocks of the YOLO-World graphs (text-guided attention and the contrastive heads) ------------------------
+
+
+class Index(nn.Module):
+    """The last of its inputs, unchanged (the JAX graph's ``Index`` layer)."""
+
+    def forward(self, xs):
+        return xs[-1] if isinstance(xs, (list, tuple)) else xs
+
+
+def _unit_rows(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``t`` over its L2 norm along ``dim`` (the norm in at least float32, plus 1e-12), in at least float32."""
+    return t / (torch.linalg.vector_norm(at_least_f32(t), dim=dim, keepdim=True) + 1e-12)
+
+
+class MaxSigmoidAttnBlock(nn.Module):
+    """Text-guided max-sigmoid attention: each of ``nh`` heads scales a 3x3 projection of the map by the sigmoid
+    of the largest dot product between the pixel's embedding and any text row (over sqrt(c2 / nh), plus a bias
+    per head). The dot products are float32 and the gate returns to the map's dtype, as in the JAX block."""
+
+    def __init__(self, c1: int, c2: int, nh: int = 1, ec: int = 128, gc: int = 512):
+        super().__init__()
+        self.nh, self.hc = nh, c2 // nh
+        self.ec = Conv(c1, ec, 1, act=False) if c1 != ec else None
+        self.gl = Linear(gc, ec)
+        self.bias = nn.Parameter(torch.zeros(nh))
+        self.proj_conv = Conv(c1, c2, 3, 1, act=False)
+
+    def forward(self, x: torch.Tensor, guide: torch.Tensor) -> torch.Tensor:
+        B, _, H, W = x.shape
+        embed = self.ec(x) if self.ec is not None else x
+        g = self.gl(guide)  # (B, K, ec)
+        ec = g.shape[-1]
+        g = g.reshape(B, -1, self.nh, ec // self.nh)
+        e = embed.reshape(B, self.nh, ec // self.nh, H, W)
+        aw = torch.einsum("bmchw,bnmc->bmhwn", at_least_f32(e), at_least_f32(g)).amax(-1) / (self.hc ** 0.5)
+        aw = torch.sigmoid(aw + self.bias[None, :, None, None]).to(x.dtype)  # (B, nh, H, W)
+        y = self.proj_conv(x)
+        return (y.view(B, self.nh, self.hc, H, W) * aw[:, :, None]).view(B, -1, H, W)
+
+
+class C2fAttn(nn.Module):
+    """C2f whose bottleneck outputs are followed by a ``MaxSigmoidAttnBlock`` on the last of them, guided by
+    the text; everything concatenated into a 1x1 conv."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, ec: int = 128, nh: int = 1, gc: int = 512,
+                 shortcut: bool = False):
+        super().__init__()
+        self.c = int(c2 * 0.5)
+        self.cv1 = Conv(c1, 2 * self.c, 1, 1)
+        self.cv2 = Conv((3 + n) * self.c, c2, 1)
+        self.m = nn.ModuleList(Bottleneck(self.c, self.c, shortcut, k=(3, 3), e=1.0) for _ in range(n))
+        self.attn = MaxSigmoidAttnBlock(self.c, self.c, nh, ec, gc)
+
+    def forward(self, x: torch.Tensor, guide: torch.Tensor) -> torch.Tensor:
+        ys = list(self.cv1(x).chunk(2, 1))
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        ys.append(self.attn(ys[-1], guide))
+        return self.cv2(torch.cat(ys, 1))
+
+
+class ImagePoolingAttn(nn.Module):
+    """The text attends over the image: each level projected to ``ec`` channels (a 1x1 conv with a bias) and
+    max-pooled to k x k tokens; queries from the text, keys and values from the tokens, each a LayerNorm and a
+    linear layer; ``nh`` heads whose logits and softmax are float32; projected back to the text's width and
+    added to the text. Returns the new text (B, K, ct)."""
+
+    def __init__(self, ec: int = 256, ch: Tuple[int, ...] = (), ct: int = 512, nh: int = 8, k: int = 3):
+        super().__init__()
+        self.ec, self.nh, self.k = ec, nh, k
+        self.query = nn.Sequential(LayerNorm(ct), Linear(ct, ec))
+        self.key = nn.Sequential(LayerNorm(ec), Linear(ec, ec))
+        self.value = nn.Sequential(LayerNorm(ec), Linear(ec, ec))
+        self.proj = Linear(ec, ct)
+        self.projections = nn.ModuleList(Conv2d(c, ec, 1, bias=True) for c in ch)
+
+    def forward(self, feats, text: torch.Tensor) -> torch.Tensor:
+        B, hc = feats[0].shape[0], self.ec // self.nh
+        # F.adaptive_max_pool2d's region i spans [floor(i H / k), ceil((i + 1) H / k)), as the JAX package's
+        tokens = torch.cat([F.adaptive_max_pool2d(p(f), self.k).flatten(2).transpose(1, 2)
+                            for p, f in zip(self.projections, feats)], 1)  # (B, levels * k * k, ec)
+        q = self.query(text).view(B, -1, self.nh, hc)
+        k = self.key(tokens).view(B, -1, self.nh, hc)
+        v = self.value(tokens).view(B, -1, self.nh, hc)
+        aw = torch.einsum("bnmc,bkmc->bmnk", at_least_f32(q), at_least_f32(k)) / (hc ** 0.5)
+        aw = aw.softmax(-1).to(v.dtype)
+        out = torch.einsum("bmnk,bkmc->bnmc", aw, v).reshape(B, -1, self.ec)
+        return self.proj(out) + text
+
+
+class ContrastiveHead(nn.Module):
+    """Region-text logits: the cosine of each pixel's embedding with each text row (both L2-normalized in float32)
+    times exp(``logit_scale``), plus ``bias``; (B, E, H, W) and (B, K, E) -> (B, K, H, W) float32."""
+
+    def __init__(self):
+        super().__init__()
+        self.bias = nn.Parameter(torch.full((1,), -10.0))
+        self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
+
+    def forward(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        sim = torch.einsum("bchw,bkc->bkhw", _unit_rows(x, 1), _unit_rows(w, -1))
+        return sim * self.logit_scale.exp() + self.bias
+
+
+class BNContrastiveHead(nn.Module):
+    """``ContrastiveHead`` with BatchNorm on the image side in place of its L2 norm; ``logit_scale`` starts at -1."""
+
+    def __init__(self, embed_dims: int):
+        super().__init__()
+        self.norm = BatchNorm2d(embed_dims, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bias = nn.Parameter(torch.full((1,), -10.0))
+        self.logit_scale = nn.Parameter(torch.tensor(-1.0))
+
+    def forward(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        sim = torch.einsum("bchw,bkc->bkhw", at_least_f32(self.norm(x)), _unit_rows(w, -1))
+        return sim * self.logit_scale.exp() + self.bias

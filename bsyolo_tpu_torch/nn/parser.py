@@ -6,11 +6,13 @@ into a static ``ModelSpec``: channel arithmetic, depth/width scaling, stride
 propagation and the graph-wide ``activation:`` happen here. The modules of the
 BS-YOLO graphs (``cfg/models/11``), of the YOLO v3, v5, v6, v8, v9 and v10
 graphs (``cfg/models/v3`` to ``v10``) and of the RT-DETR graphs
-(``cfg/models/rt-detr``, ``v8/yolov8-rtdetr.yaml``) are accepted, with the
-Detect, Segment, Pose, OBB, Classify, v10Detect and RTDETRDecoder heads; a head
-on a graph without C3k2 is ``legacy`` (its class branch two 3x3 convs). Any
-other module raises ``NotImplementedError`` naming it: the YOLO-World, NAS and
-SAM families are ROADMAP item 13.
+(``cfg/models/rt-detr``, ``v8/yolov8-rtdetr.yaml``), of the YOLO-World graphs
+(``v8/yolov8-world.yaml``, ``v8/yolov8-worldv2.yaml``) and of the YOLO-NAS graphs
+(``cfg/models/nas``) are accepted, with the Detect, Segment, Pose, OBB, Classify,
+v10Detect, RTDETRDecoder, WorldDetect and NASDetect heads; a head on a graph
+without C3k2 is ``legacy`` (its class branch two 3x3 convs). Any other module
+raises ``NotImplementedError`` naming it: SAM, SAM2 and FastSAM are not YAML
+graphs (ROADMAP item 13.4).
 """
 
 from __future__ import annotations
@@ -32,12 +34,11 @@ _CONVLIKE = {"Conv", "DWConv", "Bottleneck", "SPP", "SPPF", "C2PSA", "PSA", "C2"
 _REPEAT = {"C2", "C2f", "C2fCIB", "C3", "C3k2", "C3k2_gai", "C2PSA", "C3Ghost", "RepC3"}
 # the heads the port builds -> the task they serve
 HEAD_TASKS = {"Detect": "detect", "Segment": "segment", "Pose": "pose", "OBB": "obb", "Classify": "classify",
-              "v10Detect": "detect", "RTDETRDecoder": "detect"}
+              "v10Detect": "detect", "RTDETRDecoder": "detect", "WorldDetect": "detect", "NASDetect": "detect"}
 # the heads on a detection trunk of several levels (every head but Classify)
 _LEVEL_HEADS = {"Detect", "Segment", "Pose", "OBB", "v10Detect"}
-# modules of the JAX package's other graph families, which the port does not build yet
-_LATER = {"C2fAttn", "ImagePoolingAttn", "WorldDetect", "YoloNASStem", "YoloNASStage", "NASUpMerge", "NASDown",
-          "NASDetect", "Index"}
+# the modules that read the graph's text (YOLO-World)
+TEXT_MODULES = ("C2fAttn", "ImagePoolingAttn", "WorldDetect")
 
 
 def activation_name(text) -> str:
@@ -90,7 +91,13 @@ class ModelSpec:
 
     @property
     def reg_max(self) -> int:
-        return 16
+        """DFL bins of the head: NASDetect's 17 (YOLO-NAS counts 16 bin edges), every other head's 16."""
+        return 17 if self.head.module == "NASDetect" else 16
+
+    @property
+    def world(self) -> bool:
+        """Whether the graph reads text (C2fAttn, ImagePoolingAttn, WorldDetect): a YOLO-World graph."""
+        return any(layer.module in TEXT_MODULES for layer in self.layers)
 
 
 def load_model_yaml(path) -> dict:
@@ -224,9 +231,33 @@ def parse_model_yaml(d: dict, ch: int = 3, scale: str = "") -> ModelSpec:
             task = HEAD_TASKS[m]
             c2 = 0
             out_stride = 0
-        elif m in _LATER:
-            raise NotImplementedError(f"module '{m}' (layer {i}) belongs to a graph family the port does not build "
-                                      "yet (YOLO-World, NAS: ROADMAP queue 1, item 13)")
+        elif m == "C2fAttn":  # (c2, ec, nh) -> (c2, n, ec, nh); ec and nh scale with the width
+            c2 = make_divisible(min(args[0], max_channels) * width, 8)
+            ec = make_divisible(min(args[1], max_channels // 2) * width, 8)
+            nh = int(max(round(min(args[2], max_channels // 2 // 32)) * width, 1)) if args[2] > 1 else args[2]
+            args = [c2, n_rep, ec, nh]
+            n_rep = 1
+        elif m == "ImagePoolingAttn":  # (ec, in_ch); its output is the text, so the width stays c1
+            args = [args[0] if args else 256, tuple(channels[x] for x in fl)]
+            c2 = c1
+        elif m == "WorldDetect":  # (nc, embed, with_bn, in_ch, legacy)
+            args = [*args, tuple(channels[x] for x in fl), legacy]
+            task = "detect"
+            c2 = 0
+            out_stride = 0
+        elif m == "Index":
+            c2 = channels[fl[-1]]
+        elif m in ("YoloNASStem", "YoloNASStage", "NASDown"):  # (c2, n, hidden[, concat]): unscaled widths
+            c2 = args[0]
+            out_stride = in_stride * 2
+        elif m == "NASUpMerge":  # inputs (pre, skip1, skip2); the output at skip1's stride
+            c2 = args[0]
+            out_stride = in_stride // 2
+        elif m == "NASDetect":  # (nc, inter widths, in_ch)
+            args = [args[0] if args else nc, *args[1:], tuple(channels[x] for x in fl)]
+            task = "detect"
+            c2 = 0
+            out_stride = 0
         else:
             raise NotImplementedError(f"module '{m}' (layer {i}) is not supported by the port's graph parser")
 
@@ -239,7 +270,7 @@ def parse_model_yaml(d: dict, ch: int = 3, scale: str = "") -> ModelSpec:
 
     if layers[-1].module not in HEAD_TASKS:
         raise NotImplementedError(f"graph head {layers[-1].module!r}: the port serves Detect, Segment, Pose, OBB, "
-                                  "Classify, v10Detect and RTDETRDecoder graphs only")
+                                  "Classify, v10Detect, RTDETRDecoder, WorldDetect and NASDetect graphs only")
     names_map = d.get("names") or {}
     class_names = tuple(names_map[k] for k in sorted(names_map)) if names_map else tuple(str(j) for j in range(nc))
     return ModelSpec(

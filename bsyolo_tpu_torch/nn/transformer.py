@@ -5,7 +5,7 @@ Parameters carry the reference torch names (``ma.in_proj_weight``, ``decoder.lay
 ``input_proj.{i}.{j}``, ``denoising_class_embed.weight``), which ``utils/weights.py`` maps onto the
 JAX package's paths. The numerics follow the JAX modules, not stock torch:
 
-- ``LayerNorm`` is flax's: epsilon 1e-6 (torch's default is 1e-5), the variance as E[x^2] - E[x]^2
+- ``LayerNorm`` (``nn/modules.py``) is flax's: epsilon 1e-6 (torch's default is 1e-5), the variance as E[x^2] - E[x]^2
   clipped at 0, statistics in float32;
 - attention projects q, k and v apart with the rows of ``in_proj_weight``, in the input's dtype; its
   logits and softmax are float32, masked positions take -1e9 (not -inf), the weights return to v's dtype;
@@ -35,30 +35,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from bsyolo_tpu_torch.losses.segment import top_k_stable
-from bsyolo_tpu_torch.nn.modules import BN_EPS, BN_MOMENTUM, BatchNorm2d, Conv2d, Linear, at_least_f32
+from bsyolo_tpu_torch.nn.modules import BN_EPS, BN_MOMENTUM, BatchNorm2d, Conv2d, LayerNorm, Linear, at_least_f32
 from bsyolo_tpu_torch.ops.boxes import xywh2xyxy, xyxy2xywh
-
-LN_EPS = 1e-6  # flax nn.LayerNorm's default
-
 
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     x = x.clamp(0.0, 1.0)
     return torch.log(x.clamp(min=eps) / (1 - x).clamp(min=eps))
-
-
-class LayerNorm(nn.LayerNorm):
-    """flax ``nn.LayerNorm``: epsilon 1e-6, the fast variance E[x^2] - E[x]^2 clipped at 0, computed in
-    (at least) float32 and returned in the input's dtype."""
-
-    def __init__(self, c: int):
-        super().__init__(c, eps=LN_EPS)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = at_least_f32(x)
-        mean = xf.mean(-1, keepdim=True)
-        var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_(min=0)
-        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
-        return y.to(x.dtype)
 
 
 class MultiheadAttention(nn.Module):

@@ -20,7 +20,7 @@ import json
 import struct
 from pathlib import Path
 from types import SimpleNamespace
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -237,9 +237,10 @@ def state_payload(state, paths, full: bool = False) -> Dict:
     return payload
 
 
-def save_checkpoint(path, state, paths, meta: Dict, full: bool = False) -> None:
-    """Write ``state`` as a ``.ckpt``; ``full``: with the whole train state, to resume from."""
-    write_checkpoint(path, state_payload(state, paths, full), meta)
+def save_checkpoint(path, state, paths, meta: Dict, full: bool = False, extras: Optional[Dict] = None) -> None:
+    """Write ``state`` as a ``.ckpt``; ``full``: with the whole train state, to resume from; ``extras``: arrays
+    merged into the payload (a YOLO-World graph's ``txt_feats``, as the JAX trainer writes them)."""
+    write_checkpoint(path, {**state_payload(state, paths, full), **(extras or {})}, meta)
 
 
 def train_state_from_payload(train_state: Dict, model):

@@ -14,7 +14,11 @@ dropped, MSCA's SE convs are ``SEn.conv.0``, ELA's channel conv is
 RT-DETR's decoder nests its layers as ``decoder.layers.{i}`` (``decoder_layers_{i}`` in
 JAX), its denoising class table is an embedding's ``weight`` (a bare
 ``denoising_class_embed`` parameter in JAX), a LayerNorm's ``scale`` is its
-``weight``, and attention's ``in_proj_weight`` keeps the torch layout on both sides.
+``weight``, a Dense ``kernel`` (in, out) is a Linear ``weight`` (out, in), and
+attention's ``in_proj_weight`` keeps the torch layout on both sides. YOLO-NAS's
+CSP bottlenecks are ``bottlenecks.{i}.cv1`` (``bottlenecks_{i}_cv1`` in JAX);
+bare parameters (MaxSigmoidAttnBlock's ``bias``, the contrastive heads'
+``bias`` and scalar ``logit_scale``) keep their names.
 """
 
 from __future__ import annotations
@@ -39,6 +43,9 @@ def _translate_component(comp: str) -> Tuple[str, ...]:
     m = re.match(r"^decoder_layers_(\d+)$", comp)
     if m:
         return ("decoder", "layers", m.group(1))
+    m = re.match(r"^bottlenecks_(\d+)_(cv\d)$", comp)
+    if m:
+        return ("bottlenecks", m.group(1), m.group(2))
     m = re.match(r"^SE(\d)$", comp)
     if m:
         return (f"SE{m.group(1)}", "conv", "0")
@@ -266,6 +273,10 @@ def jax_paths(model: torch.nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...]]]:
                 continue
             if c == "decoder" and parents[i + 1 : i + 2] == ["layers"] and type(owner).__name__ == "RTDETRDecoder":
                 path.append("decoder_layers_" + parents[i + 2])
+                i += 3
+                continue
+            if c == "bottlenecks" and type(owner).__name__ == "YoloNASCSPLayer":
+                path.append(f"bottlenecks_{parents[i + 1]}_{parents[i + 2]}")
                 i += 3
                 continue
             if i == 0 and c == "model":  # a layer repeated n times is m{i}/0 ... m{i}/{n-1}

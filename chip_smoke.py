@@ -141,8 +141,8 @@ this checkout; exits non-zero without them. Phases, each of which fails the run 
    of the photos' directory at 640 px, batch 4, through the predictor's
    reader thread, one launch per batch, against the same call on the CPU
    (rows paired as in phase 3), the label and crop files against the
-   detections; then the rate over a directory of the photos 32 times over
-   (64 batches, one launch each): from files through the reader thread,
+   detections; then the rate over a directory of the photos 16 times over
+   (32 batches, one launch each): from files through the reader thread,
    against the same frames decoded beforehand (no decode) and against
    decoding each batch and then running it in one thread (no reader thread),
    in turns, with img/s and the share of the wall time spent waiting on the
@@ -204,7 +204,7 @@ this checkout; exits non-zero without them. Phases, each of which fails the run 
    files the port bundles for them (``yolov3.yaml`` to ``yolov10x.yaml``,
    ``yolo11-stock.yaml``, ``yolo11-tpu.yaml``) built at full width of its
    first scale with drawn weights, one forward of a seeded batch of 2 at
-   256 px on the card and on the CPU, every head map (both branches of
+   128 px on the card and on the CPU, every head map (both branches of
    YOLOv10's head) within 1e-4 of its largest magnitude; (b) yolov8n and
    (c) yolov10n at 640 on 15f's own split of phase 9's frames:
    ``YOLO.train`` with its default amp fitted as 15b fits (mAP50 above
@@ -226,7 +226,7 @@ this checkout; exits non-zero without them. Phases, each of which fails the run 
    query's boxes and logits within 1e-3 of their scale; (b) one AdamW
    train step of rtdetr-l card vs CPU with the same denoising draws (loss
    items within 2e-2, the share of equal Hungarian assignments printed),
-   ``YOLO("rtdetr-l.yaml").train`` with its default amp for 3 epochs on
+   ``YOLO("rtdetr-l.yaml").train`` with its default amp for 2 epochs on
    15f's own split (the loss falling), ``val`` against the CPU's validator
    on the card's decoder outputs and predict rows paired 1.0 with the
    CPU's ``decode_rtdetr`` on them; (c) int8 and int8-half predict of the
@@ -252,9 +252,16 @@ this checkout; exits non-zero without them. Phases, each of which fails the run 
    kernel once per batch throughout.
 
 Phases 10a to 10c run right after phase 6, on the float graph phases 3 to 6
-used; 10d, 10e, 15f, 16 and 17 after phase 9, 11, 12, 13, 14, 15 and 18 last. Each
-phase prints its seconds. Every launch counter is set to 0 just before a path
-is driven and read just after, so each path shows the kernels it went through.
+used; 10d, 10e, 15f, 16, 17, 19 and 11 after phase 9, then 18 last. Phases
+12 to 15 run beside them in a second process on the same card, started
+once phase 2's kernel times are taken (``SIDE_FLAG``): each process keeps
+half the host's threads for its CPU references while both run, the second
+writes its output to a file that the first prints once it has ended, and
+its launches and figures join the first's in the kernels line. So the
+host-clock figures of phases 3 to 19 are taken with the other process
+sharing the host and the card. Each phase prints its seconds. Every launch
+counter is set to 0 just before a path is driven and read just after, so
+each path shows the kernels it went through.
 
 TF32 is off for convolutions and matrix products throughout, so the card and
 the CPU compute the same float32 function (cuDNN would otherwise run float32
@@ -275,6 +282,7 @@ graph (``zoo_graphs``) and phase 17's on rtdetr-l (``detr_graph``).
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import copy
 import hashlib
@@ -793,7 +801,9 @@ def draw_weights(model, seed: int) -> None:
     identity, the head's last convs (a Classify head's linear layer) scaled by
     HEAD_GAIN (the default init leaves every logit at its bias, so every score
     ties); an RT-DETR graph's linear layers and attention weights as the convs,
-    every BatchNorm's and LayerNorm's scale in U(0.5, 1.5)."""
+    every BatchNorm's and LayerNorm's scale in U(0.5, 1.5); a YOLO-World graph's
+    LayerNorms likewise; a NASDetect head's box and class predictions scaled as
+    the Detect family's last convs."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
@@ -816,6 +826,13 @@ def draw_weights(model, seed: int) -> None:
             return
         if hasattr(head, "linear"):  # a Classify head: spread its logits as the Detect family's
             head.linear.weight.mul_(HEAD_GAIN)
+            return
+        for m in model.modules():  # ImagePoolingAttn's LayerNorms
+            if isinstance(m, torch.nn.LayerNorm):
+                m.weight.uniform_(0.5, 1.5, generator=g)
+        if type(head).__name__ == "NASDetect":
+            for conv in (*head.reg_pred, *head.cls_pred):
+                conv.weight.mul_(HEAD_GAIN)
             return
         for branch in (*head.cv2, *head.cv3, *getattr(head, "one2one_cv2", ()), *getattr(head, "one2one_cv3", ())):
             branch[-1].weight.mul_(HEAD_GAIN)
@@ -2658,7 +2675,7 @@ PHOTO_DIGESTS = {
 P12_TRAIN = dict(imgsz=320, epochs=2, batch=8, workers=2, plots=False, seed=3)
 P12_TRAIN_REPEAT = 8  # the train list holds each photo this many times: 8 steps per epoch at batch 8
 P12_PREDICT_BATCH = 4
-P12_STREAM_REPEAT = 32  # the rate's directory holds each photo this many times: 64 batches of 4
+P12_STREAM_REPEAT = 16  # the rate's directory holds each photo this many times: 32 batches of 4
 EMBED_RTOL = 1e-4  # pooled features, card vs CPU (norm of the difference over the CPU's norm), TF32 off
 
 
@@ -3609,8 +3626,11 @@ P15_FIT = dict(optimizer="SGD", lr0=0.02, warmup_epochs=0.0, close_mosaic=0, mos
 # (detect, segment, obb) and pose's after 56
 # steps in one run and none of 96 in another, so a fit stops after the first epoch whose main metric passes
 # P15_STOP (classify, whose trainer has no stopper, runs its epochs). Stopped on the climb (OBB at mAP50 0.62),
-# a bf16 graph's rounding moved the CPU's mAP50 by 0.036: fitted further, scores part and metrics settle
-P15_FITS = {"detect": (16, 8, 30), "segment": (16, 8, 30), "pose": (16, 8, 30), "obb": (8, 4, 40),
+# a bf16 graph's rounding moved the CPU's mAP50 by 0.036: fitted further, scores part and metrics settle.
+# Segment, pose and OBB take twice the copies for half the epochs of their first fits (16 copies and 30 epochs;
+# OBB 8 and 40): as many steps, with a validation, checkpoints and an epoch's start every 16 steps, not 8 (OBB
+# had stopped after 28 epochs of 8 steps)
+P15_FITS = {"detect": (16, 8, 30), "segment": (32, 8, 15), "pose": (32, 8, 15), "obb": (16, 4, 20),
             "classify": (1, 16, 16)}
 P15_STOP = 0.9
 # classify validates on all P14_CLS_NC x (P14_CLS_TRAIN + P14_CLS_VAL) images: on 40 one image is 0.025 of top-1,
@@ -4027,7 +4047,7 @@ P16_GRAPHS = ("yolov3.yaml", "yolov3-tiny.yaml", "yolov3-spp.yaml", "yolov5.yaml
               "yolov9t.yaml", "yolov9s.yaml", "yolov9m.yaml", "yolov9c.yaml", "yolov9e.yaml", "yolov9c-seg.yaml",
               "yolov9e-seg.yaml", "yolov10.yaml", "yolov10n.yaml", "yolov10s.yaml", "yolov10m.yaml", "yolov10b.yaml",
               "yolov10l.yaml", "yolov10x.yaml", "yolo11-stock.yaml", "yolo11-tpu.yaml")
-P16_SIDE, P16_BATCH = 256, 2  # 16a: each graph at its first scale (none for v3 and v9), its YAML's classes
+P16_SIDE, P16_BATCH = 128, 2  # 16a: each graph at its first scale (none for v3 and v9), its YAML's classes
 # 16b, 16c: the detectors of the slice's main path at full width of scale n, on phase 9's data (nc 12), fitted to
 # 15f's own split as 15b fits (the default amp), then predict, val and int8 predict (float32 and bf16 epilogues)
 P16_DETECTORS = ("yolov8n.yaml", "yolov10n.yaml")
@@ -4219,8 +4239,7 @@ def zoo_decode_heads(dev):
     bound; returns ({head: figures} for decode_box, {head: figures} for decode_xywh)."""
     import torch
 
-    from bsyolo_tpu_torch.kernels.decode import (REG_MAX, box_best_cuda, box_best_reference, decode_xywh_cuda,
-                                                 decode_xywh_reference)
+    from bsyolo_tpu_torch.kernels.decode import REG_MAX, decode_xywh_cuda, decode_xywh_reference
 
     x = torch.from_numpy(np.random.default_rng(SEED + 162).integers(0, 256, (4, 3, IMGSZ, IMGSZ), dtype=np.uint8))
     x = x.to(dev).float() / 255.0
@@ -4246,26 +4265,37 @@ def zoo_decode_heads(dev):
             fields = time_against_plain(label, decode_xywh_cuda, decode_xywh_reference, (feats, strides, nc),
                                         bytes_moved, ops)
             xywh_rows[yaml] = dict(channels=no, anchors=a, max_abs_err=err, **fields)
+            if not ok:
+                raise SystemExit(f"the decode kernel disagrees with its plain version on the {label}")
         else:
-            boxes, best, cls = box_best_cuda(feats, strides, nc)
-            want_boxes, want_best, want_cls = box_best_reference(feats, strides, nc)
-            torch.cuda.synchronize()
-            err = (boxes - want_boxes).abs().max().item()
-            best_err = (best - want_best).abs().max().item()
-            ok = (bool(torch.isfinite(boxes).all()) and err <= BOX_ATOL_PX and best_err == 0.0
-                  and torch.equal(cls, want_cls))
-            print(f"decode_box_best on the {label}: A={a}, {no} channels: max|box err| {err:.3g} px (tol "
-                  f"{BOX_ATOL_PX}), max|best err| {best_err:.3g} (tol 0); {'OK' if ok else 'FAIL'}")
-            bytes_moved = b * a * (4 * REG_MAX + nc) * 4 + b * a * (4 + 1 + nc) * 4
-            ops = b * a * (4 * (6 * REG_MAX + 1) + nc + 8)
-            fields = time_against_plain(label, box_best_cuda, box_best_reference, (feats, strides, nc),
-                                        bytes_moved, ops)
-            box_rows[yaml] = dict(channels=no, anchors=a, max_abs_err=err, **fields)
-        if not ok:
-            raise SystemExit(f"the decode kernel disagrees with its plain version on the {label}")
+            box_rows[yaml] = box_head_figures(label, feats, strides, nc)
         del graph, out, feats
         torch.cuda.empty_cache()
     return box_rows, xywh_rows
+
+
+def box_head_figures(label, feats, strides, nc):
+    """decode_box on a real forward's head levels against its plain version (boxes within BOX_ATOL_PX, best logit
+    and class logits equal), then timed beside its bytes bound (time_against_plain); returns its figures."""
+    import torch
+
+    from bsyolo_tpu_torch.kernels.decode import REG_MAX, box_best_cuda, box_best_reference
+
+    b, a, no = feats[0].shape[0], sum(f.shape[2] * f.shape[3] for f in feats), feats[0].shape[1]
+    boxes, best, cls = box_best_cuda(feats, strides, nc)
+    want_boxes, want_best, want_cls = box_best_reference(feats, strides, nc)
+    torch.cuda.synchronize()
+    err = (boxes - want_boxes).abs().max().item()
+    best_err = (best - want_best).abs().max().item()
+    ok = bool(torch.isfinite(boxes).all()) and err <= BOX_ATOL_PX and best_err == 0.0 and torch.equal(cls, want_cls)
+    print(f"decode_box_best on the {label}: A={a}, {no} channels: max|box err| {err:.3g} px (tol {BOX_ATOL_PX}), "
+          f"max|best err| {best_err:.3g} (tol 0); {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"the decode kernel disagrees with its plain version on the {label}")
+    fields = time_against_plain(label, box_best_cuda, box_best_reference, (feats, strides, nc),
+                                b * a * (4 * REG_MAX + nc) * 4 + b * a * (4 + 1 + nc) * 4,
+                                b * a * (4 * (6 * REG_MAX + 1) + nc + 8))
+    return dict(channels=no, anchors=a, max_abs_err=err, **fields)
 
 
 def zoo_path(dev, own, frames, host_frames, root):
@@ -4313,7 +4343,7 @@ P17_STEP_SIDE = 320  # 17b: one train step card vs CPU, rtdetr-l at batch P17_BA
 # forwards apart, and where a label's two best queries cost nearly the same the matchers pick apart; in my first
 # chip run 0.9554 of the assignments were equal and the bbox term moved 4.5e-3 (NVIDIA H100 80GB HBM3, 700 W)
 P17_LOSS_RTOL = 2e-2
-P17_EPOCHS = 3  # 17b: YOLO.train of rtdetr-l with its default amp on 15f's own split (64 images, batch 8)
+P17_EPOCHS = 2  # 17b: YOLO.train of rtdetr-l with its default amp on 15f's own split (64 images, batch 8)
 P17_FIT = dict(P15_FIT, optimizer="AdamW", lr0=1e-4)  # RT-DETR's optimizer: SGD at 0.02 diverges a DETR from scratch
 
 
@@ -4786,25 +4816,377 @@ def facade_path():
     return {k: det[k] + seg[k] for k in det}
 
 
+# phase 19: the YOLO-World and YOLO-NAS families at full width (yolov8s-world, yolov8s-worldv2, yolo_nas_s)
+P19_WORLD, P19_WORLDV2, P19_NAS = "yolov8s-world.yaml", "yolov8s-worldv2.yaml", "yolo_nas_s"
+P19_EPOCHS, P19_BATCH = 2, 16  # 19b: YOLO.train of yolov8s-worldv2 on phase 9's 64 + 16 frames, float32 (amp off)
+P19_NAS_EPOCHS = 1  # 19c: one epoch of yolo_nas_s with its default amp on the same set
+# 19b, 19c: the val held against the CPU runs on phase 15f's own images labelled with the saved facade's own top
+# P19_OWN_ROWS rows per image (own_rows_split): fits this short from drawn weights match no real label (the
+# contrastive logits of yolov8s-worldv2 barely leave their bias of -10), so metrics of the real labels would
+# compare zeros; its own rows give val matched rows, and P19_MAIN (above 0 when one row matched a label) must be
+# above 0 on the card and the CPU. The labels are the rows with most of their box inside the frame among the
+# first P19_OWN_MAX_DET of each image (val keeps as many): the best rows of a graph this briefly trained are
+# large boxes past the frame's edge, and val matches a label clipped to the frame to its row, which it does not
+# clip, only from IoU 0.5
+P19_OWN_ROWS, P19_OWN_MAX_DET, P19_MAIN = 8, 1024, "metrics/mAP50(B)"
+# 19b, 19c: the loader in the trainer's thread on cached images, without the augmentation that costs host time
+# (with mosaic and the warps 19b's steps took 4994 ms, 0.90 of it waiting on the loader: NVIDIA H100 80GB HBM3,
+# 700 W)
+P19_FIT = dict(workers=0, cache="ram", plots=False, seed=3, exist_ok=True, mosaic=0.0, translate=0.0, scale=0.0,
+               hsv_h=0.0, hsv_s=0.0, hsv_v=0.0, fliplr=0.0)
+# 19b validates and predicts at this conf: two epochs leave the contrastive logits near their bias of -10 (scores
+# near 4.5e-5), below val's default 0.001
+P19_SAVED_CONF = 1e-6
+P19_INT8_FRAMES = 1  # frames of the per-conv int8 check (the CPU's int8 forward of a 13 M / 19 M graph at 640)
+
+
+def car_names():
+    """The 12 class names of car.yaml, the slice's main dataset: 19a's text."""
+    from bsyolo_tpu_torch.data import load_dataset_yaml
+
+    return [str(v) for v in load_dataset_yaml("car.yaml")["names"].values()]
+
+
+def drawn_twins(make, name, seed, root):
+    """(the CPU's facade, the card's, a checkpoint of them) of graph ``name`` built by ``make`` with draw_weights'
+    weights; the checkpoint (with a YOLO-World graph's text) rebuilds the CPU's predictor for the replays."""
+    host = make(name, device="cpu", seed=SEED)
+    draw_weights(host.model, seed)
+    card = make(name, seed=SEED)
+    card.model.load_state_dict(host.model.state_dict())
+    return host, card, Path(root) / f"p19{Path(name).stem}.ckpt"
+
+
+def world_head_decode(dev, card, frames):
+    """decode_box on yolov8s-world's head (64 + 12 channels after set_classes) of a real forward at batch 4, 640
+    px, against its plain version, timed beside its bytes bound (box_head_figures, as phase 16d); returns its
+    figures."""
+    import torch
+
+    from bsyolo_tpu_torch.kernels.decode import REG_MAX
+    from bsyolo_tpu_torch.ops.letterbox import letterbox
+
+    x = torch.stack([letterbox(f, (IMGSZ, IMGSZ), dev) for f in frames[:4]]).float() / 255.0
+    with torch.inference_mode():
+        feats = card.model(x)
+    nc = card.spec.nc
+    if feats[0].shape[1] != 4 * REG_MAX + nc:
+        raise SystemExit(f"{P19_WORLD}: head levels of {feats[0].shape[1]} channels, not 64 + {nc}")
+    return box_head_figures(f"{P19_WORLD} head B4 {IMGSZ}, 64 + {nc} channels", feats, card.spec.head_strides, nc)
+
+
+def int8_replayed(dev, host, card, best, frames, label, count, decode_per_batch):
+    """int8 predict of ``card`` calibrated on the card on ``frames``, the same scales on the CPU's twin: each
+    quantized conv against its CPU twin (P19_INT8_FRAMES frames), the rows against the CPU's predictor on the
+    card's head maps, int8_matmul once per quantized conv per batch; then int8_matmul over the products of one
+    forward at batch 4 (time_path_products). Returns (ms per batch of 4, convs, those figures)."""
+    import torch
+
+    from bsyolo_tpu_torch import kernels
+    from bsyolo_tpu_torch.nn.modules import quantizable_convs, set_int8_inference
+    from bsyolo_tpu_torch.nn.quant import calibrate_int8
+    from bsyolo_tpu_torch.ops.letterbox import letterbox
+
+    x = torch.stack([letterbox(f, (IMGSZ, IMGSZ), dev) for f in frames]).float() / 255.0
+    scales = calibrate_int8(card.model, [x])
+    n_convs, n_pred = len(quantizable_convs(card.model)), math.ceil(len(frames) / 4)
+    set_int8_inference(host.model, True, scales)
+    set_int8_inference(card.model, True, scales)
+    try:
+        check_int8_convs_against_cpu(dev, host, card, frames[:P19_INT8_FRAMES])
+        card.predict(frames, imgsz=IMGSZ, batch=4, conf=CONF)  # warm-up: the weight codes
+        kernels.reset_launch_counts()
+        ms = replayed_rows("detect", card, best, card.model, frames, IMGSZ, f"{label} int8 predict")[0]
+        count(f"{label} int8 predict", {**NO_LAUNCHES, "decode_box_best": decode_per_batch * n_pred,
+                                        "int8_matmul": n_convs * n_pred})
+    finally:
+        set_int8_inference(host.model, False)
+        set_int8_inference(card.model, False)
+    figures = time_path_products(dev, path_products(card, dev), f"{label}, batch 4, {IMGSZ} px", detail=False)
+    kernels.reset_launch_counts()  # the timing's launches are no path's
+    return ms, n_convs, figures
+
+
+def world_predict(dev, frames, root, count):
+    """Phase 19a: YOLOWorld("yolov8s-world.yaml") with drawn weights and set_classes of car.yaml's 12 names (hashed
+    n-gram text), on the card and the CPU: the bound text equal on both; decode_box on its 64 + 12-channel head
+    (world_head_decode); predict of the 8 seeded frames at batch 4, conf CONF, 640 px, float32, half=True and int8
+    (calibrated on the card), each held to the CPU's predictor on the card's head maps, decode_box once per batch.
+    Returns (the decode figures, int8_matmul's figures per forward)."""
+    import torch
+
+    from bsyolo_tpu_torch import YOLOWorld, kernels
+
+    host, card, best = drawn_twins(YOLOWorld, P19_WORLD, SEED + 190, root)
+    names = car_names()
+    host.set_classes(names)
+    card.set_classes(names)
+    text = card.model.txt_feats
+    if not (text.is_cuda and text.shape == (1, len(names), 512) and torch.equal(text.cpu(), host.model.txt_feats)
+            and card.spec.nc == len(names)):
+        raise SystemExit(f"{P19_WORLD}: set_classes did not bind the same (1, 12, 512) text on the card and the CPU")
+    host.save(best)
+    figures = world_head_decode(dev, card, frames)
+    n_pred = math.ceil(len(frames) / 4)
+    card.predict(frames, imgsz=IMGSZ, batch=4, conf=CONF)  # warm-up
+    kernels.reset_launch_counts()
+    float_ms = replayed_rows("detect", card, best, card.model, frames, IMGSZ, f"{P19_WORLD} predict")[0]
+    count(f"{P19_WORLD} predict", {**NO_LAUNCHES, "decode_box_best": n_pred})
+    card.predict(frames, imgsz=IMGSZ, batch=4, conf=CONF, half=True)  # warm-up: the bf16 copy and its plans
+    kernels.reset_launch_counts()
+    half = card.half_graph()
+    if half.txt_feats is not card.model.txt_feats:
+        raise SystemExit(f"{P19_WORLD}: half_graph() does not read the bound text")
+    half_ms = replayed_rows("detect", card, best, half, frames, IMGSZ, f"{P19_WORLD} predict(half=True)",
+                            half=True)[0]
+    count(f"{P19_WORLD} predict(half=True)", {**NO_LAUNCHES, "decode_box_best": n_pred})
+    int8_ms, n_convs, int8_figures = int8_replayed(dev, host, card, best, frames, P19_WORLD, count, 1)
+    print(f"phase 19a {P19_WORLD}: {sum(p.numel() for p in card.model.parameters()):,} parameters, nc {card.spec.nc} "
+          f"(text rows); ms per predict batch of 4 (host clock): float32 {float_ms:.1f}, half {half_ms:.1f}, int8 "
+          f"{int8_ms:.1f}; {n_convs} quantized convs")
+    return figures, int8_figures
+
+
+def fit_figures(label, model, train_s):
+    """Print a fit's steps, ms per step, loader-wait share, peak memory and loss per epoch; the losses must be
+    finite. Returns the epochs."""
+    import csv
+
+    import torch
+
+    tr = model.trainer
+    wait, wall, n = (sum(e[k] for e in tr.loader_wait) for k in range(3))
+    with open(tr.csv_path) as f:
+        losses = [float(r["loss"]) for r in csv.DictReader(f)]
+    print(f"{label}: {len(tr.loader_wait)} epochs, {n} steps at batch {P19_BATCH} in {train_s:.1f} s, "
+          f"{wall * 1e3 / n:.1f} ms per step, loader-wait share {wait / wall:.3f}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; loss per epoch {[round(v, 3) for v in losses]}")
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f"{label}: the loss is not finite: {losses}")
+    return len(tr.loader_wait)
+
+
+def own_rows_split(card, own, tag, conf):
+    """Phase 15f's own images as a val split ``images/<tag>`` labelled with P19_OWN_ROWS of ``card``'s own val
+    rows of each (its head maps of the letterboxed image through the CPU's postprocess at ``conf``, IoU 0.7,
+    P19_OWN_MAX_DET rows; boxes in the image's pixels, not clipped): those with the largest share of their box
+    inside the frame, clipped to it. Val does not clip a row, so a label's IoU with its row is that share.
+    Returns (its dataset YAML, the labels' count)."""
+    import torch
+
+    from bsyolo_tpu_torch.data.imread import imread
+    from bsyolo_tpu_torch.engine.validator import unletterbox
+    from bsyolo_tpu_torch.kernels.postprocess import detect_postprocess
+    from bsyolo_tpu_torch.ops.letterbox import letterbox
+
+    d = Path(own).parent
+    files = sorted((d / "images" / "own").glob("*.png"))
+    dev = next(card.model.parameters()).device
+    x = torch.stack([letterbox(imread(p), (IMGSZ, IMGSZ), dev) for p in files]).float() / 255.0
+    with torch.inference_mode():
+        maps = [m.float().cpu() for m in card.model(x)]
+    rows = detect_postprocess(maps, card.spec.head_strides, card.spec.nc, conf_thres=conf, iou_thres=0.7,
+                              max_det=P19_OWN_MAX_DET, reg_max=card.spec.reg_max).numpy()
+    for sub in ("images", "labels"):
+        (d / sub / tag).mkdir()
+    shares = []
+    for p, r in zip(files, rows):
+        (w0, h0), g, dw, dh = unletterbox(str(p), (IMGSZ, IMGSZ))
+        r = r[r[:, 4] > 0]
+        box = (r[:, :4] - np.array([dw, dh, dw, dh], np.float32)) / g
+        cut = np.clip(box, 0, np.array([w0, h0, w0, h0], np.float32))
+        share = np.prod((cut[:, 2:] - cut[:, :2]).clip(0), 1) / np.maximum(np.prod(box[:, 2:] - box[:, :2], 1), 1e-9)
+        top = np.lexsort((-r[:, 4], -share))[:P19_OWN_ROWS]
+        shares += share[top].tolist()
+        os.link(p, d / "images" / tag / p.name)
+        (d / "labels" / tag / f"{p.stem}.txt").write_text("".join(
+            f"{int(c)} {(x1 + x2) / 2 / w0:.6f} {(y1 + y2) / 2 / h0:.6f} {(x2 - x1) / w0:.6f} {(y2 - y1) / h0:.6f}\n"
+            for (x1, y1, x2, y2), c in zip(cut[top], r[top, 5])))
+    print(f"  {tag}: {len(shares)} labels, each a row's box clipped to the frame; the share of its box inside the "
+          f"frame min / median {min(shares, default=0.0):.3f} / {float(np.median(shares or [0.0])):.3f}")
+    yaml = d / f"{tag}.yaml"
+    yaml.write_text(Path(own).read_text().replace("val: images/own\n", f"val: images/{tag}\n"))
+    return yaml, len(shares)
+
+
+def saved_val_against_cpu(label, saved, own, tag, conf, count, decode_per_batch):
+    """``YOLO(saved)`` on the card: val at ``conf`` of own_rows_split's split, and the CPU's validator on the
+    card's head maps (a Replay of ``saved``): every metric within P15_VAL_ATOL, P19_MAIN above 0 on both (val's
+    rows matched to the labels); decode_box ``decode_per_batch`` times per val batch. Returns the card's
+    facade."""
+    import torch
+
+    from bsyolo_tpu_torch import YOLO
+
+    card = YOLO(saved)
+    data, n_labels = own_rows_split(card, own, tag, conf)
+    kw = dict(data=str(data), batch=P19_BATCH, imgsz=IMGSZ, conf=conf, max_det=P19_OWN_MAX_DET)
+    with recording(card.model) as (recorded, _):
+        t0 = time.perf_counter()
+        got = card.val(**kw).results_dict
+        torch.cuda.synchronize()
+        val_s = time.perf_counter() - t0
+    count(f"{label} val", {**NO_LAUNCHES, "decode_box_best": decode_per_batch * len(recorded)})
+    replay = YOLO(saved, device="cpu")
+    replay.model = Replay(recorded)
+    same = replay.val(**kw).results_dict
+    err = max(abs(float(got[k]) - float(same[k])) for k in same)
+    print(f"  {label} val of the saved facade at conf {conf} on {P15_OWN} own images labelled with {n_labels} of "
+          f"its own rows, card / CPU on the card's head maps: "
+          f"{', '.join(f'{k} {float(got[k]):.4f}/{float(same[k]):.4f}' for k in same)}; max |diff| {err:.3g} "
+          f"(tol {P15_VAL_ATOL}; {P19_MAIN} must be above 0); card {val_s:.2f} s")
+    if not (got.keys() == same.keys() and err <= P15_VAL_ATOL):
+        raise SystemExit(f"{label} val on the card differs from the CPU's validator on the same head maps")
+    if not min(float(got[P19_MAIN]), float(same[P19_MAIN])) > 0:
+        raise SystemExit(f"{label}: val matched no row to labels that are the graph's own rows")
+    return card
+
+
+def world_train(dev, data, own, frames, root, count):
+    """Phase 19b: YOLOWorld("yolov8s-worldv2.yaml").train on phase 9's set, P19_EPOCHS epochs at batch P19_BATCH,
+    amp off: the graph trains against the hashed text of the data's class names, which goes into its checkpoints;
+    val of the saved facade held to the CPU's validator on the card's head maps (saved_val_against_cpu); the
+    facade saved and reloaded predicts the same rows; decode_box once per validation and predict batch."""
+    import torch
+
+    from bsyolo_tpu_torch import YOLOWorld
+    from bsyolo_tpu_torch.nn.model import compute_dtype
+    from bsyolo_tpu_torch.utils.ckpt import load_checkpoint
+    from bsyolo_tpu_torch.utils.text_embed import world_text
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = YOLOWorld(P19_WORLDV2)
+    t0 = time.perf_counter()
+    model.train(data=str(data), epochs=P19_EPOCHS, imgsz=IMGSZ, batch=P19_BATCH, nbs=P19_BATCH, amp=False,
+                project=str(Path(root) / "runs"), name="p19worldv2", **P19_FIT)
+    train_s = time.perf_counter() - t0
+    want_text = world_text(car_names())
+    if not (compute_dtype(model.model) == torch.float32 and model.txt_feats is not None
+            and np.array_equal(model.txt_feats, want_text) and np.array_equal(model.model.txt_feats.cpu().numpy(),
+                                                                             want_text)):
+        raise SystemExit(f"{P19_WORLDV2}: YOLO.train did not train float32 against the text of car.yaml's names")
+    epochs = fit_figures(f"phase 19b {P19_WORLDV2}: YOLO.train (float32)", model, train_s)
+    n_val = math.ceil(len(model.trainer.val_loader.dataset) / P19_BATCH)
+    count(f"{P19_WORLDV2} YOLO.train", {**NO_LAUNCHES, "decode_box_best": epochs * n_val})
+    last = Path(root) / "runs" / "p19worldv2" / "weights" / "last.ckpt"
+    if not np.array_equal(np.asarray(load_checkpoint(last)[0].get("txt_feats")), want_text):
+        raise SystemExit(f"{last} does not carry the text the graph trained against")
+    saved = Path(root) / "p19worldv2_saved.ckpt"
+    model.save(saved)
+    card = saved_val_against_cpu(P19_WORLDV2, saved, own, "p19world", P19_SAVED_CONF, count, 1)
+    kw = dict(imgsz=IMGSZ, batch=4, conf=P19_SAVED_CONF)
+    a, b = model.predict(frames[:4], **kw), card.predict(frames[:4], **kw)
+    rows = sum(len(r) for r in a)
+    same = [np.array_equal(r.boxes.data, q.boxes.data) for r, q in zip(a, b)]
+    print(f"  {P19_WORLDV2}: the trained facade and its saved and reloaded .ckpt: {rows} and "
+          f"{sum(len(r) for r in b)} rows at conf {P19_SAVED_CONF}, equal in {sum(same)} of {len(same)} frames")
+    if not (rows and all(same)):
+        raise SystemExit(f"{P19_WORLDV2}: the reloaded checkpoint predicts other rows than the trained facade")
+    count(f"{P19_WORLDV2} predict, trained and reloaded", {**NO_LAUNCHES, "decode_box_best": 2})
+
+
+def nas_path(dev, data, own, frames, root, count):
+    """Phase 19c: NAS("yolo_nas_s") (19.1 M parameters, 17 DFL bins) with drawn weights: float32 and int8
+    predict at batch 4, 640 px, held to the CPU's predictor on the card's head maps: the plain 17-bin decode on
+    the card's levels once per batch (the JAX package's route for 17 bins), no decode kernel; int8_matmul once
+    per quantized conv per int8 batch. Then one epoch of YOLO.train with its default amp, and val of the saved
+    facade held to the CPU's validator on the card's head maps (saved_val_against_cpu). Returns int8_matmul's
+    figures per forward."""
+    import torch
+
+    from bsyolo_tpu_torch import NAS, kernels
+
+    host, card, best = drawn_twins(NAS, P19_NAS, SEED + 195, root)
+    if not (card.spec.reg_max == 17 and card.spec.head.module == "NASDetect"):
+        raise SystemExit(f"{P19_NAS}: not a 17-bin NASDetect graph")
+    host.save(best)
+    n_pred = math.ceil(len(frames) / 4)
+    card.predict(frames, imgsz=IMGSZ, batch=4, conf=CONF)  # warm-up
+    kernels.reset_launch_counts()
+    with plain_decode_calls() as calls:
+        float_ms = replayed_rows("detect", card, best, card.model, frames, IMGSZ, f"{P19_NAS} predict")[0]
+    count(f"{P19_NAS} predict", NO_LAUNCHES)
+    if calls != ["box"] * n_pred:
+        raise SystemExit(f"{P19_NAS}: the card's predict ran the plain decode {calls}, not once per batch")
+    with plain_decode_calls() as calls:
+        int8_ms, n_convs, int8_figures = int8_replayed(dev, host, card, best, frames, P19_NAS, count, 0)
+    if calls.count("box") != 2 * n_pred:  # the warm-up and the measured predict
+        raise SystemExit(f"{P19_NAS}: int8 predict ran the plain decode {calls}")
+    print(f"phase 19c {P19_NAS}: {sum(p.numel() for p in card.model.parameters()):,} parameters, reg_max "
+          f"{card.spec.reg_max}; ms per predict batch of 4 (host clock): float32 {float_ms:.1f}, int8 {int8_ms:.1f}; "
+          f"{n_convs} quantized convs")
+    del host, card
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = NAS(P19_NAS)
+    t0 = time.perf_counter()
+    model.train(data=str(data), epochs=P19_NAS_EPOCHS, imgsz=IMGSZ, batch=P19_BATCH, nbs=P19_BATCH,
+                project=str(Path(root) / "runs"), name="p19nas", **P19_FIT)
+    train_s = time.perf_counter() - t0
+    if model.trainer.args.amp is not True:
+        raise SystemExit(f"{P19_NAS}: YOLO.train did not run its default amp")
+    fit_figures(f"phase 19c {P19_NAS}: YOLO.train (amp, the default)", model, train_s)
+    count(f"{P19_NAS} YOLO.train", NO_LAUNCHES)
+    saved = Path(root) / "p19nas_saved.ckpt"
+    model.save(saved)
+    saved_val_against_cpu(P19_NAS, saved, own, "p19nas", CONF, count, 0)
+    return int8_figures
+
+
+def world_nas_path(dev, data, own, frames, root):
+    """Phase 19: the YOLO-World and YOLO-NAS families (19a to 19c); 19b and 19c train on phase 9's set ``data``
+    and validate on phase 15f's own split ``own``; returns (their launches, decode_box's figures
+    on yolov8s-world's head, int8_matmul's per forward of yolov8s-world and yolo_nas_s)."""
+    import torch
+
+    from bsyolo_tpu_torch import kernels
+
+    total = dict(NO_LAUNCHES)
+
+    def count(path, expected):
+        for k, v in expect_launches(path, expected).items():
+            total[k] += v
+        kernels.reset_launch_counts()
+
+    kernels.reset_launch_counts()
+    int8_figures = {}
+    t0 = time.perf_counter()
+    head, int8_figures[P19_WORLD] = world_predict(dev, frames, root, count)
+    torch.cuda.empty_cache()
+    print(f"phase 19a done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    world_train(dev, data, own, frames, root, count)
+    torch.cuda.empty_cache()
+    print(f"phase 19b done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    int8_figures[P19_NAS] = nas_path(dev, data, own, frames, root, count)
+    torch.cuda.empty_cache()
+    print(f"phase 19c done in {time.perf_counter() - t0:.1f} s; phase 19 launches {total}")
+    return total, head, int8_figures
+
+
 def kernel_entry(name, source, replaces, launches, row, bf16_launches, bf16_head=None, product_launches=0,
                  photo_launches=0, task_launches=0, mode_launches=0, zoo_launches=0, detr_launches=0,
-                 facade_launches=0):
+                 facade_launches=0, world_launches=0):
     """One entry of the kernels line; ``launches`` counts every path's run, ``bf16_launches`` those of
     phase 10's bf16 paths among them, ``product_launches`` those of phase 11's product path,
     ``photo_launches`` those of phase 12's real photos, ``task_launches`` those of phase 13's and 14's task
     paths, ``mode_launches`` those of phase 15's bf16 and int8 paths (the four task graphs and Detect's int8
     val), ``zoo_launches`` those of phase 16's YOLO v8, v10 and v6 paths, ``detr_launches`` those of phase 17's
-    RT-DETR int8 paths, ``facade_launches`` those of phase 18's facade outputs, ``bf16_head`` the kernel on a
-    real forward's bf16 head."""
+    RT-DETR int8 paths, ``facade_launches`` those of phase 18's facade outputs, ``world_launches`` those of phase
+    19's YOLO-World and YOLO-NAS paths, ``bf16_head`` the kernel on a real forward's bf16 head."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "bf16_launches": bf16_launches, "product_launches": product_launches, "photo_launches": photo_launches,
             "task_launches": task_launches, "mode_launches": mode_launches, "zoo_launches": zoo_launches,
-            "detr_launches": detr_launches, "facade_launches": facade_launches,
+            "detr_launches": detr_launches, "facade_launches": facade_launches, "world_launches": world_launches,
             **({"task_heads": row["task_heads"]} if "task_heads" in row else {}),
             **({"zoo_heads": row["zoo_heads"]} if "zoo_heads" in row else {}),
             **({"zoo_graphs": row["zoo_graphs"]} if "zoo_graphs" in row else {}),
             **({"task_graphs": row["task_graphs"]} if "task_graphs" in row else {}),
             **({"detr_graph": row["detr_graph"]} if "detr_graph" in row else {}),
+            **({"world_head": row["world_head"]} if "world_head" in row else {}),
+            **({"world_graphs": row["world_graphs"]} if "world_graphs" in row else {}),
             **({"bf16_head": bf16_head} if bf16_head else {}),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
@@ -4820,6 +5202,107 @@ def phase(name: str, fn, *args):
     out = fn(*args)
     print(f"phase {name} done in {time.perf_counter() - t0:.1f} s")
     return out
+
+
+SIDE_FLAG = "--side-phases"  # this script as the second process: phases 12 to 15 (side_phases)
+
+
+def side_phase_results(dev) -> dict:
+    """Phases 12 to 15: their launches and phase 15's int8_matmul figures per task graph."""
+    photo_launches = phase("12", photo_path, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:  # phase 15 takes 13's and 14's datasets
+        task_launches = phase("13", task_path, dev, root)
+        obb_cls_launches = phase("14", obb_classify_path, dev, root)
+        mode_launches, task_graphs = phase("15", task_modes_path, dev, root)
+    return {"photo": photo_launches, "task": task_launches, "obb_cls": obb_cls_launches, "mode": mode_launches,
+            "task_graphs": task_graphs}
+
+
+def side_phases(out: str, parent: str) -> int:
+    """Phases 12 to 15 in the second process that main starts: writes side_phase_results to ``out`` as
+    JSON. The process ends with its parent."""
+    import ctypes
+    import signal
+
+    import torch
+
+    from bsyolo_tpu_torch import select_device
+
+    prctl = ctypes.CDLL(None).prctl
+    prctl.argtypes, prctl.restype = [ctypes.c_int, ctypes.c_ulong], ctypes.c_int
+    prctl(1, signal.SIGTERM)  # PR_SET_PDEATHSIG: a parent that is stopped stops this process
+    if os.getppid() != int(parent):
+        return 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(max(1, torch.get_num_threads() // 2))
+    results = side_phase_results(select_device(None))
+    Path(out).write_text(json.dumps(results, default=float))
+    return 0
+
+
+def compute_mode() -> str:
+    """The card's compute mode as nvidia-smi reports it ("Default" lets two processes share it)."""
+    try:
+        return subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader", "-i", "0"],
+                              capture_output=True, text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return "unknown"
+
+
+class SideProcess:
+    """side_phases in a process of its own on the same card, its output to a file. While it runs, this
+    process keeps half the host's threads for its CPU references, as the other does. A card whose compute
+    mode is not "Default" takes one process only: then join runs the phases in this process."""
+
+    def __init__(self, dev):
+        import torch
+
+        self.dev, self.mode = dev, compute_mode()
+        self.proc = None
+        if self.mode != "Default":
+            print(f"compute mode {self.mode!r}: phases 12 to 15 run in this process, after phase 11")
+            return
+        self.threads = torch.get_num_threads()
+        self.dir = tempfile.TemporaryDirectory(prefix="chip_smoke_side_")
+        self.log, self.out = Path(self.dir.name) / "side.log", Path(self.dir.name) / "side.json"
+        torch.set_num_threads(max(1, self.threads // 2))
+        with open(self.log, "w") as f:
+            self.proc = subprocess.Popen([sys.executable, "-u", str(Path(__file__).resolve()), SIDE_FLAG,
+                                          str(self.out), str(os.getpid())], stdout=f, stderr=subprocess.STDOUT)
+        self.t0 = time.perf_counter()
+
+    def join(self) -> dict:
+        """Wait for the process, print its output, fail if it failed; its results."""
+        import torch
+
+        if self.proc is None:
+            return side_phase_results(self.dev)
+        t0 = time.perf_counter()
+        rc = self.proc.wait()
+        torch.set_num_threads(self.threads)
+        text = self.log.read_text()
+        print(f"phases 12 to 15, in a process of their own beside phases 3 to 11, 16, 17 and 19: exit code {rc} "
+              f"after {time.perf_counter() - self.t0:.1f} s, {time.perf_counter() - t0:.1f} s of it waited for; "
+              f"their output follows")
+        sys.stdout.write(text)
+        if rc != 0:
+            sys.stderr.write(text[-8000:])
+            raise SystemExit(f"phases 12 to 15 failed in their own process (exit code {rc})")
+        return json.loads(self.out.read_text())
+
+    def stop(self) -> None:
+        """Stop the process if it still runs (this process ends early) and remove its files."""
+        if self.proc is None:
+            return
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self.dir.cleanup()
 
 
 def main() -> int:
@@ -4847,6 +5330,8 @@ def main() -> int:
     xywh_row["two_byte_levels"] = half_rows["decode_xywh"]
     int8_err = check_int8_kernel(dev)
     print(f"phase 2 done in {time.perf_counter() - t2:.1f} s")
+    side = SideProcess(dev)  # phases 12 to 15, once phase 2's kernel times are taken
+    atexit.register(side.stop)
     host, model, frames = make_models(dev)
     predict_launches = phase("3", predict_path, dev, host, model, frames)
     tta_launches = phase("4", tta_path, host, model, frames)
@@ -4871,13 +5356,14 @@ def main() -> int:
         zoo_launches, zoo_box, zoo_xywh, int8_row["zoo_graphs"] = phase("16", zoo_path, dev, own, own_frames, frames,
                                                                          root)
         detr_launches, int8_row["detr_graph"] = phase("17", detr_path, dev, own, own_frames, root)
+        world_launches, box_row["world_head"], int8_row["world_graphs"] = phase("19", world_nas_path, dev, data,
+                                                                                 own, frames, root)
     box_row["zoo_heads"], xywh_row["zoo_heads"] = zoo_box, zoo_xywh
     product_launches = phase("11", product_path, dev)
-    photo_launches = phase("12", photo_path, dev)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:  # phase 15 takes 13's and 14's datasets
-        task_launches = phase("13", task_path, dev, root)
-        obb_cls_launches = phase("14", obb_classify_path, dev, root)
-        mode_launches, int8_row["task_graphs"] = phase("15", task_modes_path, dev, root)
+    side_out = side.join()
+    photo_launches, task_launches, obb_cls_launches, mode_launches = (side_out[k] for k in ("photo", "task",
+                                                                                            "obb_cls", "mode"))
+    int8_row["task_graphs"] = side_out["task_graphs"]
     facade_launches = phase("18", facade_path)
     task_launches = {k: task_launches[k] + obb_cls_launches[k] for k in task_launches}
     mode_launches = {k: mode_launches[k] + detect_int8_launches[k] for k in mode_launches}
@@ -4889,11 +5375,13 @@ def main() -> int:
                      + trainer_launches["decode_box_best"] + bf16["decode_box_best"]
                      + product_launches["decode_box_best"] + photo_launches["decode_box_best"]
                      + task_launches["decode_box_best"] + mode_launches["decode_box_best"]
-                     + zoo_launches["decode_box_best"] + facade_launches["decode_box_best"], box_row,
+                     + zoo_launches["decode_box_best"] + facade_launches["decode_box_best"]
+                     + world_launches["decode_box_best"], box_row,
                      bf16["decode_box_best"], box_half, product_launches["decode_box_best"],
                      photo_launches["decode_box_best"], task_launches["decode_box_best"],
                      mode_launches["decode_box_best"], zoo_launches["decode_box_best"],
-                     facade_launches=facade_launches["decode_box_best"]),
+                     facade_launches=facade_launches["decode_box_best"],
+                     world_launches=world_launches["decode_box_best"]),
         kernel_entry("decode_xywh", "bsyolo_tpu_torch/kernels/csrc/decode.cu",
                      "bsyolo_tpu/kernels/decode.py:34",
                      tta_launches["decode_xywh"] + tiled_launches["decode_xywh"] + bf16["decode_xywh"]
@@ -4902,10 +5390,10 @@ def main() -> int:
         kernel_entry("int8_matmul", "bsyolo_tpu_torch/kernels/csrc/int8_matmul.cu",
                      "bsyolo_tpu/kernels/int8_matmul.py:38",
                      int8_launches["int8_matmul"] + bf16["int8_matmul"] + mode_launches["int8_matmul"]
-                     + zoo_launches["int8_matmul"] + detr_launches["int8_matmul"],
+                     + zoo_launches["int8_matmul"] + detr_launches["int8_matmul"] + world_launches["int8_matmul"],
                      dict(max_abs_err=int8_err, **int8_row), bf16["int8_matmul"],
                      mode_launches=mode_launches["int8_matmul"], zoo_launches=zoo_launches["int8_matmul"],
-                     detr_launches=detr_launches["int8_matmul"]),
+                     detr_launches=detr_launches["int8_matmul"], world_launches=world_launches["int8_matmul"]),
     ]}
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(card)
@@ -4916,4 +5404,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(side_phases(*sys.argv[2:4]) if sys.argv[1:2] == [SIDE_FLAG] else main())

@@ -1,7 +1,7 @@
 """The YOLO v3, v5, v6 and v8 graph files in the PyTorch port against bsyolo_tpu: every file's spec and
-parameters (count, names, shapes) equal the JAX package's (``zoo_port.assert_graph_is_jax``); the graph
-families the port does not build yet still raise, naming ROADMAP item 13; the bundled dataset YAMLs read
-as the JAX package reads its copies."""
+parameters (count, names, shapes) equal the JAX package's (``zoo_port.assert_graph_is_jax``); the YOLO-World
+and YOLO-NAS files, which raised naming ROADMAP item 13 until the port built them, parse as JAX's; the bundled
+dataset YAMLs read as the JAX package reads its copies."""
 
 import sys
 from pathlib import Path
@@ -37,10 +37,18 @@ def test_graph_files_are_the_jax_packages():
 
 @pytest.mark.parametrize("family", ["v8/yolov8-world.yaml", "v8/yolov8-worldv2.yaml", "nas/yolo_nas_s.yaml"])
 def test_later_families_raise_naming_item_13(family):
+    """The families that raised naming ROADMAP item 13 until the port built them (13.2 YOLO-World, 13.3 YOLO-NAS):
+    the JAX package's file now parses, its head is WorldDetect or NASDetect, and the port's graph of it is JAX's;
+    the parser's error for a module it does not know still names the module."""
     from bsyolo_tpu_torch.nn.parser import load_model_yaml, parse_model_yaml
 
-    with pytest.raises(NotImplementedError, match="item 13"):
-        parse_model_yaml(load_model_yaml(JAX_MODELS / family))
+    spec = parse_model_yaml(load_model_yaml(JAX_MODELS / family))
+    assert spec.head.module == ("NASDetect" if "nas" in family else "WorldDetect") and spec.task == "detect"
+    assert_graph_is_jax(str(JAX_MODELS / family))
+    d = load_model_yaml(JAX_MODELS / family)
+    d["head"][0] = [-1, 1, "SAM2Block", [64]]
+    with pytest.raises(NotImplementedError, match="SAM2Block"):
+        parse_model_yaml(d)
 
 
 @pytest.mark.parametrize("name", sorted(p.name for p in JAX_DATASETS.glob("*.yaml")))
