@@ -1,4 +1,4 @@
-"""Command line of the port (counterpart of ``bsyolo_tpu/cli.py``), modes train, val, predict and track:
+"""Command line of the port (counterpart of ``bsyolo_tpu/cli.py``), modes train, val, predict, track and export:
 
     python -m bsyolo_tpu_torch train data=car.yaml model=yolo11n.yaml epochs=100 plots=False
     python -m bsyolo_tpu_torch val model=runs/detect/train/weights/best.ckpt data=car.yaml
@@ -14,6 +14,9 @@
     python -m bsyolo_tpu_torch classify train data=<root of class folders> model=yolo11n-cls.yaml imgsz=224
     python -m bsyolo_tpu_torch train data=car.yaml model=yolov10n.yaml epochs=100 plots=False
     python -m bsyolo_tpu_torch train data=car.yaml model=rtdetr-l.yaml epochs=100 plots=False
+    python -m bsyolo_tpu_torch export model=best.ckpt format=pt2 imgsz=640 batch=4
+    python -m bsyolo_tpu_torch export model=best.ckpt format=onnx imgsz=320 nms=True
+    python -m bsyolo_tpu_torch val model=best.pt2 data=car.yaml        # artifact val (also .pt2-int8, .onnx)
 
 and the verbs of the JAX command line:
 
@@ -44,8 +47,8 @@ from typing import Dict, List
 from bsyolo_tpu_torch.cfg import DEFAULT_CFG_DICT, DEFAULT_CFG_PATH, check_dict_alignment, dump_yaml
 from bsyolo_tpu_torch.utils import LOGGER
 
-MODES = {"train", "val", "predict", "track"}
-_NOT_PORTED_MODES = {"export": "item 15", "benchmark": "item 15", "solutions": "item 16"}
+MODES = {"train", "val", "predict", "track", "export"}
+_NOT_PORTED_MODES = {"benchmark": "item 16", "solutions": "item 16"}
 TASK_MODELS = {"detect": "yolo11n.yaml", "segment": "yolo11n-seg.yaml", "pose": "yolo11n-pose.yaml",
                "obb": "yolo11n-obb.yaml", "classify": "yolo11n-cls.yaml"}
 
@@ -111,6 +114,11 @@ def main(argv=None) -> int:
         metrics = model.val(**{k: v for k, v in overrides.items() if v is not None})
         LOGGER.info(f"results: {metrics.results_dict}")
         print(metrics.results_dict)
+    elif mode == "export":  # the JAX command line's arguments: format, imgsz, nms (and batch)
+        out = model.export(format=overrides.get("format") or "pt2", imgsz=overrides.get("imgsz"),
+                           batch=int(overrides.get("batch") or 1), nms=bool(overrides.get("nms", False)))
+        LOGGER.info(f"exported: {out}")
+        print(out)
     else:
         source = overrides.pop("source", None)
         if source is None:

@@ -23,6 +23,9 @@ and the loss casts the head's maps to float32; no loss scaling.
 With ``pass_targets`` (RT-DETR) the batch's padded labels go into the graph, whose decoder builds its
 denoising queries from them with noise drawn from a generator the step owns, reseeded from the iteration
 (as the JAX step folds the iteration into ``PRNGKey(3)``: one draw per step number, not JAX's bits).
+
+``remat`` recomputes the forward in the backward (``nn/model.py remat_mode``: full, seg, light), the same
+step with less memory. ``make_chunked_train_step`` runs K steps over a stacked batch, the same as K calls.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from bsyolo_tpu_torch.losses.obb import obb_loss
 from bsyolo_tpu_torch.losses.pose import pose_loss
 from bsyolo_tpu_torch.losses.segment import segmentation_loss
 from bsyolo_tpu_torch.nn.heads import Classify
+from bsyolo_tpu_torch.nn.model import remat_mode
 from bsyolo_tpu_torch.nn.transformer import RTDETRDecoder
 from bsyolo_tpu_torch.ops.normalize import normalize_image_batch
 
@@ -74,7 +78,7 @@ class StepConfig(NamedTuple):
     pass_targets: bool = False  # feed the targets into the model (RT-DETR's denoising queries)
     needs_dropout_rng: bool = False  # the model uses dropout in train mode
     frozen: tuple = ()  # top-level layer keys as the JAX package names them ("m0", ...), kept as they are
-    remat: object = False  # recompute the forward in the backward
+    remat: object = False  # recompute the forward in the backward: False, True/'full', 'seg' or 'light' (nn.model.remat_mode)
 
 
 def frozen_prefixes(frozen) -> Tuple[str, ...]:
@@ -190,8 +194,7 @@ def make_train_step(model: nn.Module, cfg: StepConfig, criterion: Optional[Calla
     the losses and grad_norm are tensors on the card.
     """
     criterion = criterion or detect_criterion
-    if cfg.remat:
-        raise NotImplementedError("remat is not ported yet (ROADMAP queue 1, item 19)")
+    remat = {"remat": mode} if (mode := remat_mode(cfg.remat)) else {}  # validated here, as the JAX step does
     dn_gen = None
     if cfg.pass_targets:  # the denoising draws' generator, reseeded from the iteration
         dn_gen = torch.Generator(device=next(model.parameters()).device)
@@ -220,7 +223,7 @@ def make_train_step(model: nn.Module, cfg: StepConfig, criterion: Optional[Calla
         if dn_gen is not None:
             dn_gen.manual_seed((3 << 32) + state.step)
             targets = {k: batch[k] for k in ("cls", "bboxes", "mask")}
-        outputs = model(normalize_image_batch(batch["img"]), targets=targets)
+        outputs = model(normalize_image_batch(batch["img"]), targets=targets, **remat)
         total, items, new_ls = criterion(outputs, batch, state.loss_state, cfg.loss)
         total.backward()
         grads = {n: p.grad for n, p in params.items()}
@@ -269,3 +272,34 @@ def make_train_step(model: nn.Module, cfg: StepConfig, criterion: Optional[Calla
         return state, metrics
 
     return step_fn
+
+
+def make_chunked_train_step(model: nn.Module, cfg: StepConfig, criterion: Optional[Callable] = None,
+                            item_names: Tuple[str, ...] = DETECT_ITEMS) -> Callable:
+    """(state, batches) -> (state, metrics): K steps of ``make_train_step`` over a stacked batch, each
+    tensor of ``batches`` (K, B, ...) on the model's device (``engine/trainer.py stack_batches``: one
+    pinned copy per key). The same as K calls of the step, since warmup, the schedule, accumulation and
+    the EMA decay are functions of the step count the state carries (the JAX package's
+    ``make_chunked_train_step``, a ``lax.scan`` of its step). ``metrics`` are (K,) float32 tensors on
+    the device, stacked without waiting for the device: reading them is left to the caller. A CUDA graph
+    of the K steps is later work (ROADMAP queue 2)."""
+    step = make_train_step(model, cfg, criterion, item_names)
+
+    def chunk_fn(state: TrainState, batches) -> Tuple[TrainState, dict]:
+        runs = []
+        for i in range(next(iter(batches.values())).shape[0]):
+            state, m = step(state, {n: v[i] for n, v in batches.items()})
+            runs.append(m)
+        dev = next(iter(batches.values())).device
+        return state, {n: _stacked([m[n] for m in runs], dev) for n in runs[0]}
+
+    return chunk_fn
+
+
+def _stacked(values, device: torch.device) -> torch.Tensor:
+    """K per-step metrics -> one (K,) float32 tensor on ``device``; host numbers (lr, updated) go there
+    through pinned memory, since a copy from pageable memory waits for the device's queue."""
+    if torch.is_tensor(values[0]):
+        return torch.stack(values).float()
+    t = torch.tensor(values, dtype=torch.float32)
+    return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t

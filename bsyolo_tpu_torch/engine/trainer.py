@@ -35,9 +35,14 @@ Detect's; ``assigner_bf16`` acts on the detection loss only, as in the JAX
 package (the task losses rank in float32). Classify graphs train with
 ``engine/classify.py ClassificationTrainer``.
 
+``chunk_steps=K`` (K > 1) runs K host batches at a time as one chunk
+(``make_chunked_train_step``: one stacked copy to the card, K steps, (K,)
+loss items summed on the card), an epoch's tail shorter than K step by step,
+as the JAX trainer does; it is off under ``multi_scale``, as there.
+
 Options not ported yet raise ``NotImplementedError`` naming their ROADMAP
 item: ``plots=True`` and ``profile=True`` and ``batch=-1`` (item 16),
-``chunk_steps > 1`` (item 22), more than one process (item 14).
+more than one process (item 14).
 """
 
 from __future__ import annotations
@@ -56,7 +61,8 @@ from bsyolo_tpu_torch import select_device
 from bsyolo_tpu_torch.cfg import get_cfg, model_yaml_path
 from bsyolo_tpu_torch.data import DataLoader, YOLODataset, load_dataset_yaml
 from bsyolo_tpu_torch.engine.optim import OptimConfig, resolve_auto
-from bsyolo_tpu_torch.engine.train_step import StepConfig, init_train_state, make_train_step, task_criterion
+from bsyolo_tpu_torch.engine.train_step import (StepConfig, init_train_state, make_chunked_train_step,
+                                                 make_train_step, task_criterion)
 from bsyolo_tpu_torch.engine.validator import DetectionValidator, OBBValidator, PoseValidator, SegmentationValidator
 from bsyolo_tpu_torch.losses import DetectionLossConfig
 from bsyolo_tpu_torch.nn.model import bind_text, build_model
@@ -76,33 +82,45 @@ def refuse_unported(args) -> None:
         raise NotImplementedError("profile=True is not ported yet (ROADMAP queue 1, item 16)")
     if args.batch is not None and int(args.batch) < 1:
         raise NotImplementedError("batch=-1 (autobatch) is not ported yet (ROADMAP queue 1, item 16)")
-    if int(getattr(args, "chunk_steps", 0) or 0) > 1:
-        raise NotImplementedError("chunk_steps > 1 (a CUDA graph of K steps) is not ported yet (ROADMAP queue 1, "
-                                  "item 22)")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError("training in more than one process is not ported yet (ROADMAP queue 1, item 14)")
 
 
 def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
-    """A loader batch -> tensors on ``device``: img NHWC uint8 -> NCHW uint8 (through pinned
-    memory where ``device`` is a card), cls as int64."""
+    """A loader batch -> tensors on ``device``: img (..., H, W, 3) uint8 -> (..., 3, H, W) uint8
+    (through pinned memory where ``device`` is a card), cls as int64."""
     out = {}
     for k, v in batch.items():
         t = torch.from_numpy(np.ascontiguousarray(v))
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
         if k == "img":  # a contiguous NCHW copy: a permuted view would carry channels-last strides into the graph
-            t = t.permute(0, 3, 1, 2).contiguous()
+            t = t.movedim(-1, -3).contiguous()
         elif k == "cls":
             t = t.long()
         out[k] = t
     return out
 
 
+def stack_batches(batches, device: torch.device) -> Dict[str, torch.Tensor]:
+    """K loader batches -> one dict of (K, B, ...) tensors on ``device`` (``make_chunked_train_step``'s
+    input): the arrays stacked on the host, then ``to_device``, one pinned copy per key."""
+    return to_device({k: np.stack([b[k] for b in batches]) for k in batches[0]}, device)
+
+
 def val_batches(loader, device):
     """Validation batches for ``DetectionValidator``: the image on the card as NCHW, the labels numpy."""
     for b in loader:
         yield {**b, "img": to_device({"img": b["img"]}, device)["img"]}
+
+
+def _add_losses(em: Dict[str, torch.Tensor], metrics) -> None:
+    """Sum the loss items of a step (scalars) or of a chunk ((K,) tensors) into ``em`` on the device:
+    nothing is read back per step."""
+    for k, v in metrics.items():
+        if k.endswith("loss"):
+            v = v.sum() if v.ndim else v
+            em[k] = em[k] + v if k in em else v.clone()
 
 
 class DetectionTrainer:
@@ -179,6 +197,10 @@ class DetectionTrainer:
                                    pass_targets=self.spec.head.module == "RTDETRDecoder")
         criterion, self.item_names = task_criterion(self.spec, bool(args.overlap_mask), args.pose, args.kobj)
         self.train_step = make_train_step(self.model, self.step_cfg, criterion, self.item_names)
+        self.chunk_steps = int(getattr(args, "chunk_steps", 0) or 0)
+        self.chunk_step = None  # K steps per call; off under multi_scale, as in the JAX trainer
+        if self.chunk_steps > 1 and not args.multi_scale:
+            self.chunk_step = make_chunked_train_step(self.model, self.step_cfg, criterion, self.item_names)
         self.state = init_train_state(self.model, self.step_cfg)
         validator_cls = {"segment": SegmentationValidator, "pose": PoseValidator, "obb": OBBValidator}.get(
             task, DetectionValidator)
@@ -278,6 +300,7 @@ class DetectionTrainer:
                 em, n, wait = {}, 0, 0.0
                 epoch_t0 = time.perf_counter()
                 it = iter(self.train_loader)
+                chunk = []  # host batches waiting for a full chunk
                 while True:
                     t0 = time.perf_counter()
                     try:
@@ -285,16 +308,15 @@ class DetectionTrainer:
                     except StopIteration:
                         break
                     wait += time.perf_counter() - t0
-                    batch = to_device(host, self.device)
-                    if self._ms_sizes:
-                        batch = self._apply_multi_scale(batch, epoch * self.nb + n)
-                    if self.first_batch is None:
-                        self.first_batch = batch
-                    self.state, m = self.train_step(self.state, batch)
-                    n += 1
-                    for k, v in m.items():
-                        if k.endswith("loss"):  # summed on the card: nothing is read back per step
-                            em[k] = em[k] + v if k in em else v.clone()
+                    if self.chunk_step is not None:
+                        chunk.append(host)
+                        if len(chunk) == self.chunk_steps:
+                            n += self._run_chunk(chunk, em)
+                            chunk = []
+                        continue
+                    n += self._run_step(to_device(host, self.device), em, epoch * self.nb + n)
+                for host in chunk:  # an epoch's tail shorter than a chunk, step by step
+                    n += self._run_step(to_device(host, self.device), em, epoch * self.nb + n)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 em = {k: float(v) / max(n, 1) for k, v in em.items()}
@@ -344,6 +366,26 @@ class DetectionTrainer:
         self.callbacks.run("on_train_end", self)
         LOGGER.info(f"done: {stop_epoch} epochs, best fitness {self.best_fitness:.4f}")
         return self.metrics
+
+    def _run_step(self, batch, em, ni: int) -> int:
+        """One train step on a batch on the device; its loss items summed into ``em``."""
+        if self._ms_sizes:
+            batch = self._apply_multi_scale(batch, ni)
+        if self.first_batch is None:
+            self.first_batch = batch
+        self.state, m = self.train_step(self.state, batch)
+        _add_losses(em, m)
+        return 1
+
+    def _run_chunk(self, hosts, em) -> int:
+        """K host batches as one stacked copy to the device and one chunked call; the (K,) loss items
+        summed into ``em`` on the card."""
+        batches = stack_batches(hosts, self.device)
+        if self.first_batch is None:
+            self.first_batch = {k: v[0] for k, v in batches.items()}
+        self.state, m = self.chunk_step(self.state, batches)
+        _add_losses(em, m)
+        return len(hosts)
 
     def _log_epoch(self, epoch, em, fitness):
         # loss columns in sorted order, as the JAX trainer writes them (its step's metrics are a sorted pytree)

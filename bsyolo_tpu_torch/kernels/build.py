@@ -2,7 +2,7 @@
 
 Each ``csrc/<name>.cu`` (a CUDA kernel) compiles on first use with nvcc, and
 each ``csrc/<name>.cpp`` (host code: the JPEG codec, the polygon fill, the
-mask border follower) with the host C++ compiler, into a shared library with a plain C interface under
+mask border follower) and the repository's ``native/bsyolo_native.cpp`` with the host C++ compiler, into a shared library with a plain C interface under
 ``build/bsyolo_tpu_torch/`` beside the package, named by a hash of its source
 and flags, so an edited source rebuilds and an unchanged one loads at once
 (loading runs no compiler; the build records which compiler made it). The host route takes no ``-march=native`` and no ``-ffast-math``: the
@@ -25,7 +25,10 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "bsyolo_tpu_torch"
+REPO = Path(__file__).resolve().parents[2]
+BUILD_DIR = REPO / "build" / "bsyolo_tpu_torch"
+# host sources outside csrc/: the repository's framework-free runtime support library (utils/native.py)
+HOST_SOURCES = {"bsyolo_native": REPO / "native" / "bsyolo_native.cpp"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -63,7 +66,9 @@ def cxx_version(path: str) -> str:
 
 
 def source(name: str) -> Path:
-    """``csrc/<name>.cu`` where it exists, else ``csrc/<name>.cpp``."""
+    """``csrc/<name>.cu`` where it exists, else ``csrc/<name>.cpp`` (or the ``HOST_SOURCES`` entry)."""
+    if name in HOST_SOURCES:
+        return HOST_SOURCES[name]
     cu = CSRC / f"{name}.cu"
     return cu if cu.exists() else CSRC / f"{name}.cpp"
 

@@ -26,13 +26,19 @@ first, as the Pallas kernels do.
 A launch checks the level table once per distinct shape and element size
 (``_layout``, cached) and per call only what can differ between calls of one
 shape: each level's device, dtype and contiguity.
+
+``box_best`` and ``decode_xywh`` are the PyTorch operators ``bsyolo::box_best``
+and ``bsyolo::decode_xywh`` (``torch.library.custom_op``), so that
+``torch.export`` records them as one node each, with a fake version that gives
+the outputs' shapes and dtypes: their implementation is the kernel on CUDA levels
+and the plain version on CPU ones, the same choice by device as before.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Sequence
+from typing import List, NamedTuple, Sequence
 
 import torch
 
@@ -221,12 +227,31 @@ def box_best_cuda(feats: Sequence[torch.Tensor], strides: Sequence[int], nc: int
 box_best_cuda.launches = 0
 
 
+@torch.library.custom_op("bsyolo::box_best", mutates_args=())
+def _box_best_op(feats: List[torch.Tensor], strides: List[int], nc: int, reg_max: int
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    if reg_max != REG_MAX or feats[0].is_cpu:
+        boxes, best, cls = box_best_reference(feats, strides, nc, reg_max)
+        return boxes, best, cls.contiguous()  # an operator's outputs are tensors of their own
+    return box_best_cuda(feats, strides, nc)
+
+
+def _anchor_count(feats) -> int:
+    return sum(f.shape[2] * f.shape[3] for f in feats)
+
+
+@_box_best_op.register_fake
+def _(feats, strides, nc, reg_max):
+    b, a = feats[0].shape[0], _anchor_count(feats)
+    f = feats[0]
+    return (f.new_empty((b, a, 4), dtype=torch.float32), f.new_empty((b, a), dtype=torch.float32),
+            f.new_empty((b, a, nc), dtype=torch.float32))
+
+
 def box_best(feats: Sequence[torch.Tensor], strides: Sequence[int], nc: int, reg_max: int = REG_MAX):
     """Per-level (B, no, H, W) maps -> ((B, A, 4) xyxy pixels, (B, A) max class logit,
-    (B, A, nc) class logits)."""
-    if reg_max != REG_MAX or feats[0].is_cpu:
-        return box_best_reference(feats, strides, nc, reg_max)
-    return box_best_cuda(feats, strides, nc)
+    (B, A, nc) class logits), through the operator ``bsyolo::box_best``."""
+    return torch.ops.bsyolo.box_best(list(feats), [int(s) for s in strides], int(nc), int(reg_max))
 
 
 def decode_xywh_reference(feats: Sequence[torch.Tensor], strides: Sequence[int], nc: int,
@@ -249,8 +274,19 @@ def decode_xywh_cuda(feats: Sequence[torch.Tensor], strides: Sequence[int], nc: 
 decode_xywh_cuda.launches = 0
 
 
-def decode_xywh(feats: Sequence[torch.Tensor], strides: Sequence[int], nc: int, reg_max: int = REG_MAX) -> torch.Tensor:
-    """Per-level (B, no, H, W) maps -> (B, A, 4 + nc) xywh pixels + sigmoid class scores."""
+@torch.library.custom_op("bsyolo::decode_xywh", mutates_args=())
+def _decode_xywh_op(feats: List[torch.Tensor], strides: List[int], nc: int, reg_max: int) -> torch.Tensor:
     if reg_max != REG_MAX or feats[0].is_cpu:
         return decode_xywh_reference(feats, strides, nc, reg_max)
     return decode_xywh_cuda(feats, strides, nc)
+
+
+@_decode_xywh_op.register_fake
+def _(feats, strides, nc, reg_max):
+    return feats[0].new_empty((feats[0].shape[0], _anchor_count(feats), 4 + nc), dtype=torch.float32)
+
+
+def decode_xywh(feats: Sequence[torch.Tensor], strides: Sequence[int], nc: int, reg_max: int = REG_MAX) -> torch.Tensor:
+    """Per-level (B, no, H, W) maps -> (B, A, 4 + nc) xywh pixels + sigmoid class scores, through the
+    operator ``bsyolo::decode_xywh``."""
+    return torch.ops.bsyolo.decode_xywh(list(feats), [int(s) for s in strides], int(nc), int(reg_max))

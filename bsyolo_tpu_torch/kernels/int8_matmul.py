@@ -15,6 +15,13 @@ is a multiple of 16 bytes (``tma_readable``); K itself may be any size. The
 int8 conv path hands it such operands: its im2col rows are written at that
 pitch (``empty_rows``), and its weight is an ``Int8Weight``, checked, laid out
 and described to TMA once. ``int8_matmul_prepared`` takes one.
+
+``int8_matmul`` is the PyTorch operator ``bsyolo::int8_matmul``
+(``torch.library.custom_op``, with a fake version of its output's shape and
+dtype), which ``torch.export`` records as one node: on CUDA tensors the kernel,
+with the weight's ``Int8Weight`` kept on the tensor that owns the weight's
+storage (``prepared_weight``), on CPU tensors the plain version. An exported
+int8 graph calls it; the eager int8 conv calls ``int8_matmul_prepared``.
 """
 
 from __future__ import annotations
@@ -236,9 +243,36 @@ def int8_matmul_prepared(x_i8: torch.Tensor, weight: Int8Weight, sx: torch.Tenso
     return _launch(x_i8, weight, sx, out_dtype)
 
 
-def int8_matmul(x_i8: torch.Tensor, w_i8: torch.Tensor, sw: torch.Tensor, sx: torch.Tensor,
-                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """(M, K) int8 x (K, N) int8 -> (M, N) ``out_dtype``, int32 sums dequantized by sx * sw."""
+def prepared_weight(w_i8: torch.Tensor, sw: torch.Tensor) -> Int8Weight:
+    """The ``Int8Weight`` of (w_i8, sw), kept as an attribute of the tensor that owns w_i8's storage
+    (its base: an exported graph's buffer of codes), so that it lives as long as that tensor, and
+    made again when w_i8 is another view or either tensor has changed in place. It reads the codes
+    through a tensor that shares their storage but is no view of the owner: a view would hold the
+    owner from C++, where the garbage collector cannot see the cycle."""
+    owner = w_i8 if w_i8._base is None else w_i8._base
+    key = (w_i8.data_ptr(), tuple(w_i8.shape), w_i8.stride(), w_i8._version, sw.data_ptr(), sw._version)
+    kept = getattr(owner, "_int8_weight", None)
+    if kept is None or kept[0] != key:
+        codes = w_i8.new_empty(0).set_(w_i8.untyped_storage(), w_i8.storage_offset(), w_i8.shape, w_i8.stride())
+        kept = owner._int8_weight = (key, Int8Weight(codes, sw))
+    return kept[1]
+
+
+@torch.library.custom_op("bsyolo::int8_matmul", mutates_args=())
+def _int8_matmul_op(x_i8: torch.Tensor, w_i8: torch.Tensor, sw: torch.Tensor, sx: torch.Tensor,
+                    out_dtype: torch.dtype) -> torch.Tensor:
     if x_i8.device.type == "cpu":
         return int8_matmul_reference(x_i8, w_i8, sw, sx, out_dtype)
-    return int8_matmul_cuda(x_i8, w_i8, sw, sx, out_dtype)
+    return _launch(x_i8, prepared_weight(w_i8, sw), sx, out_dtype)
+
+
+@_int8_matmul_op.register_fake
+def _(x_i8, w_i8, sw, sx, out_dtype):
+    return x_i8.new_empty((x_i8.shape[0], w_i8.shape[1]), dtype=out_dtype)
+
+
+def int8_matmul(x_i8: torch.Tensor, w_i8: torch.Tensor, sw: torch.Tensor, sx: torch.Tensor,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(M, K) int8 x (K, N) int8 -> (M, N) ``out_dtype``, int32 sums dequantized by sx * sw
+    (the operator ``bsyolo::int8_matmul``)."""
+    return torch.ops.bsyolo.int8_matmul(x_i8, w_i8, sw, sx, out_dtype)

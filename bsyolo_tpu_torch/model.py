@@ -110,15 +110,25 @@ class YOLO:
         drawn from ``seed``."""
         if task is not None and task not in HEAD_TASKS.values():
             raise ValueError(f"unknown task {task!r}: one of {sorted(HEAD_TASKS.values())}")
+        from bsyolo_tpu_torch.engine.backend import AutoBackend, artifact_kind
+
         self.model_path = str(model)
         suffix = Path(self.model_path).suffix
-        if suffix not in (".yaml", ".ckpt", ".pt"):
-            raise NotImplementedError(f"{self.model_path}: exported formats are not ported yet (ROADMAP queue 1, "
-                                      "item 15); the port loads .yaml graphs, .ckpt checkpoints and .pt weights")
+        kind = artifact_kind(self.model_path)
+        if suffix in (".stablehlo", ".stablehlo-int8", ".tflite") or self.model_path.endswith(".stablehlo-int8"):
+            raise ValueError(f"{self.model_path} is a JAX package artifact (bsyolo_tpu); the port's artifacts are .pt2, "
+                             ".pt2-int8 and .onnx (YOLO.export(format='pt2'))")
+        if suffix not in (".yaml", ".ckpt", ".pt") and kind not in ("pt2", "onnx"):
+            raise ValueError(f"{self.model_path}: the port loads .yaml graphs, .ckpt checkpoints, .pt weights and "
+                             ".pt2, .pt2-int8 and .onnx artifacts")
         if suffix == ".pt":
             raise ValueError("a reference .pt carries no graph the port can build; use "
                              "YOLO('<model>.yaml').load('<weights>.pt')")
-        self._device = select_device(device)
+        self._device = select_device(device) if kind != "onnx" else torch.device("cpu")
+        # an exported artifact (reference YOLO("best.onnx")): predict and val run it through AutoBackend
+        self._artifact = self.model_path if kind in ("pt2", "onnx") else None
+        self._backend = None
+        self.artifact_meta = AutoBackend._load_meta(Path(self.model_path)) if self._artifact else {}
         self.metrics = None
         self.trainer = None
         self.ckpt_meta = None
@@ -129,18 +139,34 @@ class YOLO:
         self._tracker = None  # the tracker that track(persist=True) goes on with
         self.predictor = None  # the last predict()'s DetectionPredictor (its reader_wait and wall seconds)
         self.txt_feats = None  # a YOLO-World graph's bound text, (1, K, 512) float32 (None: the placeholder)
-        if suffix == ".ckpt":
+        if self._artifact:
+            self.spec = self.model = None
+            self._img_size = int(self.artifact_meta.get("imgsz") or 640)
+        elif suffix == ".ckpt":
             self._load_ckpt(self.model_path, seed)
         else:
             self._new(self.model_path, seed)
-        if task is not None and task != self.spec.task:
+        if task is not None and task != self.task:
             raise ValueError(f"task={task!r}, but {self.model_path} has a {self.spec.head.module} head "
                              f"(task {self.spec.task!r})")
 
     @property
     def task(self) -> str:
-        """detect, segment, pose, obb or classify: the graph's head decides."""
-        return self.spec.task
+        """detect, segment, pose, obb or classify: the graph's head decides (an artifact's sidecar)."""
+        return self.spec.task if self.spec is not None else self.artifact_meta.get("task", "detect")
+
+    def _need_graph(self, what: str) -> None:
+        if self._artifact:
+            raise ValueError(f"{what} needs the live graph; {self._artifact} is an exported artifact (it predicts and "
+                             "validates): rebuild from the .yaml/.ckpt")
+
+    def backend(self):
+        """The ``AutoBackend`` of this facade's artifact (``YOLO("x.pt2")``), loaded once."""
+        from bsyolo_tpu_torch.engine.backend import AutoBackend
+
+        if self._backend is None:
+            self._backend = AutoBackend(self._artifact, self._img_size, device=self._device)
+        return self._backend
 
     def _new(self, yaml_name: str, seed: int = 0, nc: Optional[int] = None, names=None, kpt_shape=None):
         d = load_model_yaml(model_yaml_path(yaml_name))
@@ -185,6 +211,7 @@ class YOLO:
         """Load a reference torch checkpoint (``.pt``: a state_dict or a pickled module) into
         the graph. Parameters the file lacks keep their values, with a warning naming how
         many, and keys the graph lacks are ignored, as in the JAX package."""
+        self._need_graph("load")
         report = self.model.load_state_dict(load_reference_state_dict(weights), strict=False)
         n_missing = sum(not k.endswith("num_batches_tracked") for k in report.missing_keys)
         if n_missing:
@@ -197,6 +224,7 @@ class YOLO:
         and again when a convolution weight (by storage and version) or the int8 mode changes;
         the graph runs eagerly, so no input size enters the key; a YOLO-World graph's copy shares its text,
         and a new text (``set_classes``) makes a new copy."""
+        self._need_graph("half_graph")
         convs = cast_convs(self.model)
         text = getattr(self.model, "txt_feats", None)
         key = (id(self.model), tuple((p.data_ptr(), p._version) for m in convs for p in m.parameters()),
@@ -209,11 +237,13 @@ class YOLO:
     def fuse(self) -> "YOLO":
         """Returns ``self``, as the JAX facade's ``fuse`` does (kept for API parity): the BatchNorm of
         each ``Conv`` stays a separate per-channel affine."""
+        self._need_graph("fuse")
         return self
 
     def reset_weights(self) -> "YOLO":
         """Draw the weights again from the seed this facade was built with (the graph rebuilt from its
         spec, float32) and drop the cached predictor and bf16 graph. Returns ``self``."""
+        self._need_graph("reset_weights")
         self.model = build_model(self.model.spec, self._device, self._seed)
         if self.txt_feats is not None:
             bind_text(self.model, self.txt_feats)
@@ -223,12 +253,15 @@ class YOLO:
     def info(self) -> Dict[str, int]:
         """The graph's layer count and parameter count (BatchNorm's running statistics not counted, as
         the JAX package's ``count_params``), logged in the JAX package's line."""
+        self._need_graph("info")
         n = count_params(self.model)
         LOGGER.info(f"{self.model_path}: {len(self.spec.layers)} layers, {n:,} parameters")
         return {"layers": len(self.spec.layers), "parameters": n}
 
     @property
     def names(self) -> Dict[int, str]:
+        if self.spec is None:
+            return dict(enumerate(self.artifact_meta.get("names") or []))
         return dict(enumerate(self.spec.names))
 
     @property
@@ -257,6 +290,8 @@ class YOLO:
                 raise NotImplementedError(f"predict({k}=...) is not ported yet (ROADMAP {_NOT_PORTED[k]})")
             if k not in _PREDICT_ARGS and k not in _NOT_PORTED:
                 raise TypeError(f"predict() got an unexpected keyword argument {k!r}")
+        if self._artifact:
+            return self._predict_artifact(source, stream, kwargs)
         if kwargs.get("retina_masks") and self.task != "segment":
             raise NotImplementedError(f"predict(retina_masks=True) assembles the masks of a Segment graph; this graph "
                                       f"has a {self.spec.head.module} head")
@@ -281,7 +316,10 @@ class YOLO:
                                verbose=kwargs.get("verbose", False))
         if stream:
             return gen
-        results = list(gen)
+        return self._outputs(list(gen), kwargs)
+
+    def _outputs(self, results, kwargs):
+        """predict's files and window (``save``, ``save_txt``, ``save_crop``, ``show``); returns ``results``."""
         out_dir = Path(kwargs.get("project") or "runs/detect") / (kwargs.get("name") or "predict")
         if kwargs.get("save"):
             self._save_results(results, out_dir, kwargs)
@@ -295,6 +333,24 @@ class YOLO:
         if kwargs.get("show"):
             self._show_results(results, kwargs)
         return results
+
+    def _predict_artifact(self, source, stream: bool, kwargs):
+        """``predict`` of a Detect-family artifact through ``AutoBackend`` at its static imgsz and batch
+        (``engine/backend.py artifact_predictor``); options the artifact cannot honour raise."""
+        from bsyolo_tpu_torch.engine.backend import artifact_predictor
+
+        for k in ("augment", "half", "retina_masks"):
+            if kwargs.get(k):
+                raise ValueError(f"predict({k}=True) needs the live graph; {self._artifact} is an exported artifact")
+        conf = kwargs.get("conf")
+        self.predictor = predictor = artifact_predictor(
+            self.backend(), conf=0.25 if conf is None else conf, iou=kwargs.get("iou", 0.7),
+            max_det=kwargs.get("max_det", 300), classes=kwargs.get("classes"),
+            agnostic_nms=kwargs.get("agnostic_nms", False), stream_buffer=bool(kwargs.get("stream_buffer", False)))
+        gen = predictor.stream(source, vid_stride=int(kwargs.get("vid_stride") or 1), verbose=kwargs.get("verbose", False))
+        if stream:
+            return gen
+        return self._outputs(list(gen), kwargs)
 
     @staticmethod
     def _plot_options(kwargs) -> dict:
@@ -359,6 +415,7 @@ class YOLO:
         pooled outputs of the ``embed`` layers, concatenated (the second-to-last layer by default),
         of the image letterboxed on the host (``letterbox_image``, as the JAX package's embed) and run
         on this model's device. A list, or a generator with ``stream=True``."""
+        self._need_graph("embed")
         import numpy as np
 
         from bsyolo_tpu_torch.engine.predictor import iter_source
@@ -387,6 +444,7 @@ class YOLO:
         the trained EMA weights and the trainer's graph (the bf16 graph under ``amp=True``, the
         default). A YOLO-World graph trains against the text of the data's class names. Returns the
         last validation's metrics."""
+        self._need_graph("train")
         overrides = dict(kwargs)
         overrides.setdefault("model", self.model_path)
         overrides.setdefault("device", str(self._device))
@@ -431,6 +489,13 @@ class YOLO:
         data = data or (self.trainer.args.data if self.trainer is not None else None)
         if data is None:
             raise ValueError("val() needs data=<dataset yaml>")
+        if self._artifact:  # artifact val (reference `yolo val model=best.onnx`)
+            from bsyolo_tpu_torch.engine.backend import validate_artifact
+
+            vkw = {k: kwargs[k] for k in ("conf", "iou", "max_det", "split", "max_gt") if kwargs.get(k) is not None}
+            self.metrics = validate_artifact(self._artifact, data, batch=batch, imgsz=imgsz, backend=self.backend(),
+                                             verbose=bool(kwargs.get("verbose", True)), **vkw)
+            return self.metrics
         if self.task == "classify":
             return self._val_classify(data, batch, imgsz or self._img_size, **kwargs)
         d = load_dataset_yaml(data)
@@ -482,6 +547,7 @@ class YOLO:
 
     def save(self, path: Union[str, Path]) -> Union[str, Path]:
         """Write the current weights as a ``.ckpt`` that ``YOLO()`` of either package loads."""
+        self._need_graph("save")
         from bsyolo_tpu_torch.engine.train_step import init_train_state
 
         meta = {"args": {"model": self.model_path if Path(self.model_path).suffix == ".yaml" else
@@ -524,8 +590,15 @@ class YOLO:
             return [track_results(self._tracker, r) for r in results]
         return (track_results(self._tracker, r) for r in results)
 
-    def export(self, **kwargs):
-        raise NotImplementedError("export is not ported yet (ROADMAP queue 1, item 15)")
+    def export(self, format: str = "pt2", imgsz: Optional[int] = None, batch: int = 1, nms: bool = False,
+               output: Optional[str] = None) -> str:
+        """Write this graph as an artifact (``engine/exporter.py``): ``pt2``, ``pt2-int8``, ``onnx`` or ``params``
+        (a ``.ckpt``), at a static (batch, imgsz); ``nms=True`` bakes NMS into a Detect graph's artifact.
+        Returns the artifact's path; ``YOLO(path)`` predicts and validates with it."""
+        from bsyolo_tpu_torch.engine.exporter import export_model
+
+        self._need_graph("export")
+        return export_model(self, format=format, imgsz=imgsz, batch=batch, nms=nms, output=output)
 
 
 class RTDETR(YOLO):

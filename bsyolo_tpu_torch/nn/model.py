@@ -9,17 +9,29 @@ A YOLO-World graph carries its text, (1, K, 512), as the non-persistent
 buffer ``txt_feats`` (``bind_text``; the JAX package's ``TextConditioned``
 wrapper): it is not in the ``state_dict``, every engine that runs a graph
 runs it with its text, and ``cast_inference_graph``'s copy shares it.
+
+In train mode the walk can recompute its forward in the backward (``remat``,
+the JAX step's ``remat_policy``): ``seg`` keeps only each top-level layer's
+output and recomputes each run of layers from it (``torch.utils.checkpoint``,
+non-reentrant), and ``full`` takes the same path; ``light`` keeps everything
+autograd keeps but those outputs, which the backward makes again from their
+last op's saved input. A recomputed forward draws what the first drew from the
+graph's explicit generators and leaves the BatchNorm statistics as the first
+left them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import itertools
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from bsyolo_tpu_torch.nn import modules as M
 from bsyolo_tpu_torch.nn import modules_nas as NAS
@@ -170,45 +182,218 @@ class DetectionGraph(nn.Module):
             placeholder = np.random.default_rng(0).normal(size=(1, spec.nc, 512)).astype(np.float32)
             self.register_buffer("txt_feats", torch.from_numpy(placeholder), persistent=False)
 
-    def forward(self, x: torch.Tensor, embed: Sequence[int] = (), targets: Optional[Dict[str, torch.Tensor]] = None):
+    def forward(self, x: torch.Tensor, embed: Sequence[int] = (), targets: Optional[Dict[str, torch.Tensor]] = None,
+                remat=None):
         """The head's list of per-level maps; with ``embed`` (layer indices), the global-average-pooled
         outputs of those layers concatenated over channels, (B, C1 + C2 + ...), the walk stopping at the
         last of them (``bsyolo_tpu/nn/model.py`` embed). ``targets`` (the padded labels ``cls``,
         ``bboxes``, ``mask``) go to an RTDETRDecoder head, whose train mode builds denoising queries
         from them. A YOLO-World graph reads its ``txt_feats`` (B or 1, K, 512; ``bind_text``), in the
         dtype of the map that meets it first: C2fAttn takes the running text, ImagePoolingAttn
-        replaces it, WorldDetect takes the text as it came in."""
+        replaces it, WorldDetect takes the text as it came in. ``remat`` (``remat_mode``'s values)
+        recomputes the forward in the backward, in train mode with gradients on."""
+        mode = remat_mode(remat) if self.training and torch.is_grad_enabled() else None
+        if mode is None:
+            return self._walk(x, targets, embed)
+        if mode == "light":
+            with _light_saves() as boundary:
+                return self._walk(x, targets, boundary=boundary)
+        # full takes seg's path, which on eager PyTorch holds what JAX's full holds at its peak (the runs'
+        # boundaries and one run's activations): a checkpoint of the whole walk around the runs measured the
+        # same peak memory on the card and one more forward of time (PERF.md)
+        return self._walk(x, targets, segments=_Replay(self))
+
+    def _layer(self, layer: LayerSpec, m: nn.Module, x, saved: Dict[int, torch.Tensor], text, targets):
+        """One layer of the walk: (its output, the running text (txt, ori_txt))."""
+        txt, ori_txt = text
+        if layer.module in TEXT_MODULES:
+            if ori_txt is None:  # the JAX graph casts the text to its compute dtype once
+                txt = ori_txt = txt.to(x.dtype)
+            feats = [x if j == -1 else saved[j] for j in layer.f]
+            if layer.module == "C2fAttn":
+                x = m(feats[0], txt)
+            elif layer.module == "ImagePoolingAttn":
+                x = txt = m(feats, txt)
+            else:
+                x = m(feats, ori_txt)
+        elif layer.module == "RTDETRDecoder":
+            x = m([x if j == -1 else saved[j] for j in layer.f], targets=targets)
+        elif len(layer.f) > 1:
+            x = m([x if j == -1 else saved[j] for j in layer.f])
+        else:
+            x = m(x if layer.f[0] == -1 else saved[layer.f[0]])
+        return x, (txt, ori_txt)
+
+    def _walk(self, x: torch.Tensor, targets=None, embed: Sequence[int] = (), boundary=None, segments=None):
+        """Run the layers. ``boundary(output)`` is called after each layer whose output the JAX walk tags as
+        a remat boundary (``is_boundary``); with ``segments`` (a ``_Replay``) each run of layers up to and
+        including such a layer, the head's run last, is checkpointed on its own (remat ``seg``)."""
         saved: Dict[int, torch.Tensor] = {}
         save = set(self.spec.save)
         pooled: List[torch.Tensor] = []
         last = max(embed) if embed else -1
-        txt = ori_txt = None
+        text = (None, None)
         if self.world:
-            txt = self.txt_feats.expand(x.shape[0], -1, -1) if self.txt_feats.shape[0] == 1 else self.txt_feats
+            text = (self.txt_feats.expand(x.shape[0], -1, -1) if self.txt_feats.shape[0] == 1 else self.txt_feats,
+                    None)
+        if segments is not None:
+            return self._walk_segments(x, targets, saved, text, segments)
         for layer, m in zip(self.spec.layers, self.model):
-            if layer.module in TEXT_MODULES:
-                if ori_txt is None:  # the JAX graph casts the text to its compute dtype once
-                    txt = ori_txt = txt.to(x.dtype)
-                feats = [x if j == -1 else saved[j] for j in layer.f]
-                if layer.module == "C2fAttn":
-                    x = m(feats[0], txt)
-                elif layer.module == "ImagePoolingAttn":
-                    x = txt = m(feats, txt)
-                else:
-                    x = m(feats, ori_txt)
-            elif layer.module == "RTDETRDecoder":
-                x = m([x if j == -1 else saved[j] for j in layer.f], targets=targets)
-            elif len(layer.f) > 1:
-                x = m([x if j == -1 else saved[j] for j in layer.f])
-            else:
-                x = m(x if layer.f[0] == -1 else saved[layer.f[0]])
+            x, text = self._layer(layer, m, x, saved, text, targets)
             if layer.i in save:
                 saved[layer.i] = x
+            if boundary is not None and is_boundary(layer, x):
+                boundary(x)
             if layer.i in embed:
                 pooled.append(x.mean((2, 3)) if x.ndim == 4 else x.reshape(x.shape[0], -1))
                 if layer.i == last:
                     return torch.cat(pooled, 1)
         return x
+
+    def _walk_segments(self, x, targets, saved, text, replay: "_Replay"):
+        """The walk as checkpointed runs of layers, each ending at a boundary layer (or the head): a
+        run keeps its inputs (the previous boundary, the saved outputs it reads, the text) and
+        recomputes the rest in the backward."""
+        layers = list(zip(self.spec.layers, self.model))
+        save = set(self.spec.save)
+        start = 0
+        while start < len(layers):
+            end = start
+            while end < len(layers) - 1 and not is_boundary_module(layers[end][0]):
+                end += 1
+            run = layers[start : end + 1]
+            reads = sorted({j for layer, _ in run for j in layer.f if j != -1 and j < run[0][0].i})
+            produced = [layer.i for layer, _ in run if layer.i in save]
+
+            def seg_fn(xin, txt, ori_txt, *inputs, run=run, reads=reads, produced=produced):
+                local = dict(zip(reads, inputs))
+                t = (txt, ori_txt)
+                for layer, m in run:
+                    xin, t = self._layer(layer, m, xin, local, t, targets)
+                    if layer.i in save:
+                        local[layer.i] = xin
+                return (xin, *t, *(local[i] for i in produced))
+
+            outs = checkpoint(replay.wrap(seg_fn), x, *text, *(saved[j] for j in reads), use_reentrant=False)
+            x, text = outs[0], (outs[1], outs[2])
+            saved.update(zip(produced, outs[3:]))
+            start = end + 1
+        return x
+
+
+_REARRANGE = ("Concat", "Upsample", "Index", "Identity", "SpaceToDepth", "ZeroPad2d")
+
+
+def is_boundary_module(layer: LayerSpec) -> bool:
+    """Whether the JAX walk may tag ``layer``'s output ``bs_seg`` (``bsyolo_tpu/nn/model.py``): every
+    layer but the pure rearrangements, where its output is a 4-D map."""
+    return layer.module not in _REARRANGE
+
+
+def is_boundary(layer: LayerSpec, out) -> bool:
+    """Whether the JAX walk tags this output of ``layer`` as a remat boundary: a 4-D map of a layer
+    that is not a pure rearrangement."""
+    return is_boundary_module(layer) and torch.is_tensor(out) and out.ndim == 4
+
+
+def remat_mode(remat) -> Optional[str]:
+    """The ``remat`` setting -> None (off), ``"full"``, ``"seg"`` or ``"light"``, as the JAX step's
+    ``remat_policy`` reads it: False, '0', 'off', 'none' or '' is off; True or 'full' (in JAX: save
+    nothing but the input; here ``seg``'s path); 'seg' only each top-level layer's output; 'light'
+    everything but those."""
+    if not remat:
+        return None
+    mode = remat.lower() if isinstance(remat, str) else "full"
+    if mode in ("0", "false", "off", "none", ""):
+        return None
+    if mode in ("full", "true", "1"):
+        return "full"
+    if mode in ("seg", "light"):
+        return mode
+    raise ValueError(f"remat={remat!r}: expected False/'0'/'off', True/'full', 'seg', or 'light'")
+
+
+@contextlib.contextmanager
+def frozen_batch_stats(model: nn.Module):
+    """While open, ``model``'s BatchNorm layers normalize train-mode batches by their own statistics
+    and update no running statistics (a recomputed forward)."""
+    bns = [m for m in model.modules() if isinstance(m, M.BatchNorm2d)]
+    for m in bns:
+        m.frozen_stats = True
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.frozen_stats = False
+
+
+class _Replay:
+    """Wraps the functions that ``checkpoint`` runs twice: the first run of each keeps the states of
+    the graph's explicit generators (Classify's dropout, RT-DETR's denoising draws), and the second,
+    the recomputation in the backward, starts from them again (``checkpoint`` restores only the
+    default generators) with the BatchNorm statistics frozen, so it computes what the first did and
+    updates nothing twice."""
+
+    def __init__(self, model: nn.Module):
+        self.model = model
+        self.generators = [m.generator for m in model.modules() if getattr(m, "generator", None) is not None]
+
+    def wrap(self, fn):
+        states = []
+
+        def run(*args):
+            if not states:
+                states.append([g.get_state() for g in self.generators])
+                return fn(*args)
+            for g, st in zip(self.generators, states[0]):
+                g.set_state(st)
+            with frozen_batch_stats(self.model):
+                return fn(*args)
+
+        return run
+
+
+# remat light: the last op of a boundary output -> the output made again from what that op saved
+_REMAKE = {
+    "SiluBackward0": lambda node: F.silu(node._saved_self),
+    "HardswishBackward0": lambda node: F.hardswish(node._saved_self),
+    "MishBackward0": lambda node: F.mish(node._saved_self),
+    "LeakyReluBackward0": lambda node: F.leaky_relu(node._saved_self, node._saved_negative_slope),
+    "GeluBackward0": lambda node: F.gelu(node._saved_self, approximate=node._saved_approximate),
+}
+
+
+class _Remade(NamedTuple):
+    """What an op saves in place of a boundary output under remat ``light``: that output's last op."""
+
+    remake: Callable
+    node: object
+
+
+@contextlib.contextmanager
+def _light_saves():
+    """Remat ``light`` (JAX's ``save_anything_except_these_names('bs_seg')``), while open: autograd saves
+    what it saves, except the boundary outputs passed to the yielded function, which an op that saves one
+    keeps as its last op (an activation, ``_REMAKE``), run again on that op's saved input when the backward
+    reads it. Nothing else holds them, so they are freed after the forward. An output whose last op saved
+    it (ReLU) or nothing (an add) is kept as it is."""
+    outputs: Dict[int, torch.Tensor] = {}
+
+    def register(out: torch.Tensor) -> None:
+        if type(out.grad_fn).__name__ in _REMAKE:
+            outputs[id(out)] = out
+
+    def pack(t: torch.Tensor):
+        return _Remade(_REMAKE[type(t.grad_fn).__name__], t.grad_fn) if outputs.get(id(t)) is t else t
+
+    def unpack(saved):
+        return saved.remake(saved.node) if isinstance(saved, _Remade) else saved
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+        try:
+            yield register
+        finally:
+            outputs.clear()
 
 
 def bind_text(model: DetectionGraph, text) -> DetectionGraph:

@@ -143,11 +143,17 @@ class BatchNorm2d(nn.BatchNorm2d):
     variance, E[x^2] - E[x]^2 clipped at 0, as flax computes it. Stock
     ``torch.nn.BatchNorm2d`` puts the unbiased variance (times n / (n - 1)) into
     ``running_var``, which at a 4 x 4 level and batch 2 is 3 % larger per step.
+    While ``frozen_stats`` is set (``frozen_batch_stats``: a recomputed forward
+    under remat) train mode normalizes by the batch and leaves the statistics as they are.
     """
+
+    frozen_stats = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.frozen_stats:
+            return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
             xf = x.detach().float()
             mean = xf.mean((0, 2, 3))
@@ -182,6 +188,7 @@ class Conv(nn.Module):
         self.act_absmax: Optional[float] = None  # static activation abs-max from calibration; None: dynamic
         self._int8_cache = None  # (weight key, Int8Weight of the (K, N) codes and (N,) scales, static sx, 1 / sx)
         self._calib_hook = None  # forward pre-hook on self.conv while calibrating
+        self.int8_frozen = False  # codes held as buffers (freeze_int8_codes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.int8 and not self.training and self.conv.groups == 1:
@@ -192,32 +199,45 @@ class Conv(nn.Module):
         """The weight as an ``Int8Weight`` (codes (Cin * kh * kw, N) and per-channel
         scales (N,), held as (N, K) rows at a 16-byte pitch and checked once), and
         the static activation scale and its float32 reciprocal (None, None when
-        dynamic), cached until the weight's version, storage or device changes."""
-        from bsyolo_tpu_torch.kernels.int8_matmul import Int8Weight, empty_rows  # here: kernels imports this module
+        dynamic), cached on this conv until the weight's version, storage or device
+        changes."""
+        from bsyolo_tpu_torch.kernels.int8_matmul import Int8Weight  # here: kernels imports this module
 
         w = self.conv.weight
         key = (w._version, w.data_ptr(), w.device)
         if self._int8_cache is None or self._int8_cache[0] != key:
-            with torch.no_grad():
-                wf = w.detach().float()
-                sw = wf.abs().amax((1, 2, 3)).clamp_min(1e-12) * INV_127
-                wq = torch.round(wf / sw[:, None, None, None]).clamp_(-127, 127).to(torch.int8)
-                rows = empty_rows(wq.shape[0], wq[0].numel(), w.device).copy_(wq.reshape(wq.shape[0], -1))
-                sx = inv_sx = None
-                if self.act_absmax is not None:  # divided in double, then rounded to float32, as JAX's static scale
-                    sx = torch.tensor(max(self.act_absmax, 1e-8) / 127.0, dtype=torch.float32, device=w.device)
-                    inv_sx = torch.reciprocal(sx)
-            self._int8_cache = (key, Int8Weight(rows.t(), sw), sx, inv_sx)
+            rows, sw, sx, inv_sx = self._int8_tensors(w)
+            self._int8_cache = (key, Int8Weight(rows[:, : w[0].numel()].t(), sw), sx, inv_sx)
         return self._int8_cache[1:]
 
+    def _int8_tensors(self, w: torch.Tensor):
+        """(padded (N, pitch) int8 rows, (N,) float32 scales, sx, 1 / sx) of the weight ``w``."""
+        from bsyolo_tpu_torch.kernels.int8_matmul import empty_rows  # here: kernels imports this module
+
+        with torch.no_grad():
+            wf = w.detach().float()
+            sw = wf.abs().amax((1, 2, 3)).clamp_min(1e-12) * INV_127
+            wq = torch.round(wf / sw[:, None, None, None]).clamp_(-127, 127).to(torch.int8)
+            rows = empty_rows(wq.shape[0], wq[0].numel(), w.device)
+            rows.copy_(wq.reshape(wq.shape[0], -1))
+            sx = inv_sx = None
+            if self.act_absmax is not None:  # divided in double, then rounded to float32, as JAX's static scale
+                sx = torch.tensor(max(self.act_absmax, 1e-8) / 127.0, dtype=torch.float32, device=w.device)
+                inv_sx = torch.reciprocal(sx)
+        return rows._base if rows._base is not None else rows, sw, sx, inv_sx
+
     def _int8_conv(self, x: torch.Tensor) -> torch.Tensor:
-        from bsyolo_tpu_torch.kernels.int8_matmul import empty_rows, int8_matmul_prepared
+        from bsyolo_tpu_torch.kernels.int8_matmul import empty_rows, int8_matmul, int8_matmul_prepared
 
         conv = self.conv
         if conv.dilation != (1, 1):
             raise NotImplementedError(f"int8 conv takes no dilation, got {conv}")
         (k, _), (s, _), (p, _) = conv.kernel_size, conv.stride, conv.padding
-        weight, sx, inv_sx = self._int8_codes()
+        kk = conv.weight[0].numel()
+        if self.int8_frozen:  # a graph to export: its codes are buffers, which go into the operator as tensors
+            sx, inv_sx = self.int8_sx, self.int8_inv_sx
+        else:
+            weight, sx, inv_sx = self._int8_codes()
         xf = x.float()
         if sx is None:  # dynamic: one abs-max over the whole batch, x / sx
             sx = xf.abs().amax().clamp_min(1e-8) * INV_127
@@ -233,12 +253,29 @@ class Conv(nn.Module):
             patches = F.pad(xq, (p, p, p, p)).unfold(2, k, s).unfold(3, k, s)  # (B, C, OH, OW, k, k)
             oh, ow = patches.shape[2:4]
             src = patches.permute(0, 2, 3, 1, 4, 5)  # (B, OH, OW, C, k, k)
-        # one copy into rows at a 16-byte pitch, which the kernel reads in place whatever K is
-        cols = empty_rows(B * oh * ow, weight.k, xq.device)
-        cols.view(src.shape).copy_(src)
         out_dtype = conv.compute_dtype or torch.float32
-        y = int8_matmul_prepared(cols, weight, sx, out_dtype)  # (B * OH * OW, Cout), channels last
-        return y.view(B, oh, ow, -1).permute(0, 3, 1, 2).contiguous()
+        if self.int8_frozen:  # one reshape, which the operator pitches if it must: bsyolo::int8_matmul
+            cols = src.reshape(B * oh * ow, kk)
+            y = int8_matmul(cols, self.int8_rows[:, :kk].t(), self.int8_sw, sx, out_dtype)
+        else:  # one copy into rows at a 16-byte pitch, which the kernel reads in place whatever K is
+            cols = empty_rows(B * oh * ow, kk, xq.device)
+            cols.view(src.shape).copy_(src)
+            y = int8_matmul_prepared(cols, weight, sx, out_dtype)
+        return y.view(B, oh, ow, -1).permute(0, 3, 1, 2).contiguous()  # y: (B * OH * OW, Cout), channels last
+
+    def freeze_int8_codes(self) -> None:
+        """Hold this conv's int8 codes, scales and static activation scale as buffers
+        (``int8_rows``, ``int8_sw``, ``int8_sx``, ``int8_inv_sx``), computed once from
+        the current weight: what the exporter does to its copy of a graph before
+        tracing, so the exported graph carries them as tensors into the operator
+        ``bsyolo::int8_matmul`` (the eager conv calls the kernel with its cached
+        ``Int8Weight``)."""
+        rows, sw, sx, inv_sx = self._int8_tensors(self.conv.weight)
+        self.register_buffer("int8_rows", rows, persistent=False)
+        self.register_buffer("int8_sw", sw, persistent=False)
+        self.register_buffer("int8_sx", sx, persistent=False)
+        self.register_buffer("int8_inv_sx", inv_sx, persistent=False)
+        self.int8_frozen = True
 
 
 def quantizable_convs(model: nn.Module):

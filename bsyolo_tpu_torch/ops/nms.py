@@ -32,10 +32,13 @@ def _greedy_keep(iou: torch.Tensor, valid: torch.Tensor, iou_thres: float):
 
     A Python loop to the fixed point, at most k iterations (a chain of k
     suppressions); its stop test reads one flag back from the device per iteration.
+    Under ``torch.export`` the same fixed point is a ``while_loop`` (``_greedy_keep_traced``).
     """
     k = iou.shape[-1]
     upper = torch.ones((k, k), dtype=torch.bool, device=iou.device).triu(1)  # i < j
     sup = (iou > iou_thres) & upper & valid[..., :, None]
+    if torch.compiler.is_exporting():
+        return _greedy_keep_traced(sup, valid)
     keep = valid
     for _ in range(k):
         new_keep = valid & ~(sup & keep[..., :, None]).any(-2)
@@ -43,6 +46,24 @@ def _greedy_keep(iou: torch.Tensor, valid: torch.Tensor, iou_thres: float):
             break
         keep = new_keep
     return keep
+
+
+def _greedy_keep_traced(sup: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """``_greedy_keep``'s fixed point as a ``while_loop`` that ``torch.export`` records (its stop test is a
+    tensor, not a value read back): at most k iterations, the same keep mask. The ONNX writer lowers it to
+    a ``Loop`` (``onnx/lower.py``), as the JAX exporter lowers ``lax.while_loop``."""
+    from torch._higher_order_ops import while_loop
+
+    def cond(i, keep, changed):
+        return (i < sup.shape[-1]) & changed
+
+    def body(i, keep, changed):
+        new_keep = valid & ~(sup & keep[..., :, None]).any(-2)
+        return i + 1, new_keep, (new_keep != keep).any()
+
+    start = (torch.zeros((), dtype=torch.int64, device=sup.device), valid.clone(),
+             torch.ones((), dtype=torch.bool, device=sup.device))
+    return while_loop(cond, body, start)[1]
 
 
 def _nms(

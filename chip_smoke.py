@@ -250,10 +250,27 @@ this checkout; exits non-zero without them. Phases, each of which fails the run 
    cost of ``save_txt`` per frame (the predict with it against the one
    without) and of the border follower and cv2 per mask. The box decode
    kernel once per batch throughout.
+20. Export and serving, remat and chunked steps: (a) the yolo11n train step
+   at 640, batch 16, drawn weights, with remat off, full, seg and light from
+   the same weights and batches, each mode's loss items, BatchNorm
+   statistics and parameters against the plain step's, its ms per step and
+   peak memory (full and light below off); (b) ``YOLO.train`` one epoch at 320,
+   batch 12, on phase 9's data with ``chunk_steps=4`` (a chunk and a tail)
+   and with 0, two runs each in turns, the final parameters against each
+   other, ms per step and the loader's wait per step of both; (c) ``pt2`` at 640, batch 4, loaded in a fresh ``AutoBackend`` on
+   the card: rows against the live graph's decode, ``decode_xywh`` once per
+   call, export seconds, artifact against live ms per batch; (d)
+   ``pt2-int8`` of the same graph against the live int8 graph, 74
+   ``int8_matmul`` launches per forward (phase 6 times the operator
+   ``bsyolo::int8_matmul``, which such an artifact calls, beside the call
+   the eager conv makes); (e) ``onnx`` at 320, batch 1, on
+   the host's numpy runtime against the card's live graph, host seconds;
+   (f) artifact ``val`` through ``pt2`` on 15f's fitted split against live
+   ``val``. Each bound is a ``P20_`` constant.
 
 Phases 10a to 10c run right after phase 6, on the float graph phases 3 to 6
-used; 10d, 10e, 15f, 16, 17, 19 and 11 after phase 9, then 18 last. Phases
-12 to 15 run beside them in a second process on the same card, started
+used; 10d, 10e, 15f, 16, 17, 19, 20b, 20f and 11 after phase 9, then 18 last.
+Phases 12 to 15, 20a and 20c to 20e run beside them in a second process on the same card, started
 once phase 2's kernel times are taken (``SIDE_FLAG``): each process keeps
 half the host's threads for its CPU references while both run, the second
 writes its output to a file that the first prints once it has ended, and
@@ -273,7 +290,8 @@ product path (``product_launches``) and on phase 12's photos
 ``int8_matmul`` its bf16 epilogue's figures (``bf16_out``); each also carries
 its launches on phase 13's and 14's task paths (``task_launches``), on
 phase 15's (``mode_launches``), on phase 16's (``zoo_launches``), on
-phase 17's (``detr_launches``) and on phase 18's (``facade_launches``),
+phase 17's (``detr_launches``), on phase 18's (``facade_launches``) and on
+phase 20's artifacts and live val (``export_launches``),
 ``decode_box_best`` phase 2's task-head figures (``task_heads``, float32 and
 bf16), both decode kernels phase 16d's (``zoo_heads``), ``int8_matmul``
 phase 15's figures per task graph (``task_graphs``), phase 16's per
@@ -1265,6 +1283,16 @@ def time_path_products(dev, shapes, label: str = f"yolo11n, batch 4, {IMGSZ} px"
         return start.elapsed_time(end) / reps, sum(us for _, us, _ in kern) / reps / 1e3, kern
 
     call_ms, ms, kern = per_forward(int8_matmul_prepared, prepared, 5)
+
+    def operator(x, w, sw, sx):  # bsyolo::int8_matmul, as an exported int8 graph calls it (its weight kept on w)
+        return torch.ops.bsyolo.int8_matmul(x, w, sw, sx, torch.float32)
+
+    op_call_ms = op_ms = None
+    if detail:
+        op_call_ms, op_ms, op_kern = per_forward(operator, operands, 5)
+        op_others = sorted({name for name, _, _ in op_kern if "int8_matmul_kernel" not in name})
+        if op_others:
+            raise SystemExit(f"the int8_matmul operator ran device work besides the kernel: {op_others}")
     plain_call_ms, plain_ms, _ = per_forward(int8_matmul_reference, operands, 2)
     lib_call_ms, lib_ms, _ = per_forward(int8_library, library_ops, 5)
     # the bf16 epilogue (int8 on the half graph): the same products writing bfloat16
@@ -1280,11 +1308,12 @@ def time_path_products(dev, shapes, label: str = f"yolo11n, batch 4, {IMGSZ} px"
           f"({bf16_bound_by}, bf16 out); device items {[n[:60] for n in bf16_names]}")
     if any("int8_matmul_kernel" not in n or "bfloat16" not in n for n in bf16_names):
         raise SystemExit(f"the bf16 epilogue ran other device work or another instantiation: {bf16_names}")
-    # host time per call in turns (prepared weight, as the conv path calls it; int8_matmul_cuda, which
-    # prepares the weight on every call; torch._int_mm + dequantization), twice each
+    # host time per call in turns (prepared weight, as the eager conv calls it; the operator, as an exported
+    # graph calls it; int8_matmul_cuda, which prepares the weight on every call; torch._int_mm +
+    # dequantization), twice each
     turns = [(what, host_us(fn, inputs, 5)) for _ in range(2) for what, fn, inputs in (
-        ("prepared", int8_matmul_prepared, prepared), ("int8_matmul_cuda", int8_matmul_cuda, operands),
-        ("_int_mm", int8_library, library_ops))] if detail else []
+        ("prepared", int8_matmul_prepared, prepared), ("operator", operator, operands),
+        ("int8_matmul_cuda", int8_matmul_cuda, operands), ("_int_mm", int8_library, library_ops))] if detail else []
     host = {what: min(us for name, us in turns if name == what) for what, _ in turns}
     kernel_only = sum(us for name, us, _ in kern if "int8_matmul_kernel" in name) / 5 / 1e3
     others = sorted({name for name, _, _ in kern if "int8_matmul_kernel" not in name})
@@ -1300,8 +1329,12 @@ def time_path_products(dev, shapes, label: str = f"yolo11n, batch 4, {IMGSZ} px"
           f"({bound_by}: {bytes_moved / 1e6:.1f} MB, {n_ops / 1e9:.2f} Gop)")
     if detail:
         print("  host time per call (the calls' own host time over 5 forwards, in turns): " + "; ".join(
-            f"{what} {us:.2f} us" for what, us in turns) + " (prepared: the weight prepared once, as the conv path "
-            "calls it; int8_matmul_cuda prepares it on every call; _int_mm: torch._int_mm + dequantization)")
+            f"{what} {us:.2f} us" for what, us in turns) + " (prepared: the weight prepared once, as the eager conv "
+            "calls it; operator: bsyolo::int8_matmul, as an exported int8 graph calls it, its prepared weight kept "
+            "on the weight's tensor; int8_matmul_cuda prepares it on every call; _int_mm: torch._int_mm + "
+            "dequantization)")
+        print(f"  bsyolo::int8_matmul over the same products: {op_ms:.4f} ms on the device per forward, "
+              f"{op_call_ms:.3f} ms host to host (events), against {call_ms:.3f} through the prepared weight")
     outside = (ms - kernel_only) / ms
     print(f"  device time outside int8_matmul_kernel: {outside:.4f} of {ms:.4f} ms (must be 0); other device "
           f"items: {others or 'none'}")
@@ -1310,7 +1343,8 @@ def time_path_products(dev, shapes, label: str = f"yolo11n, batch 4, {IMGSZ} px"
     del operands, prepared, library_ops
     torch.cuda.empty_cache()
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by, call_ms=call_ms,
-                plain_call_ms=plain_call_ms, host_us_per_call=host.get("prepared"),
+                plain_call_ms=plain_call_ms, host_us_per_call=host.get("prepared"), operator_call_ms=op_call_ms,
+                operator_host_us_per_call=host.get("operator"),
                 shape=f"the {len(shapes)} products of one forward, {label}",
                 bf16_out=dict(ms=bf16_ms, call_ms=bf16_call_ms, bound_ms=bf16_bound_ms, bound_by=bf16_bound_by,
                               library_ms=lib16_ms, library_call_ms=lib16_call_ms))
@@ -5166,20 +5200,343 @@ def world_nas_path(dev, data, own, frames, root):
     return total, head, int8_figures
 
 
+# phase 20: the train step's remat and the trainer's chunk_steps, export and serving (pt2, pt2-int8, ONNX,
+# AutoBackend, artifact val); 20a and 20c to 20e in the second process, 20b and 20f in this one
+P20_BATCH = 16  # 20a: yolo11n train steps at IMGSZ, batch 16, drawn weights, in each remat mode
+P20_STEPS = 3  # 20a: steps per mode from the same weights and batches; ms and peak memory over the last two
+P20_MODES = ("off", "full", "seg", "light")
+# 20a: a mode's steps against the plain step's on the same card. The first step's forward is the plain step's, so
+# its loss items agree to float32 noise, and so do the BatchNorm statistics; cuDNN's backward sums with atomics in
+# an order that changes from run to run (1.6e-6 of the whole gradient, phase 7a), so parameters are held as phase 7a
+# holds them (max |diff| over the tensor's max |value|), and the later steps' loss items, which read parameters
+# so moved through draw_weights' saturated head, are printed, not held
+P20_LOSS_RTOL, P20_BN_RTOL, P20_PARAM_RTOL = 1e-4, 1e-4, TRAIN_PARAM_RTOL
+P20B_IMGSZ, P20B_BATCH, P20B_CHUNK = 320, 12, 4  # 20b: phase 9's 64 train frames: 5 batches, one chunk and a tail
+P20B_PARAM_RTOL = 2e-3  # 20b: final parameters, chunked against step by step (phase 7a's parameter gate)
+P20_EXPORT_BATCH = 4  # 20c, 20d: pt2 and pt2-int8 at IMGSZ, batch 4
+P20_CALLS = 20  # 20c, 20d: timed calls of the artifact and of the live graph, in turns
+# 20c: the artifact's rows against the live graph's decode on the same card: the same kernels; the exported
+# BatchNorm is the decomposed inference kernel, the live one cuDNN's (float32 rounding)
+P20_ROWS_RTOL, P20_BOX_ATOL_PX, P20_SCORE_ATOL = 1e-4, 1e-3, 1e-6
+# 20d: pt2-int8 against the live int8 graph (the same codes and kernel; a float32 difference before a conv
+# can move one code across a rounding boundary): max |diff| over the live output's max |value|
+P20_INT8_REL = 1e-3
+P20_ONNX_IMGSZ = 320  # 20e: ONNX at 320, batch 1, on the host's numpy runtime against the card's live graph
+P20_ONNX_BOX_ATOL_PX, P20_ONNX_SCORE_ATOL = 1e-2, 1e-4  # float32 on both sides, sums in another order (cuDNN, numpy)
+P20_VAL_ATOL = 1e-3  # 20f: artifact val against live val on 15f's own split (boxes from two decode epilogues)
+
+
+def remat_path(dev, model):
+    """Phase 20a: the yolo11n train step at IMGSZ, batch P20_BATCH, with remat off, full, seg and light from the
+    same drawn weights and batches: loss items, BatchNorm statistics and parameters against the plain step's,
+    ms per step and peak memory of each; full and light must need less memory than off. No kernel launches."""
+    import copy
+
+    import torch
+
+    from bsyolo_tpu_torch import kernels
+    from bsyolo_tpu_torch.engine.train_step import init_train_state, make_train_step
+
+    graph = copy.deepcopy(model.model)
+    seeded = {k: v.clone() for k, v in graph.state_dict().items()}
+    cfg = train_config(model.spec, P20_BATCH)
+    rng = np.random.default_rng(SEED + 200)
+    batches = [on_device(synthetic_batch(rng, P20_BATCH, (IMGSZ, IMGSZ)), dev) for _ in range(P20_STEPS)]
+    kernels.reset_launch_counts()
+    runs = {}
+    for mode in P20_MODES:
+        graph.load_state_dict(seeded)
+        c = cfg._replace(remat=False if mode == "off" else mode)
+        state, step = init_train_state(graph, c), make_train_step(graph, c)
+        items = []
+        state, m = step(state, batches[0])
+        items.append([float(m[k]) for k in ("box_loss", "cls_loss", "dfl_loss")])
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        for b in batches[1:]:
+            state, m = step(state, b)
+            items.append([float(m[k]) for k in ("box_loss", "cls_loss", "dfl_loss")])
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3 / (P20_STEPS - 1)
+        peak = torch.cuda.max_memory_allocated(dev)
+        cpu = lambda d: {k: v.detach().float().cpu().clone() for k, v in d.items()}
+        runs[mode] = {"items": np.array(items), "params": cpu(state.params), "bn": cpu(state.batch_stats), "ms": ms,
+                      "peak": peak}
+        del state, step
+        torch.cuda.empty_cache()
+    graph.eval()
+    off = runs["off"]
+    figures = {}
+    for mode, r in runs.items():
+        rel_items = np.abs(r["items"] - off["items"]) / np.abs(off["items"]).clip(1e-12)
+        loss, later = float(rel_items[0].max()), float(rel_items[1:].max())
+        param = max(float((r["params"][k] - v).abs().max() / v.abs().max().clamp_min(1e-12)) for k, v in
+                    off["params"].items())
+        bn = max(float((r["bn"][k] - v).abs().max() / v.abs().max().clamp_min(1e-12)) for k, v in off["bn"].items())
+        figures[mode] = {"ms_per_step": r["ms"], "peak_gib": r["peak"] / 2 ** 30, "loss_rel": loss, "later_loss_rel": later,
+                         "param_rel": param, "bn_rel": bn}
+        print(f"phase 20a remat {mode:5s}: {r['ms']:.2f} ms per step, peak {r['peak'] / 2 ** 30:.3f} GiB "
+              f"(torch.cuda.max_memory_allocated); against off: first step's loss items {loss:.3g}, params {param:.3g}, "
+              f"BatchNorm statistics {bn:.3g} (gates {P20_LOSS_RTOL}, {P20_PARAM_RTOL}, {P20_BN_RTOL}); later steps' "
+              f"loss items {later:.3g}")
+        if loss > P20_LOSS_RTOL or param > P20_PARAM_RTOL or bn > P20_BN_RTOL:
+            raise SystemExit(f"phase 20a: remat {mode} moved the step beyond its gates")
+    for mode in ("full", "light"):  # light frees the boundary outputs that its activations can make again
+        if not runs[mode]["peak"] < runs["off"]["peak"]:
+            raise SystemExit(f"phase 20a: remat {mode} peaked at {runs[mode]['peak']} bytes, not below off's "
+                             f"{runs['off']['peak']}")
+    expect_launches("remat steps", {"decode_box_best": 0, "decode_xywh": 0, "int8_matmul": 0})
+    return figures
+
+
+def chunk_trainer_path(dev, data, root):
+    """Phase 20b: YOLO.train of yolo11n for one epoch with chunk_steps P20B_CHUNK and with 0 on phase 9's data
+    and seed (float32, no validation), in turns (chunked, step by step, step by step, chunked: a first run pays
+    first-use costs), all from one checkpoint of drawn weights and with cuDNN's deterministic algorithms: every
+    run's final parameters within P20B_PARAM_RTOL of the first step-by-step run's; ms per step and the loader's
+    wait per step of each. (From the default init every class logit sits at its bias, so the assigner's scores
+    tie and run-to-run float noise picks other anchors: two runs of either kind part by O(1) within 5 steps;
+    the CPU, deterministic, gives equal parameters.)"""
+    import torch
+
+    from bsyolo_tpu_torch import YOLO, kernels
+
+    init = Path(root) / "p20_init.ckpt"
+    drawn = YOLO("yolo11n.yaml")
+    draw_weights(drawn.model, SEED)
+    drawn.save(init)
+    kernels.reset_launch_counts()
+    runs = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for i, k in enumerate((P20B_CHUNK, 0, 0, P20B_CHUNK)):
+            m = YOLO("yolo11n.yaml")
+            m.train(data=str(data), epochs=1, imgsz=P20B_IMGSZ, batch=P20B_BATCH, nbs=P20B_BATCH, amp=False,
+                    val=False, plots=False, workers=0, cache="ram", seed=3, chunk_steps=k, pretrained=str(init),
+                    project=str(Path(root) / "runs"), name=f"p20chunk{i}", exist_ok=True)
+            wait, wall, steps = m.trainer.loader_wait[-1]
+            if steps != 5 or m.trainer.state.step != 5 or (m.trainer.chunk_step is None) != (k == 0):
+                raise SystemExit(f"phase 20b: chunk_steps={k} ran {steps} steps in the epoch, expected 5")
+            params = {n: p.detach().cpu().clone() for n, p in m.trainer.state.params.items()}
+            runs.append((k, params, wall * 1e3 / steps, wait * 1e3 / steps))
+            print(f"phase 20b: run {i}, chunk_steps={k}: {wall * 1e3 / steps:.1f} ms per step, of which the loader "
+                  f"{wait * 1e3 / steps:.1f} ms (wall of the epoch's 5 steps, a chunk of {P20B_CHUNK} and a tail of 1 "
+                  f"when chunked)")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    ref = runs[1][1]
+    rel = max(float((p[n] - v).abs().max() / v.abs().max().clamp_min(1e-12)) for _, p, _, _ in runs
+              for n, v in ref.items())
+    mean = lambda kind, col: sum(r[col] for r in runs if (r[0] > 0) == kind) / 2
+    figures = {"chunk_ms_per_step": mean(True, 2), "step_ms_per_step": mean(False, 2),
+               "chunk_wait_ms_per_step": mean(True, 3), "step_wait_ms_per_step": mean(False, 3), "param_rel": rel}
+    print(f"phase 20b: YOLO.train one epoch, {P20B_IMGSZ} px, batch {P20B_BATCH}, 5 steps, two runs each: "
+          f"chunk_steps={P20B_CHUNK} {figures['chunk_ms_per_step']:.1f} ms per step (loader "
+          f"{figures['chunk_wait_ms_per_step']:.1f}), step by step {figures['step_ms_per_step']:.1f} "
+          f"(loader {figures['step_wait_ms_per_step']:.1f}); final parameters {rel:.3g} apart (gate {P20B_PARAM_RTOL})")
+    if rel > P20B_PARAM_RTOL:
+        raise SystemExit("phase 20b: the chunked trainer's parameters left the step-by-step trainer's")
+    expect_launches("chunked trainer", {"decode_box_best": 0, "decode_xywh": 0, "int8_matmul": 0})
+    return figures
+
+
+def timed_in_turns(fns, x, calls: int = P20_CALLS):
+    """ms per call of each function on ``x``, run in turns (a, b, b, a) after a warm call each."""
+    import torch
+
+    for fn in fns:
+        fn(x)
+    total = [0.0] * len(fns)
+    for order in (range(len(fns)), reversed(range(len(fns)))):
+        for i in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls // 2):
+                fns[i](x)
+            torch.cuda.synchronize()
+            total[i] += time.perf_counter() - t0
+    return [t * 1e3 / (2 * (calls // 2)) for t in total]
+
+
+def rows_against(label, got, want, box_atol, score_atol, rtol=P20_ROWS_RTOL):
+    """Decoded (B, A, 4 + nc) rows against the live ones: boxes within rtol + box_atol px, scores within rtol +
+    score_atol."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise SystemExit(f"phase {label}: rows of shape {got.shape}, finite {np.isfinite(got).all()}; want {want.shape}")
+    box = float(np.max(np.abs(got[..., :4] - want[..., :4]) - rtol * np.abs(want[..., :4])))
+    score = float(np.max(np.abs(got[..., 4:] - want[..., 4:]) - rtol * np.abs(want[..., 4:])))
+    print(f"phase {label}: rows {got.shape}; boxes beyond rtol {rtol}: {max(box, 0):.3g} px (atol {box_atol}), scores "
+          f"{max(score, 0):.3g} (atol {score_atol})")
+    if box > box_atol or score > score_atol:
+        raise SystemExit(f"phase {label}: the artifact's rows left the live graph's")
+
+
+def live_decode(graph, spec):
+    import torch
+
+    from bsyolo_tpu_torch.nn.heads import decode_detections
+
+    def run(x):
+        with torch.inference_mode():
+            feats = graph(x.permute(0, 3, 1, 2).contiguous())  # NCHW, as a letterboxed batch
+            return decode_detections(feats, spec.head_strides, spec.nc, spec.reg_max)
+
+    return run
+
+
+def pt2_path(dev, model, root):
+    """Phase 20c: yolo11n (drawn weights) exported to pt2 at IMGSZ, batch P20_EXPORT_BATCH, loaded in a fresh
+    AutoBackend on the card: its rows against the live graph's decode, decode_xywh once per call, export
+    seconds and artifact against live ms per batch."""
+    import torch
+
+    from bsyolo_tpu_torch import kernels
+    from bsyolo_tpu_torch.engine.backend import AutoBackend
+
+    t0 = time.perf_counter()
+    art = model.export(format="pt2", imgsz=IMGSZ, batch=P20_EXPORT_BATCH, output=str(Path(root) / "yolo11n.pt2"))
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    backend = AutoBackend(art)
+    load_s = time.perf_counter() - t0
+    if backend.device != dev:
+        raise SystemExit(f"phase 20c: AutoBackend loaded on {backend.device}, not {dev}")
+    x = torch.rand((P20_EXPORT_BATCH, IMGSZ, IMGSZ, 3), generator=torch.Generator().manual_seed(SEED + 20)).to(dev)
+    live = live_decode(model.model.eval(), model.spec)
+    kernels.reset_launch_counts()
+    got = backend(x)
+    torch.cuda.synchronize()
+    launches = expect_launches("pt2 artifact (one call)", {"decode_box_best": 0, "decode_xywh": 1, "int8_matmul": 0})
+    rows_against("20c pt2", got.cpu(), live(x).cpu(), P20_BOX_ATOL_PX, P20_SCORE_ATOL)
+    art_ms, live_ms = timed_in_turns([backend, live], x)
+    size = Path(art).stat().st_size
+    print(f"phase 20c: pt2 export {export_s:.1f} s ({size} bytes), load {load_s:.1f} s; {art_ms:.2f} ms per batch of "
+          f"{P20_EXPORT_BATCH} through the artifact, {live_ms:.2f} ms through the live graph")
+    return launches, {"export_s": export_s, "load_s": load_s, "artifact_ms": art_ms, "live_ms": live_ms}
+
+
+def pt2_int8_path(dev, model, root):
+    """Phase 20d: pt2-int8 of the same graph, calibrated on four uniform batches as the exporter does, against the
+    live int8 graph with the same scales: output within P20_INT8_REL; 74 int8_matmul launches and one decode_xywh
+    per forward."""
+    import torch
+
+    from bsyolo_tpu_torch import kernels
+    from bsyolo_tpu_torch.engine.backend import AutoBackend
+    from bsyolo_tpu_torch.nn.modules import quantizable_convs, set_int8_inference
+    from bsyolo_tpu_torch.nn.quant import calibrate_int8
+
+    rng = np.random.default_rng(0)
+    batches = [torch.from_numpy(rng.uniform(0, 1, (P20_EXPORT_BATCH, IMGSZ, IMGSZ, 3)).astype(np.float32))
+               .permute(0, 3, 1, 2).contiguous().to(dev) for _ in range(4)]
+    set_int8_inference(model.model, True, calibrate_int8(model.model, batches))
+    try:
+        t0 = time.perf_counter()
+        art = model.export(format="pt2-int8", imgsz=IMGSZ, batch=P20_EXPORT_BATCH,
+                           output=str(Path(root) / "yolo11n.pt2-int8"))
+        export_s = time.perf_counter() - t0
+        backend = AutoBackend(art)
+        x = torch.rand((P20_EXPORT_BATCH, IMGSZ, IMGSZ, 3), generator=torch.Generator().manual_seed(SEED + 21)).to(dev)
+        live = live_decode(model.model.eval(), model.spec)
+        n = len(quantizable_convs(model.model))
+        kernels.reset_launch_counts()
+        got = backend(x)
+        torch.cuda.synchronize()
+        launches = expect_launches("pt2-int8 artifact (one forward)", {"decode_box_best": 0, "decode_xywh": 1,
+                                                                       "int8_matmul": n})
+        want = live(x)
+        rel = float((got - want).abs().max() / want.abs().max())
+        print(f"phase 20d: pt2-int8 export {export_s:.1f} s; {n} int8_matmul launches per forward; output against the "
+              f"live int8 graph {rel:.3g} of its max (gate {P20_INT8_REL})")
+        if not np.isfinite(got.cpu().numpy()).all() or rel > P20_INT8_REL:
+            raise SystemExit("phase 20d: the pt2-int8 artifact left the live int8 graph")
+        art_ms, live_ms = timed_in_turns([backend, live], x)
+    finally:
+        set_int8_inference(model.model, False)
+    print(f"phase 20d: {art_ms:.2f} ms per batch of {P20_EXPORT_BATCH} through the int8 artifact, {live_ms:.2f} ms "
+          f"through the live int8 graph")
+    return launches, {"export_s": export_s, "artifact_ms": art_ms, "live_ms": live_ms, "rel": rel}
+
+
+def onnx_path(dev, model, root):
+    """Phase 20e: ONNX of the same graph at P20_ONNX_IMGSZ, batch 1, through the port's writer, evaluated by its
+    numpy runtime on the host against the card's live graph (cuDNN float32, TF32 off); host seconds."""
+    import torch
+
+    from bsyolo_tpu_torch.onnx import OnnxModule
+
+    t0 = time.perf_counter()
+    art = model.export(format="onnx", imgsz=P20_ONNX_IMGSZ, batch=1, output=str(Path(root) / "yolo11n.onnx"))
+    export_s = time.perf_counter() - t0
+    x = np.random.default_rng(SEED + 22).uniform(0, 1, (1, P20_ONNX_IMGSZ, P20_ONNX_IMGSZ, 3)).astype(np.float32)
+    t0 = time.perf_counter()
+    module = OnnxModule(art)
+    got = module(x)[0]
+    host_s = time.perf_counter() - t0
+    want = live_decode(model.model.eval(), model.spec)(torch.from_numpy(x).to(dev)).cpu()
+    rows_against("20e onnx", got, want, P20_ONNX_BOX_ATOL_PX, P20_ONNX_SCORE_ATOL)
+    ops = sorted({n["op_type"] for n in module.nodes})
+    print(f"phase 20e: ONNX export {export_s:.1f} s ({len(module.nodes)} nodes, ops {', '.join(ops)}); the numpy "
+          f"runtime took {host_s:.1f} s of host time for one image at {P20_ONNX_IMGSZ}")
+    return {"export_s": export_s, "host_s": host_s}
+
+
+def serving_side_path(dev):
+    """Phases 20a, 20c, 20d and 20e, in the second process: the drawn yolo11n on the card."""
+    from bsyolo_tpu_torch import YOLO
+
+    model = YOLO("yolo11n.yaml", seed=SEED)
+    draw_weights(model.model, SEED)
+    figures = {"remat": phase("20a", remat_path, dev, model)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p20_") as root:
+        pt2_launches, figures["pt2"] = phase("20c", pt2_path, dev, model, root)
+        int8_launches, figures["pt2_int8"] = phase("20d", pt2_int8_path, dev, model, root)
+        figures["onnx"] = phase("20e", onnx_path, dev, model, root)
+    launches = {k: pt2_launches[k] + int8_launches[k] for k in pt2_launches}
+    return launches, figures
+
+
+def artifact_val_path(dev, own, root):
+    """Phase 20f: yolo11n fitted in phase 15f, exported to pt2 at IMGSZ with batch P15_OWN: artifact val on the own
+    split against live val on the card (within P20_VAL_ATOL), decode_box_best once for live val's batch and
+    decode_xywh once for the artifact's."""
+    from bsyolo_tpu_torch import YOLO, kernels
+
+    best = Path(root) / "runs" / "p15detect" / "weights" / "best.ckpt"
+    card = YOLO(best)
+    art = card.export(format="pt2", imgsz=IMGSZ, batch=P15_OWN, output=str(Path(root) / "p15detect.pt2"))
+    kernels.reset_launch_counts()
+    live = card.val(data=str(own), batch=P15_OWN, imgsz=IMGSZ, verbose=False).results_dict
+    got = YOLO(art).val(data=str(own), verbose=False).results_dict
+    launches = expect_launches("live and artifact val", {"decode_box_best": 1, "decode_xywh": 1, "int8_matmul": 0})
+    diff = max(abs(float(got[k]) - float(v)) for k, v in live.items())
+    print(f"phase 20f: artifact val {', '.join(f'{k} {float(v):.4f}' for k, v in got.items())}; live val "
+          f"{', '.join(f'{k} {float(v):.4f}' for k, v in live.items())}; largest difference {diff:.3g} (gate "
+          f"{P20_VAL_ATOL})")
+    if diff > P20_VAL_ATOL or float(live["metrics/mAP50(B)"]) <= P15_SIGNAL:
+        raise SystemExit("phase 20f: artifact val left live val, or live val carries no signal")
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, row, bf16_launches, bf16_head=None, product_launches=0,
                  photo_launches=0, task_launches=0, mode_launches=0, zoo_launches=0, detr_launches=0,
-                 facade_launches=0, world_launches=0):
+                 facade_launches=0, world_launches=0, export_launches=0):
     """One entry of the kernels line; ``launches`` counts every path's run, ``bf16_launches`` those of
     phase 10's bf16 paths among them, ``product_launches`` those of phase 11's product path,
     ``photo_launches`` those of phase 12's real photos, ``task_launches`` those of phase 13's and 14's task
     paths, ``mode_launches`` those of phase 15's bf16 and int8 paths (the four task graphs and Detect's int8
     val), ``zoo_launches`` those of phase 16's YOLO v8, v10 and v6 paths, ``detr_launches`` those of phase 17's
     RT-DETR int8 paths, ``facade_launches`` those of phase 18's facade outputs, ``world_launches`` those of phase
-    19's YOLO-World and YOLO-NAS paths, ``bf16_head`` the kernel on a real forward's bf16 head."""
+    19's YOLO-World and YOLO-NAS paths, ``export_launches`` those of phase 20's artifacts (pt2, pt2-int8, artifact
+    val) and live val, ``bf16_head`` the kernel on a real forward's bf16 head."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "bf16_launches": bf16_launches, "product_launches": product_launches, "photo_launches": photo_launches,
             "task_launches": task_launches, "mode_launches": mode_launches, "zoo_launches": zoo_launches,
             "detr_launches": detr_launches, "facade_launches": facade_launches, "world_launches": world_launches,
+            "export_launches": export_launches,
             **({"task_heads": row["task_heads"]} if "task_heads" in row else {}),
             **({"zoo_heads": row["zoo_heads"]} if "zoo_heads" in row else {}),
             **({"zoo_graphs": row["zoo_graphs"]} if "zoo_graphs" in row else {}),
@@ -5192,6 +5549,7 @@ def kernel_entry(name, source, replaces, launches, row, bf16_launches, bf16_head
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
             "shape": row["shape"], "call_ms": row["call_ms"], "plain_call_ms": row["plain_call_ms"],
             **({"host_us_per_call": row["host_us_per_call"]} if "host_us_per_call" in row else {}),
+            **{k: row[k] for k in ("operator_call_ms", "operator_host_us_per_call") if row.get(k) is not None},
             **({"two_byte_levels": row["two_byte_levels"]} if "two_byte_levels" in row else {}),
             **({"bf16_out": row["bf16_out"]} if "bf16_out" in row else {})}
 
@@ -5204,18 +5562,20 @@ def phase(name: str, fn, *args):
     return out
 
 
-SIDE_FLAG = "--side-phases"  # this script as the second process: phases 12 to 15 (side_phases)
+SIDE_FLAG = "--side-phases"  # this script as the second process: phases 12 to 15 and 20a, 20c to 20e (side_phases)
 
 
 def side_phase_results(dev) -> dict:
-    """Phases 12 to 15: their launches and phase 15's int8_matmul figures per task graph."""
+    """Phases 12 to 15 and 20a, 20c to 20e: their launches, phase 15's int8_matmul figures per task graph and
+    phase 20's figures."""
     photo_launches = phase("12", photo_path, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:  # phase 15 takes 13's and 14's datasets
         task_launches = phase("13", task_path, dev, root)
         obb_cls_launches = phase("14", obb_classify_path, dev, root)
         mode_launches, task_graphs = phase("15", task_modes_path, dev, root)
+    serving_launches, serving = serving_side_path(dev)
     return {"photo": photo_launches, "task": task_launches, "obb_cls": obb_cls_launches, "mode": mode_launches,
-            "task_graphs": task_graphs}
+            "task_graphs": task_graphs, "serving": serving_launches, "serving_figures": serving}
 
 
 def side_phases(out: str, parent: str) -> int:
@@ -5261,7 +5621,7 @@ class SideProcess:
         self.dev, self.mode = dev, compute_mode()
         self.proc = None
         if self.mode != "Default":
-            print(f"compute mode {self.mode!r}: phases 12 to 15 run in this process, after phase 11")
+            print(f"compute mode {self.mode!r}: phases 12 to 15, 20a and 20c to 20e run in this process, after phase 11")
             return
         self.threads = torch.get_num_threads()
         self.dir = tempfile.TemporaryDirectory(prefix="chip_smoke_side_")
@@ -5282,13 +5642,14 @@ class SideProcess:
         rc = self.proc.wait()
         torch.set_num_threads(self.threads)
         text = self.log.read_text()
-        print(f"phases 12 to 15, in a process of their own beside phases 3 to 11, 16, 17 and 19: exit code {rc} "
+        print(f"phases 12 to 15, 20a and 20c to 20e, in a process of their own beside phases 3 to 11, 16, 17, 19, 20b "
+              f"and 20f: exit code {rc} "
               f"after {time.perf_counter() - self.t0:.1f} s, {time.perf_counter() - t0:.1f} s of it waited for; "
               f"their output follows")
         sys.stdout.write(text)
         if rc != 0:
             sys.stderr.write(text[-8000:])
-            raise SystemExit(f"phases 12 to 15 failed in their own process (exit code {rc})")
+            raise SystemExit(f"phases 12 to 15 and 20 (side) failed in their own process (exit code {rc})")
         return json.loads(self.out.read_text())
 
     def stop(self) -> None:
@@ -5358,12 +5719,16 @@ def main() -> int:
         detr_launches, int8_row["detr_graph"] = phase("17", detr_path, dev, own, own_frames, root)
         world_launches, box_row["world_head"], int8_row["world_graphs"] = phase("19", world_nas_path, dev, data,
                                                                                  own, frames, root)
+        chunk_figures = phase("20b", chunk_trainer_path, dev, data, root)
+        served_val_launches = phase("20f", artifact_val_path, dev, own, root)
     box_row["zoo_heads"], xywh_row["zoo_heads"] = zoo_box, zoo_xywh
     product_launches = phase("11", product_path, dev)
     side_out = side.join()
     photo_launches, task_launches, obb_cls_launches, mode_launches = (side_out[k] for k in ("photo", "task",
                                                                                             "obb_cls", "mode"))
     int8_row["task_graphs"] = side_out["task_graphs"]
+    export = {k: side_out["serving"][k] + served_val_launches[k] for k in served_val_launches}
+    print(f"phase 20 figures: {json.dumps({**side_out['serving_figures'], 'chunk': chunk_figures}, default=float)}")
     facade_launches = phase("18", facade_path)
     task_launches = {k: task_launches[k] + obb_cls_launches[k] for k in task_launches}
     mode_launches = {k: mode_launches[k] + detect_int8_launches[k] for k in mode_launches}
@@ -5376,24 +5741,27 @@ def main() -> int:
                      + product_launches["decode_box_best"] + photo_launches["decode_box_best"]
                      + task_launches["decode_box_best"] + mode_launches["decode_box_best"]
                      + zoo_launches["decode_box_best"] + facade_launches["decode_box_best"]
-                     + world_launches["decode_box_best"], box_row,
+                     + world_launches["decode_box_best"] + export["decode_box_best"], box_row,
                      bf16["decode_box_best"], box_half, product_launches["decode_box_best"],
                      photo_launches["decode_box_best"], task_launches["decode_box_best"],
                      mode_launches["decode_box_best"], zoo_launches["decode_box_best"],
                      facade_launches=facade_launches["decode_box_best"],
-                     world_launches=world_launches["decode_box_best"]),
+                     world_launches=world_launches["decode_box_best"], export_launches=export["decode_box_best"]),
         kernel_entry("decode_xywh", "bsyolo_tpu_torch/kernels/csrc/decode.cu",
                      "bsyolo_tpu/kernels/decode.py:34",
                      tta_launches["decode_xywh"] + tiled_launches["decode_xywh"] + bf16["decode_xywh"]
-                     + zoo_launches["decode_xywh"], xywh_row,
-                     bf16["decode_xywh"], xywh_half, zoo_launches=zoo_launches["decode_xywh"]),
+                     + zoo_launches["decode_xywh"] + export["decode_xywh"], xywh_row,
+                     bf16["decode_xywh"], xywh_half, zoo_launches=zoo_launches["decode_xywh"],
+                     export_launches=export["decode_xywh"]),
         kernel_entry("int8_matmul", "bsyolo_tpu_torch/kernels/csrc/int8_matmul.cu",
                      "bsyolo_tpu/kernels/int8_matmul.py:38",
                      int8_launches["int8_matmul"] + bf16["int8_matmul"] + mode_launches["int8_matmul"]
-                     + zoo_launches["int8_matmul"] + detr_launches["int8_matmul"] + world_launches["int8_matmul"],
+                     + zoo_launches["int8_matmul"] + detr_launches["int8_matmul"] + world_launches["int8_matmul"]
+                     + export["int8_matmul"],
                      dict(max_abs_err=int8_err, **int8_row), bf16["int8_matmul"],
                      mode_launches=mode_launches["int8_matmul"], zoo_launches=zoo_launches["int8_matmul"],
-                     detr_launches=detr_launches["int8_matmul"], world_launches=world_launches["int8_matmul"]),
+                     detr_launches=detr_launches["int8_matmul"], world_launches=world_launches["int8_matmul"],
+                     export_launches=export["int8_matmul"]),
     ]}
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(card)

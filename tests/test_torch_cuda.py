@@ -1042,3 +1042,78 @@ def test_half_and_int8_task_predict_on_the_card_match_the_cpu(cuda_device, graph
             np.testing.assert_allclose(a.probs.data, b.probs.data, rtol=0, atol=1e-3)
         else:
             assert abs(len(a) - len(b)) <= max(2, len(b) // 10)
+
+
+# --- the kernels as PyTorch operators (bsyolo::decode_xywh, bsyolo::box_best, bsyolo::int8_matmul) ------------
+
+
+@pytest.mark.parametrize("op", ["decode_xywh", "box_best"])
+def test_decode_operators_launch_the_kernel_and_match_their_fake_shapes(cuda_device, op):
+    """Each operator on CUDA levels launches its kernel once, equals the plain version within the decode
+    tolerances above, and its fake version (FakeTensorMode) gives the kernel's shapes and dtypes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from bsyolo_tpu_torch.kernels import decode
+
+    b, sizes, strides, nc = DECODE_SHAPES["b4-640"]
+    levels = [f.to(cuda_device) for f in _levels(np.random.default_rng(7), b, sizes, nc)]
+    wrapper = decode.decode_xywh_cuda if op == "decode_xywh" else decode.box_best_cuda
+    before = wrapper.launches
+    got = getattr(torch.ops.bsyolo, op)(levels, list(strides), nc, 16)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    ref = (decode.decode_xywh_reference if op == "decode_xywh" else decode.box_best_reference)(levels, strides, nc)
+    got, ref = (got, ref) if op == "box_best" else ((got,), (ref,))
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r.contiguous(), rtol=1e-5, atol=2e-3)
+    with FakeTensorMode() as mode:
+        fake = getattr(torch.ops.bsyolo, op)([mode.from_tensor(f) for f in levels], list(strides), nc, 16)
+    fake = fake if op == "box_best" else (fake,)
+    assert [(tuple(f.shape), f.dtype, f.device) for f in fake] == [(tuple(g.shape), g.dtype, g.device) for g in got]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_int8_operator_launches_the_kernel_and_matches_its_fake_shape(cuda_device, out_dtype):
+    """bsyolo::int8_matmul on CUDA tensors: one launch, the plain version's result exactly, a prepared weight
+    kept on the weight tensor (a second call prepares none), and the fake version's shape and dtype."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from bsyolo_tpu_torch.kernels import int8_matmul as im
+
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.integers(-127, 128, (6400, 144)).astype(np.int8)).to(cuda_device)
+    w = torch.from_numpy(rng.integers(-127, 128, (144, 64)).astype(np.int8)).to(cuda_device)
+    sw = torch.from_numpy(rng.uniform(1e-3, 1e-2, 64).astype(np.float32)).to(cuda_device)
+    sx = torch.tensor(0.02, device=cuda_device)
+    before = im.int8_matmul_cuda.launches
+    got = torch.ops.bsyolo.int8_matmul(x, w, sw, sx, out_dtype)
+    kept = w._int8_weight[1]
+    again = torch.ops.bsyolo.int8_matmul(x, w, sw, sx, out_dtype)
+    torch.cuda.synchronize()
+    assert im.int8_matmul_cuda.launches == before + 2 and w._int8_weight[1] is kept
+    want = im.int8_matmul_reference(x, w, sw, sx, out_dtype)
+    assert torch.equal(got, want) and torch.equal(again, want)
+    with FakeTensorMode() as mode:
+        fake = torch.ops.bsyolo.int8_matmul(*(mode.from_tensor(t) for t in (x, w, sw, sx)), out_dtype)
+    assert (tuple(fake.shape), fake.dtype, fake.device) == (tuple(got.shape), got.dtype, got.device)
+
+
+def test_pt2_artifact_launches_the_decode_kernel(cuda_device, tmp_path):
+    """A pt2 export of the tiny graph on the card, reloaded through AutoBackend: one decode_xywh launch per call
+    and the live graph's decode within the decode tolerances."""
+    from bsyolo_tpu_torch import YOLO
+    from bsyolo_tpu_torch.engine.backend import AutoBackend
+    from bsyolo_tpu_torch.kernels import decode
+    from bsyolo_tpu_torch.nn.heads import decode_detections
+
+    m = YOLO("tests/fixtures/tiny.yaml", device=cuda_device)
+    art = m.export(format="pt2", imgsz=128, batch=2, output=str(tmp_path / "t.pt2"))
+    b = AutoBackend(art, device=cuda_device)
+    x = torch.rand(2, 128, 128, 3, device=cuda_device)
+    before = decode.decode_xywh_cuda.launches
+    got = b(x)
+    torch.cuda.synchronize()
+    assert decode.decode_xywh_cuda.launches == before + 1
+    with torch.no_grad():
+        want = decode_detections(m.model(x.permute(0, 3, 1, 2).contiguous()), m.spec.head_strides, m.spec.nc)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-3)

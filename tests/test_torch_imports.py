@@ -1,5 +1,5 @@
 """The port stands alone: no module of bsyolo_tpu_torch, and not chip_smoke.py, imports JAX,
-flax, PyYAML, OpenCV, PIL or anything of the JAX package.
+flax, PyYAML, OpenCV, PIL, the onnx packages or anything of the JAX package.
 
 Each check runs in a fresh interpreter whose import system refuses those
 packages, imports every module of the port (and loads chip_smoke.py as a
@@ -16,7 +16,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 _SCRIPT = r'''
 import importlib, importlib.abc, importlib.util, pkgutil, sys
-BLOCKED = ("jax", "jaxlib", "flax", "yaml", "cv2", "PIL", "bsyolo_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "yaml", "cv2", "PIL", "bsyolo_tpu", "onnx", "onnxruntime")
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
@@ -209,3 +209,43 @@ def test_obb_and_classify_train_val_predict_without_opencv_pil_or_jax(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().rsplit("\n", 1)[-1] == str([("obb", 5, True, 4, True), ("classify", 3, 2, (2,)),
                                                           (4, "0 0.300000 0.300000 0.400000 0.400000\n")]), out.stdout
+
+
+_EXPORT = r"""
+import importlib.abc, sys
+from pathlib import Path
+import numpy as np
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("cv2", "PIL", "yaml", "jax", "jaxlib", "flax", "bsyolo_tpu"):
+            raise ImportError(f"blocked: {name}")
+        return None  # onnx and onnxruntime: torch.export probes for them; neither may be imported
+
+sys.meta_path.insert(0, Refuse())
+from bsyolo_tpu_torch import YOLO
+from bsyolo_tpu_torch.engine.backend import AutoBackend
+from bsyolo_tpu_torch.utils import native
+
+root = Path(sys.argv[1])
+m = YOLO("tests/fixtures/tiny.yaml", device="cpu")
+x = np.random.default_rng(0).uniform(0, 1, (1, 64, 64, 3)).astype(np.float32)
+outs = []
+for fmt in ("pt2", "onnx", "params"):
+    path = m.export(format=fmt, imgsz=64, output=str(root / f"t.{fmt}"))
+    if fmt != "params":
+        outs.append(tuple(AutoBackend(path, device="cpu")(x).shape))
+lb, r = native.letterbox(np.zeros((30, 40, 3), np.uint8), (64, 64))
+outs.append((lb.shape, round(r, 6)))
+outs.append(sorted(n for n in sys.modules if n.split(".")[0] in ("onnx", "onnxruntime")))
+print(outs)
+"""
+
+
+def test_export_backend_and_native_run_without_jax_onnx_or_opencv(tmp_path):
+    """``pt2``, ``onnx`` and ``params`` exports, their reload through AutoBackend, and the native library's
+    binding, with JAX, the onnx packages, OpenCV, PIL and PyYAML refused."""
+    out = subprocess.run([sys.executable, "-c", _EXPORT, str(tmp_path)], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300, env={"PYTHONPATH": str(ROOT), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().rsplit("\n", 1)[-1] == str([(1, 80, 6), (1, 80, 6), ((64, 64, 3), 1.6), []]), out.stdout

@@ -371,7 +371,8 @@ def test_options_of_other_families_raise(tiny):
     cfg = StepConfig(loss=DetectionLossConfig(nc=2, strides=(8, 16)), optim=OptimConfig(), batch_size=2, nb=1, nw=1,
                      use_adamw=False, weight_decay=0.0)
     port = _port_model(tiny[2])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(port, cfg._replace(remat=True))
+    with pytest.raises(ValueError, match="remat='bogus'"):  # remat is ported: only an unknown mode raises
+        make_train_step(port, cfg._replace(remat="bogus"))
+    make_train_step(port, cfg._replace(remat=True))
     make_train_step(port, cfg._replace(needs_dropout_rng=True))  # dropout is ported: the step owns a generator
     make_train_step(port, cfg._replace(pass_targets=True))  # RT-DETR's targets are ported: so is their generator

@@ -227,7 +227,6 @@ def test_cli_train_val_predict(legs, tmp_path):
 
 @pytest.mark.parametrize("option,item", [
     ({"plots": True}, "item 16"), ({"profile": True}, "item 16"), ({"batch": -1}, "item 16"),
-    ({"chunk_steps": 4}, "item 22"),
 ])
 def test_unported_options_raise_naming_their_item(option, item):
     from bsyolo_tpu_torch.engine.trainer import DetectionTrainer
@@ -260,11 +259,10 @@ def test_unported_processes_modes_tasks_and_formats_raise(monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="item 14"):
         DetectionTrainer(overrides=dict(COMMON, data="x.yaml", device="cpu"))
-    for argv, item in ((["benchmark"], "item 15"), (["export"], "item 15")):
-        with pytest.raises(NotImplementedError, match=item):
-            main(argv)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        YOLO("best.onnx", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 16"):  # export is ported; benchmark comes with item 16
+        main(["benchmark"])
+    with pytest.raises(ValueError, match="pt2"):  # the JAX package's StableHLO: the port's artifacts are .pt2
+        YOLO("best.stablehlo", device="cpu")
     with pytest.raises(NotImplementedError, match="item 16"):
         YOLO(TINY, device="cpu").val(data="x.yaml", plots=True)
 
